@@ -1,0 +1,310 @@
+"""Top-level MAFL simulation (Algorithm 1) — the paper's experiment engine.
+
+Couples the channel/mobility simulator, the event-driven async scheduler, the
+vehicle clients, and the RSU aggregation into ``run_simulation``.  The host
+engines of ``repro.core.mafl`` share identical event semantics
+(DESIGN.md §2-§3):
+
+``engine="serial"`` (alias ``"unbatched"``)
+    One event at a time, exactly Algorithm 1's arrival order.
+
+``engine="batched"`` (default)
+    Wave-based: every pending upload's payload snapshot is frozen at
+    schedule time, so all pending local updates are mutually independent
+    and train together — full ``wave_chunk``-sized slices as one vmapped
+    step, remainders through the serial loop.  Aggregation still consumes
+    events strictly in time order, so the (round, vehicle, time) sequence
+    is identical to the serial engine's.
+
+The timeline is host numpy f64 and never reads parameters; the model,
+local training, aggregation and eval run on ``device``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.channel import (ChannelParams, Mobility, RayleighAR1,
+                                 SlotGainCache, shannon_rate, training_delay,
+                                 upload_delay)
+from repro_torch.core.client import Vehicle, VehicleData, local_update_many
+from repro_torch.core.events import EventQueue
+from repro_torch.core.server import RSUServer
+from repro_torch.device import resolve_device
+from repro_torch.models.cnn import cnn_forward, init_cnn
+
+# accepted run_simulation engine names ('unbatched' is a legacy alias for
+# 'serial'); repro's 'jit' engine arrives with the fleet-engine slice
+ENGINES = ("batched", "serial", "unbatched")
+
+
+@dataclass
+class SimResult:
+    scheme: str
+    rounds: list
+    acc_history: list          # (round, accuracy)
+    loss_history: list         # (round, loss)
+    final_params: object = None
+    extras: dict = field(default_factory=dict)
+    # repro's RunReport; stays None until the port's telemetry slice
+    report: object = None
+
+    def final_accuracy(self) -> float:
+        return self.acc_history[-1][1] if self.acc_history else float("nan")
+
+
+@torch.no_grad()
+def _eval_step(params, images, labels, mask):
+    """Masked per-batch eval: (#correct, summed NLL) over mask==1 rows."""
+    logits = cnn_forward(params, images)
+    correct = ((logits.argmax(-1) == labels).float() * mask).sum()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels[:, None])[:, 0]
+    return correct, (nll * mask).sum()
+
+
+def evaluate(params, images, labels, batch: int = 1000, device=None):
+    """Global-model metrics on the test set (Eqs. 1, 12).
+
+    ``images`` / ``labels`` may be numpy arrays or tensors; they are moved
+    to ``device`` (``None`` -> the card).  Every slice — including the
+    ragged final one — is padded to exactly ``batch`` rows with the padding
+    masked out of both metrics, as in ``repro.core.mafl.evaluate``;
+    ``batch`` is capped at the test-set size."""
+    device = resolve_device(device)
+    images = torch.as_tensor(images, device=device)
+    labels = torch.as_tensor(labels, device=device).long()
+    n = len(labels)
+    batch = max(min(batch, n), 1)
+    correct = loss_sum = 0.0
+    for s in range(0, n, batch):
+        img, lab = images[s:s + batch], labels[s:s + batch]
+        m = len(lab)
+        if m < batch:
+            pad = (batch - m,) + img.shape[1:]
+            img = torch.cat([img, img.new_zeros(pad)])
+            lab = torch.cat([lab, lab.new_zeros(batch - m)])
+        mask = (torch.arange(batch, device=device) < m).float()
+        c, l = _eval_step(params, img, lab, mask)
+        correct += float(c)
+        loss_sum += float(l)
+    return correct / n, loss_sum / n
+
+
+def unported(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; it arrives with the port's {slice_name} "
+        "slice (ROADMAP.md, queue 1)")
+
+
+def run_simulation(
+    vehicles_data: Sequence[VehicleData],
+    test_images: np.ndarray,
+    test_labels: np.ndarray,
+    *,
+    scheme: str = "mafl",
+    rounds: int = 60,
+    l_iters: int = 5,
+    lr: float = 0.01,
+    params: Optional[ChannelParams] = None,
+    seed: int = 0,
+    eval_every: int = 1,
+    use_kernel: bool = False,
+    init_params=None,
+    interpretation: str = "mixing",
+    progress: Optional[Callable[[int, float], None]] = None,
+    engine: str = "batched",
+    wave_chunk: int = 16,
+    batch_size: int = 128,
+    selection=None,
+    ring_dtype: str = "f32",
+    metrics=None,
+    faults=None,
+    device=None,
+) -> SimResult:
+    """Run M rounds of the chosen aggregation scheme (Algorithm 1).
+
+    Every vehicle uses the same minibatch size — ``min(batch_size, min_i
+    D_i)`` — as in ``repro`` (DESIGN.md §6).  ``init_params`` is a param
+    dict (e.g. from :func:`repro_torch.convert.params_from_jax`); without
+    it the model is drawn by :func:`init_cnn` from a generator seeded with
+    ``seed``.  ``device=None`` runs on the card.
+
+    Not ported yet, and raising: ``engine="jit"``, ``ring_dtype`` other
+    than f32, ``selection``, ``faults`` and ``metrics`` other than
+    None/"off"."""
+    if engine == "jit":
+        raise unported("engine='jit'", "fleet-engine (item 5)")
+    if engine not in ENGINES:
+        raise ValueError(
+            f"unknown engine {engine!r}; expected one of {ENGINES}")
+    if ring_dtype != "f32":
+        raise ValueError(
+            f"ring_dtype={ring_dtype!r} requires the device fleet engine; "
+            "the host engines keep full-precision params")
+    if selection is not None:
+        raise unported("vehicle selection", "selection (item 8)")
+    if faults not in (None, "off"):
+        raise unported("fault injection", "faults (item 9)")
+    if metrics not in (None, "off"):
+        raise unported("run metrics", "telemetry (item 10)")
+    device = resolve_device(device)
+    p = params or ChannelParams()
+    if len(vehicles_data) != p.K:
+        raise ValueError(
+            f"{len(vehicles_data)} vehicle shards for K={p.K} vehicles")
+    if init_params is None:
+        init_params = init_cnn(torch.Generator().manual_seed(seed),
+                               device=device)
+
+    server = RSUServer(init_params, p, scheme=scheme, use_kernel=use_kernel,
+                       interpretation=interpretation, device=device)
+    fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
+    clients = [Vehicle(d, lr=lr, batch_size=fleet_batch, seed=seed,
+                       device=device) for d in vehicles_data]
+    test_images = torch.as_tensor(test_images, device=device)
+    test_labels = torch.as_tensor(test_labels, device=device)
+
+    timeline = _Timeline(p, seed)
+    queue = timeline.queue
+    if engine == "batched":
+        # The event timeline depends only on the channel/mobility/data-size
+        # processes, never on training — so a time-only dry run tells us
+        # *exactly* which (vehicle, cycle) uploads the M rounds consume, and
+        # the wave engine trains nothing else.
+        consumed = _consumed_events(p, seed, rounds)
+
+    def schedule(vehicle: int, t_download: float):
+        timeline.schedule(vehicle, t_download, server.global_params)
+
+    for k in range(p.K):
+        schedule(k, 0.0)
+
+    result = SimResult(scheme=scheme, rounds=[], acc_history=[],
+                       loss_history=[])
+
+    def consume(ev) -> None:
+        """One arrival: aggregate in time order, eval, re-download (Fig. 2).
+
+        ``ev.local_params`` must already hold the local update trained from
+        the stale payload snapshot."""
+        rec = server.receive(
+            ev.local_params, time=ev.time, vehicle=ev.vehicle,
+            upload_delay=ev.upload_delay, train_delay=ev.train_delay,
+            download_time=ev.download_time)
+        ev.local_params = ev.payload = None
+        if server.round % eval_every == 0 or server.round == rounds:
+            acc, loss = evaluate(server.global_params, test_images,
+                                 test_labels, device=device)
+            rec.accuracy, rec.loss = acc, loss
+            result.acc_history.append((server.round, acc))
+            result.loss_history.append((server.round, loss))
+            if progress:
+                progress(server.round, acc)
+        # the vehicle re-downloads the fresh global model (Fig. 2)
+        schedule(ev.vehicle, ev.time)
+        timeline.prune()
+
+    if engine in ("serial", "unbatched"):
+        while server.round < rounds and len(queue):
+            ev = queue.pop()
+            # local training from the model the vehicle downloaded (the
+            # stale snapshot in the payload); the compute runs now, but the
+            # ordering and delays follow the event times (DESIGN.md §2)
+            ev.local_params, _ = clients[ev.vehicle].local_update(
+                ev.payload, l_iters)
+            consume(ev)
+    else:
+        while server.round < rounds and len(queue):
+            # Wave: train every pending upload that the dry run proved will
+            # be consumed and whose result is missing.  Payload snapshots
+            # are frozen at schedule time, so these trainings are mutually
+            # independent and none is wasted.
+            untrained = sorted(
+                (ev for ev in queue.pending()
+                 if ev.local_params is None
+                 and (ev.vehicle, ev.cycle) in consumed),
+                key=lambda ev: (ev.time, ev.seq))
+            batches = [clients[ev.vehicle].sample_batches(l_iters)
+                       for ev in untrained]
+            outs, losses = local_update_many(
+                [ev.payload for ev in untrained], batches, lr,
+                chunk=wave_chunk)
+            for ev, out, lo in zip(untrained, outs, losses):
+                ev.local_params, ev.local_loss = out, lo
+            # Drain in time order until an event without a precomputed
+            # result (freshly re-scheduled) reaches the front — identical
+            # arrival semantics to the serial engine.
+            while (server.round < rounds and len(queue)
+                   and queue.peek().local_params is not None):
+                consume(queue.pop())
+            if (not untrained and server.round < rounds and len(queue)
+                    and queue.peek().local_params is None):
+                # the dry run said the front event is never consumed, yet
+                # rounds remain — the timelines have diverged; fail loudly
+                raise RuntimeError(
+                    "batched engine: dry-run consumed-set diverged "
+                    f"from live timeline at round {server.round} "
+                    f"(front event vehicle={queue.peek().vehicle} "
+                    f"cycle={queue.peek().cycle})")
+
+    result.rounds = server.rounds
+    result.final_params = server.global_params
+    return result
+
+
+class _Timeline:
+    """The event timeline: channel gains, mobility, and the pending-upload
+    queue.  Times depend only on (params, seed) — never on training — so a
+    payload-free instance replays the identical schedule (DESIGN.md §3).
+
+    Channel gains are sampled per discrete slot and kept only for the live
+    event window (``SlotGainCache``)."""
+
+    def __init__(self, p: ChannelParams, seed: int):
+        self.p = p
+        self.distance = Mobility(p).distance
+        self.gains = SlotGainCache(RayleighAR1(p, seed=seed))
+        self.queue = EventQueue()
+        self._cycle = [0] * p.K
+
+    def schedule(self, vehicle: int, t_download: float, payload=None):
+        """Vehicle downloads w_g at t_download, trains C_l, uploads C_u.
+
+        The *snapshot of the global model at download time* rides along in
+        the event payload, which is what makes the uploads stale."""
+        p = self.p
+        c_l = training_delay(p, vehicle + 1)                # 1-based index
+        t_up = t_download + c_l
+        gain = self.gains.at(t_up)[vehicle]
+        rate = shannon_rate(p, gain, self.distance(vehicle, t_up))
+        c_u = upload_delay(p, rate)
+        cyc = self._cycle[vehicle]
+        self._cycle[vehicle] += 1
+        return self.queue.push(t_up + c_u, vehicle,
+                               download_time=t_download, train_delay=c_l,
+                               upload_delay=c_u, payload=payload, cycle=cyc)
+
+    def prune(self):
+        if len(self.queue):
+            self.gains.prune_below(self.queue.earliest_time())
+
+
+def _consumed_events(p: ChannelParams, seed: int,
+                     rounds: int) -> set[tuple[int, int]]:
+    """Dry-run the timeline (no training, no payloads): the exact set of
+    (vehicle, cycle) uploads consumed within ``rounds`` arrivals."""
+    tl = _Timeline(p, seed)
+    for k in range(p.K):
+        tl.schedule(k, 0.0)
+    out: set[tuple[int, int]] = set()
+    while len(out) < rounds and len(tl.queue):
+        ev = tl.queue.pop()
+        out.add((ev.vehicle, ev.cycle))
+        tl.schedule(ev.vehicle, ev.time)
+        tl.prune()
+    return out

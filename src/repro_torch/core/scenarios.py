@@ -1,0 +1,320 @@
+"""Scenario registry: named, parameterized simulation worlds (DESIGN.md §8).
+
+The full registry of ``repro.core.scenarios``, as data, so every named world
+builds identically in both packages.  ``run_scenario`` runs the single-RSU
+worlds on the host engines (``serial`` and ``batched``); the corridor,
+device-engine, sweep, selection, fault and bf16 worlds raise with the name of
+the slice of the port they wait for.
+
+    from repro_torch.core.scenarios import run_scenario
+    result = run_scenario("paper-k10", use_kernel=True)     # on the card
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+from repro_torch.channel import ChannelParams
+from repro_torch.core.mafl import (ENGINES, SimResult, run_simulation,
+                                   unported)
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class Scenario:
+    """Everything needed to build and run one simulation world."""
+    name: str
+    description: str
+    K: int = 10
+    rounds: int = 40
+    l_iters: int = 5
+    lr: float = 0.03
+    scheme: str = "mafl"
+    # data world
+    n_train: int = 6000
+    n_test: int = 800
+    noise: float = 0.5
+    scale: float = 0.02
+    dirichlet_alpha: Optional[float] = None
+    max_per_vehicle: Optional[int] = None
+    # topology
+    n_rsus: int = 1
+    reconcile_every: int = 8
+    # cloud-tier reconciliation (multi-RSU only): "fedavg" = every cohort
+    # adopts the cross-RSU mean; "ema" = each cohort moves reconcile_tau
+    # toward it (DESIGN.md §10)
+    reconcile_mode: str = "fedavg"
+    reconcile_tau: float = 0.5
+    # initial corridor placement: "uniform" traffic or a "rush" wave
+    # packed into the westmost segment (CorridorMobility entry profiles)
+    corridor_entry: str = "uniform"
+    # vehicle selection (DESIGN.md §11): policy name (None = the paper's
+    # admit-everyone baseline with zero selection machinery), per-RSU
+    # admission cap k, per-RSU upload-airtime budget (seconds/cycle),
+    # bandit exploration probability, and the single-RSU re-selection
+    # epoch in rounds (corridor worlds re-score at reconcile boundaries)
+    selection: Optional[str] = None
+    selection_k: Optional[int] = None
+    selection_budget: Optional[float] = None
+    selection_eps: float = 0.1
+    resel_every: Optional[int] = None
+    # snapshot-ring dtype on the device engines' flat fast path (DESIGN.md
+    # §12): "f32" = bitwise-exact (golden-pinned); "bf16" = half-memory
+    # ring + upload buffers around f32 master weights — an explicit
+    # opt-in, never a default precision change
+    ring_dtype: str = "f32"
+    # fault injection (DESIGN.md §16): name of a FaultSpec profile from
+    # ``repro.faults.PROFILES`` (None = the fault-free world — the engines
+    # compile the identical program and share its cache entry), plus
+    # dataclasses.replace(...) override pairs applied to the profile
+    faults: Optional[str] = None
+    faults_overrides: tuple = ()
+    # dataclasses.replace(...) overrides applied to ChannelParams
+    channel_overrides: tuple = ()
+
+    def channel(self) -> ChannelParams:
+        return dataclasses.replace(ChannelParams(), K=self.K,
+                                   **dict(self.channel_overrides))
+
+
+_REGISTRY: dict[str, Scenario] = {}
+
+
+def register(sc: Scenario) -> Scenario:
+    if sc.name in _REGISTRY:
+        raise ValueError(f"duplicate scenario {sc.name!r}")
+    _REGISTRY[sc.name] = sc
+    return sc
+
+
+def get_scenario(name: str) -> Scenario:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        known = ", ".join(sorted(_REGISTRY))
+        raise KeyError(f"unknown scenario {name!r}; known: {known}") from None
+
+
+def list_scenarios() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+register(Scenario(
+    name="paper-k10",
+    description="The paper's Section V-A world: K=10, Table-I "
+                "heterogeneity, IID shards (CPU-scaled).",
+))
+register(Scenario(
+    name="paper-k10-noniid",
+    description="Paper world with Dirichlet(0.5) class-skewed shards.",
+    dirichlet_alpha=0.5,
+))
+register(Scenario(
+    name="quick-k5",
+    description="Five-vehicle smoke world for tests and CI.",
+    K=5, rounds=10, l_iters=2, n_train=1200, n_test=240, scale=0.01,
+))
+register(Scenario(
+    name="fleet-k100",
+    description="Fleet-scale: 100 vehicles under one RSU; shard storage "
+                "capped so the wave engine batches ~uniform minibatches.",
+    K=100, rounds=120, scale=0.022, max_per_vehicle=512,
+    n_train=4000, n_test=800,
+))
+register(Scenario(
+    name="fleet-k100-noniid",
+    description="100-vehicle fleet with Dirichlet(0.3) heterogeneity.",
+    K=100, rounds=120, scale=0.022, max_per_vehicle=512,
+    n_train=4000, n_test=800, dirichlet_alpha=0.3,
+))
+register(Scenario(
+    name="fleet-k1000",
+    description="Mega-fleet: 1000 vehicles under one RSU, single local "
+                "step per download (many clients x few local iterations); "
+                "sized for engine='jit' (DESIGN.md §9) — the snapshot ring "
+                "holds rounds+1 models instead of 1000 payloads.",
+    K=1000, rounds=30, l_iters=1, scale=0.004, max_per_vehicle=256,
+    n_train=4000, n_test=400,
+))
+register(Scenario(
+    name="fleet-k1000-noniid",
+    description="Mega-fleet with Dirichlet(0.3) class-skewed shards.",
+    K=1000, rounds=30, l_iters=1, scale=0.004, max_per_vehicle=256,
+    n_train=4000, n_test=400, dirichlet_alpha=0.3,
+))
+register(Scenario(
+    name="fleet-k10000",
+    description="Giga-fleet: 10000 vehicles under one RSU — the regime "
+                "the DRL-selection literature studies (PAPERS.md) and the "
+                "flat fast path unlocks: the bf16 snapshot ring + packed "
+                "upload buffers halve the ring memory that caps the f32 "
+                "pytree layout (DESIGN.md §12), and aggregation streams "
+                "as fused ring_agg chains.",
+    K=10000, rounds=60, l_iters=1, scale=0.0008, max_per_vehicle=64,
+    n_train=4000, n_test=400, ring_dtype="bf16",
+))
+register(Scenario(
+    name="platoon-burst-k500",
+    description="Bursty arrivals: 500 vehicles in platoons of 25 sharing "
+                "the leader's compute/data (identical training delays), so "
+                "uploads land in near-simultaneous bursts — stress test "
+                "for time-ordered consumption under the jit engine.",
+    K=500, rounds=40, l_iters=1, scale=0.005, max_per_vehicle=256,
+    n_train=4000, n_test=400,
+    channel_overrides=(("platoon", 25),),
+))
+register(Scenario(
+    name="highway-k40-handover",
+    description="Four-RSU corridor, 40 vehicles with handover and "
+                "periodic cross-RSU reconciliation.",
+    K=40, rounds=80, n_rsus=4, reconcile_every=8,
+    scale=0.02, max_per_vehicle=512, n_train=4000, n_test=800,
+))
+register(Scenario(
+    name="corridor-quick-r2-k8",
+    description="Two-RSU, eight-vehicle corridor smoke world for tests "
+                "and the CI corridor bench.",
+    K=8, rounds=8, l_iters=1, n_rsus=2, reconcile_every=4,
+    n_train=1200, n_test=240, scale=0.01,
+))
+register(Scenario(
+    name="corridor-r4-k400",
+    description="Conformance-sized corridor: four RSUs, 400 vehicles, "
+                "device-resident handover engine vs the serial reference.",
+    K=400, rounds=40, l_iters=1, n_rsus=4, reconcile_every=8,
+    scale=0.006, max_per_vehicle=256, n_train=4000, n_test=400,
+))
+register(Scenario(
+    name="corridor-r8-k4000",
+    description="Mega-corridor: eight RSUs, 4000 vehicles — four times "
+                "the largest single-RSU fleet; sized for "
+                "engine='corridor' (the serial reference is extrapolated "
+                "only, DESIGN.md §10).",
+    K=4000, rounds=40, l_iters=1, n_rsus=8, reconcile_every=8,
+    scale=0.0015, max_per_vehicle=128, n_train=4000, n_test=400,
+))
+register(Scenario(
+    name="fleet-k1000-topk",
+    description="Mega-fleet with weighted-topk selection (DESIGN.md §11): "
+                "the RSU admits the 250 best vehicles by data x compute x "
+                "predicted residence time, so waves shrink 4x at equal "
+                "rounds (arXiv:2304.02832's selection ingredients).",
+    K=1000, rounds=30, l_iters=1, scale=0.004, max_per_vehicle=256,
+    n_train=4000, n_test=400,
+    selection="weighted-topk", selection_k=250,
+))
+register(Scenario(
+    name="fleet-k1000-budget",
+    description="Mega-fleet under a per-cycle upload-airtime budget "
+                "(arXiv:2210.15496's binding constraint): cheapest-upload "
+                "vehicles admitted until 0.5 s of slot budget is spent.",
+    K=1000, rounds=30, l_iters=1, scale=0.004, max_per_vehicle=256,
+    n_train=4000, n_test=400,
+    selection="budget", selection_budget=0.5,
+))
+register(Scenario(
+    name="corridor-r4-k400-bandit",
+    description="Conformance-sized corridor with eps-greedy bandit "
+                "selection: each RSU admits its 25 best vehicles by "
+                "historical delay-weight reward (10% exploration), "
+                "re-scored at every reconcile boundary so handed-over "
+                "vehicles are re-scored by their new RSU.",
+    K=400, rounds=40, l_iters=1, n_rsus=4, reconcile_every=8,
+    scale=0.006, max_per_vehicle=256, n_train=4000, n_test=400,
+    selection="eps-bandit", selection_k=25, selection_eps=0.1,
+))
+register(Scenario(
+    name="corridor-rush-hour-r8-k4000",
+    description="Rush hour on the mega-corridor: 4000 vehicles in "
+                "platoons of 50 entering at the west end, a density wave "
+                "propagating down the eight RSU cells (bursty arrivals + "
+                "skewed per-RSU load).",
+    K=4000, rounds=40, l_iters=1, n_rsus=8, reconcile_every=8,
+    scale=0.0015, max_per_vehicle=128, n_train=4000, n_test=400,
+    corridor_entry="rush", channel_overrides=(("platoon", 50),),
+))
+register(dataclasses.replace(
+    get_scenario("fleet-k1000"),
+    name="fleet-k1000-flaky",
+    description="Mega-fleet under flaky connectivity (DESIGN.md §16): "
+                "8% of uploads drop mid-flight and vehicles fall into "
+                "Gilbert-Elliott blackouts (~30 s mean), with uploads "
+                "staler than 12 rounds discarded at the RSU — the "
+                "graceful-degradation baseline for the faults bench.",
+    faults="flaky",
+))
+register(dataclasses.replace(
+    get_scenario("corridor-rush-hour-r8-k4000"),
+    name="corridor-rush-hour-deadzone-r8-k4000",
+    description="Rush hour on the mega-corridor with coverage dead zones "
+                "(DESIGN.md §16): 10% blackout entry per cycle with ~60 s "
+                "mean outages — a platoon that enters a dead zone goes "
+                "dark as a block — and a 16-round staleness cap at every "
+                "RSU; recovered vehicles re-admit at reconcile "
+                "boundaries.",
+    faults="deadzone",
+))
+register(dataclasses.replace(
+    get_scenario("fleet-k1000"),
+    name="fleet-k1000-throttled",
+    description="Mega-fleet under compute throttling (DESIGN.md §16): "
+                "half the training cycles finish only a prefix of the "
+                "local epochs (partial computation), 30% of vehicles are "
+                "4x stragglers, and an 8-round staleness cap discards "
+                "what arrives too late.",
+    faults="throttled",
+))
+
+
+def build_world(sc: Scenario, seed: int = 0):
+    """Materialize (vehicles, test_images, test_labels, params) for ``sc``."""
+    # deferred: repro_torch.data imports repro_torch.core.client, so a
+    # module-level import here would make the core package circular
+    from repro_torch.data import partition_vehicles, synth_mnist
+    tr_i, tr_l, te_i, te_l = synth_mnist(n_train=sc.n_train,
+                                         n_test=sc.n_test, seed=0,
+                                         noise=sc.noise)
+    p = sc.channel()
+    veh = partition_vehicles(tr_i, tr_l, p, seed=seed, scale=sc.scale,
+                             dirichlet_alpha=sc.dirichlet_alpha,
+                             max_per_vehicle=sc.max_per_vehicle)
+    return veh, te_i, te_l, p
+
+
+def run_scenario(scenario: str | Scenario, *, seed: int = 0,
+                 engine: Optional[str] = None, eval_every: int = 10,
+                 progress=None, use_kernel: bool = False, metrics=None,
+                 device=None, **overrides) -> SimResult:
+    """Build the named world and run it on ``device`` (``None`` -> the
+    card); ``overrides`` replace Scenario fields (e.g. ``rounds=20``).
+
+    Single-RSU worlds only; ``engine=None`` auto-selects ``"batched"``."""
+    device = resolve_device(device)
+    sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
+    if overrides:
+        sc = dataclasses.replace(sc, **overrides)
+    if sc.n_rsus > 1 or engine == "corridor":
+        raise unported(f"multi-RSU corridor world {sc.name!r}",
+                        "corridor (item 7)")
+    if engine == "jit" or sc.ring_dtype != "f32":
+        raise unported("the device-resident fleet engine and its bf16 "
+                        "ring", "fleet-engine (item 5)")
+    if engine == "vmap":
+        raise unported("engine='vmap'", "sweep (item 11)")
+    if sc.selection is not None:
+        raise unported(f"selection policy {sc.selection!r}",
+                        "selection (item 8)")
+    if sc.faults is not None:
+        raise unported(f"fault profile {sc.faults!r}", "faults (item 9)")
+    eng = engine or "batched"
+    if eng not in ENGINES:
+        raise ValueError(
+            f"unknown engine {eng!r}; expected one of {ENGINES}")
+    veh, te_i, te_l, p = build_world(sc, seed=seed)
+    return run_simulation(
+        veh, te_i, te_l, scheme=sc.scheme,
+        rounds=sc.rounds, l_iters=sc.l_iters, lr=sc.lr,
+        params=p, seed=seed, eval_every=eval_every,
+        use_kernel=use_kernel, engine=eng, progress=progress,
+        metrics=metrics, device=device)

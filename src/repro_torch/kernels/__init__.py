@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels of the port and their launch counts.
+
+``KERNELS`` lists every kernel the port can launch; ``reset_launches``
+zeroes their counts, so a run can show which kernels its path went
+through."""
+from repro_torch.kernels.weighted_agg.ops import KERNEL as WEIGHTED_AGG
+
+KERNELS = (WEIGHTED_AGG,)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}

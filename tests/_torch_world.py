@@ -1,0 +1,66 @@
+"""Shared by the port's slice tests: one world run through ``repro`` and
+``repro_torch`` from the same (JAX-drawn) init, and the comparison.
+
+Tolerances: the (round, vehicle) trace is host f64 and must be identical,
+event times and delay weights equal to rtol 1e-9.  Parameters: both sides
+train in f32, but the convolutions sum in different orders (and XLA
+contracts some multiply-adds into FMAs), a few ulps per op that SGD carries
+from round to round — about 4e-7 absolute after 8 paper-k10 rounds — so
+final params are held to atol 2e-5 / rtol 1e-4.  Accuracy within 0.02, the
+golden suite's bar."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+import repro.core.mafl as jmafl
+import repro.core.scenarios as jsc
+import repro.models.cnn as jcnn
+import repro_torch.core.mafl as tmafl
+import repro_torch.core.scenarios as tsc
+from repro_torch.convert import params_from_jax, params_to_numpy
+
+PARAM_TOL = dict(rtol=1e-4, atol=2e-5)
+ACC_TOL = 0.02
+
+
+def jax_init(seed: int = 0) -> dict[str, np.ndarray]:
+    """repro's CNN init as numpy leaves."""
+    return {k: np.asarray(v)
+            for k, v in jcnn.init_cnn(jax.random.PRNGKey(seed)).items()}
+
+
+def run_both(name, init, **kw):
+    sc = jsc.get_scenario(name)
+    jveh, jti, jtl, jp = jsc.build_world(sc)
+    tveh, tti, ttl, tp = tsc.build_world(tsc.get_scenario(name))
+    common = dict(scheme=sc.scheme, l_iters=sc.l_iters, lr=sc.lr, seed=0,
+                  eval_every=2, use_kernel=True)
+    common.update(kw)
+    jres = jmafl.run_simulation(
+        jveh, jti, jtl, params=jp,
+        init_params={k: jnp.asarray(v) for k, v in init.items()}, **common)
+    tres = tmafl.run_simulation(
+        tveh, tti, ttl, params=tp, init_params=params_from_jax(init, "cpu"),
+        device="cpu", **common)
+    return jres, tres
+
+
+def assert_conforms(jres, tres):
+    assert ([(r.round, r.vehicle) for r in jres.rounds]
+            == [(r.round, r.vehicle) for r in tres.rounds])
+    for a, b in zip(jres.rounds, tres.rounds):
+        np.testing.assert_allclose(
+            [b.time, b.upload_delay, b.train_delay, b.weight],
+            [a.time, a.upload_delay, a.train_delay, a.weight], rtol=1e-9)
+    tnp = params_to_numpy(tres.final_params)
+    for k, v in jres.final_params.items():
+        assert tres.final_params[k].device.type == "cpu"
+        np.testing.assert_allclose(tnp[k], np.asarray(v), err_msg=k,
+                                   **PARAM_TOL)
+    assert [r for r, _ in jres.acc_history] == [r for r, _ in
+                                                tres.acc_history]
+    for (_, a), (_, b) in zip(jres.acc_history, tres.acc_history):
+        assert abs(a - b) <= ACC_TOL
+        assert np.isfinite(b)

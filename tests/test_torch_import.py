@@ -1,0 +1,122 @@
+"""The port stands alone: no ``jax`` and nothing of ``repro`` is imported by
+``repro_torch`` or ``chip_smoke.py``; entry points without ``device`` run on
+the card or raise; unported features raise naming their slice."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.channel import ChannelParams
+from repro_torch.core.client import Vehicle, VehicleData
+from repro_torch.core.mafl import evaluate, run_simulation
+from repro_torch.core.scenarios import run_scenario
+from repro_torch.core.server import RSUServer
+from repro_torch.device import resolve_device
+from repro_torch.models.cnn import init_cnn
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module)
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    for name in _imported_roots(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def _tiny_world():
+    rng = np.random.default_rng(0)
+    data = VehicleData(index=1, images=rng.random((8, 28, 28, 1),
+                                                  dtype=np.float32),
+                       labels=rng.integers(0, 10, 8).astype(np.int32))
+    return data
+
+
+@pytest.mark.parametrize("entry", [
+    "resolve_device", "run_scenario", "run_simulation", "evaluate",
+    "Vehicle", "RSUServer"])
+def test_entry_points_default_to_the_card(entry):
+    """``device=None`` means the card: without one the call raises instead
+    of running on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    data = _tiny_world()
+    params = init_cnn(torch.Generator().manual_seed(0), device="cpu")
+    calls = {
+        "resolve_device": lambda: resolve_device(None),
+        "run_scenario": lambda: run_scenario("quick-k5", rounds=1),
+        "run_simulation": lambda: run_simulation(
+            [data], data.images, data.labels,
+            params=ChannelParams(K=1), rounds=1),
+        "evaluate": lambda: evaluate(params, data.images, data.labels),
+        "Vehicle": lambda: Vehicle(data),
+        "RSUServer": lambda: RSUServer(params, ChannelParams()),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("kwargs, slice_name", [
+    (dict(scenario="corridor-quick-r2-k8"), "corridor"),
+    (dict(scenario="quick-k5", engine="jit"), "fleet-engine"),
+    (dict(scenario="fleet-k10000"), "fleet-engine"),
+    (dict(scenario="quick-k5", engine="vmap"), "sweep"),
+    (dict(scenario="fleet-k1000-topk"), "selection"),
+    (dict(scenario="fleet-k1000-flaky"), "faults"),
+    (dict(scenario="quick-k5", metrics="on"), "telemetry"),
+])
+def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
+    with pytest.raises(NotImplementedError, match=slice_name):
+        run_scenario(device="cpu", **kwargs)
+
+
+def test_unknown_engine_raises():
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_scenario("quick-k5", engine="nope", device="cpu")
