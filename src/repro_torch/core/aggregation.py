@@ -73,6 +73,33 @@ def mafl_update(global_params, local_params, beta: float, weight: float,
     return _ema(global_params, local_params, 1.0 - alpha)
 
 
+def chain_coeffs(scheme: str, interpretation: str, beta, weight,
+                 t=None, dl_t=None, fedasync_mix=None):
+    """Per-upload ``(c, d)`` f32 mix pairs for a chain of aggregations:
+    ``g <- c*g + d*l`` (the form ``ring_agg`` streams, DESIGN.md §12).
+
+    ``weight`` (and, for fedasync, ``t`` / ``dl_t``) are f32 tensors of a
+    segment's trace columns on the device; the pairs come back as two
+    tensors beside them.  The f32 expressions and their order are those of
+    ``repro.core.aggregation.chain_coeffs``, with ``beta`` rounded to f32
+    first: ``1 - f32(beta)`` etc."""
+    b = np.float32(beta)
+    one_minus_b = float(np.float32(1.0) - b)
+    weight = weight.float()
+    if scheme == "mafl" and interpretation == "literal":
+        return torch.full_like(weight, float(b)), weight * one_minus_b
+    if scheme == "mafl":
+        alpha = torch.clamp(weight * one_minus_b, 0.0, 1.0)
+    elif scheme == "afl":
+        alpha = torch.full_like(weight, one_minus_b)
+    elif scheme == "fedasync":
+        stale = torch.clamp_min(t.float() - dl_t.float(), 0.0)
+        alpha = torch.pow(stale + 1.0, -0.5) * float(np.float32(fedasync_mix))
+    else:
+        raise ValueError(f"no chain coefficients for scheme {scheme!r}")
+    return 1.0 - alpha, alpha
+
+
 def afl_update(global_params, local_params, beta: float):
     """Conventional AFL (the paper's baseline): Eq. (11), unweighted."""
     return _ema(global_params, local_params, beta)

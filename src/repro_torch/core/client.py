@@ -45,6 +45,10 @@ def _local_scan(params, images, labels, lr):
 
 # vehicle-batched path: vmap the identical loop over stacked (params, data)
 _local_scan_vmap = torch.func.vmap(_local_scan, in_dims=(0, 0, 0, None))
+# shared-payload wave (the fleet engine): one params dict broadcast to every
+# vehicle's data, so the first step's forward convolutions keep unbatched
+# filters and run as one large batch instead of grouped convolutions
+_local_scan_shared = torch.func.vmap(_local_scan, in_dims=(None, 0, 0, None))
 
 
 def _batch_tensors(images: np.ndarray, labels: np.ndarray, device):

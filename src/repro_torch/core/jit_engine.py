@@ -1,0 +1,462 @@
+"""Device-resident fleet engine (``engine="jit"``, repro's DESIGN.md §9/§12):
+the round loop of ``repro.core.jit_engine``'s packed flat program, run
+eagerly on the card.
+
+- **Fixed-capacity slot queue.**  Every vehicle has exactly one in-flight
+  upload at all times, so the event queue is ``K`` slots: ``f32[K]``
+  times/delays indexed by vehicle.  A pop is an ``argmin`` over the time
+  column; a re-schedule is a one-slot write.  The popped index stays a
+  one-element device tensor (read with ``index_select``, written with
+  ``index_copy_``), so the event loop never waits for the device.
+- **Precomputed slot gains.**  The AR(1) gains of every slot the plan
+  reaches are one ``[S, K]`` table (:func:`slot_gain_table`) on the card.
+- **Snapshot rows only where read.**  The model is one f32 ``[P]`` master
+  buffer (``core/flat.py``).  A post-round row is stored only at the rounds
+  a later wave downloads or an eval reads (``needed``); the rows are
+  shared by reference, and nothing writes ``g`` or a stored row in place.
+- **Wave-hoisted training.**  Every pending upload whose payload round has
+  completed trains together, between event-loop segments: through a
+  broadcast of one params dict when the wave shares its payload (every
+  initial-download wave), else through a vmap of stacked params.
+- **Fused aggregation.**  A segment's pops give per-upload ``(c, d)``
+  pairs on the device (``aggregation.chain_coeffs``); the global model then
+  streams once per checkpoint interval through the ``ring_agg`` kernel.
+  That is what ``repro`` runs on every accelerator; its in-scan ``[P]`` mix
+  (``fused_chain=False``) exists only to pin XLA:CPU digests and is not
+  ported.
+- ``ring_dtype="bf16"`` stores snapshot rows and upload rows in bf16
+  around the f32 master and f32 accumulation.
+
+Times on the device are f32.  The timeline never depends on training, so
+an f64 host dry run (:func:`plan_fleet`) fixes the pop order, the waves and
+one minibatch stack per round, and afterwards cross-checks the device
+trace: any divergence raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.channel import (ChannelParams, Mobility, slot_gain_table,
+                                 training_delay)
+from repro_torch.core import client as client_mod
+from repro_torch.core.aggregation import chain_coeffs
+from repro_torch.core.client import Vehicle, VehicleData
+from repro_torch.core.flat import ParamLayout
+from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
+from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
+from repro_torch.device import resolve_device
+from repro_torch.kernels.weighted_agg import ops as agg_ops
+from repro_torch.models.cnn import init_cnn
+
+_SUPPORTED_SCHEMES = ("mafl", "afl", "fedasync")
+
+
+@dataclass
+class FleetPlan:
+    """Host dry run of the timeline: everything the device loop needs that
+    training cannot change."""
+    veh: np.ndarray             # i32[M] vehicle popped at round r
+    cycle: np.ndarray           # i32[M] that vehicle's upload cycle
+    dl_round: np.ndarray        # i32[M] round after which it downloaded (-1 = initial)
+    times: np.ndarray           # f64[M] host-reference pop times
+    train_delay: np.ndarray     # f64[M]
+    upload_delay: np.ndarray    # f64[M]
+    download_time: np.ndarray   # f64[M]
+    waves: tuple                # ((train_rounds, seg_start, seg_end), ...)
+    n_slots: int                # gain-table height
+    q0: dict                    # initial per-vehicle slot arrays
+
+
+def plan_fleet(p: ChannelParams, seed: int, rounds: int,
+               selection=None, faults=None, l_iters: int = 5) -> FleetPlan:
+    """Dry-run ``rounds`` arrivals (no payloads, no training) and derive the
+    pop order, the wave partition and the initial queue slots, as
+    ``repro.core.jit_engine.plan_fleet`` does without selection or
+    faults."""
+    if selection is not None:
+        raise unported("vehicle selection", "selection (item 8)")
+    if faults not in (None, "off"):
+        raise unported("fault injection", "faults (item 9)")
+    tl = _Timeline(p, seed)
+    for k in range(p.K):
+        tl.schedule(k, 0.0)
+
+    ev0 = tl.queue.as_struct_arrays()
+    assert len(np.unique(ev0["vehicle"])) == p.K, \
+        "slot queue invariant: one in-flight upload per vehicle"
+    q0 = {
+        "time": np.full(p.K, np.inf),
+        "download_time": np.zeros(p.K),
+        "upload_delay": np.zeros(p.K),
+        "train_delay": np.array(
+            [training_delay(p, i) for i in range(1, p.K + 1)]),
+    }
+    q0["time"][ev0["vehicle"]] = ev0["time"]
+    q0["download_time"][ev0["vehicle"]] = ev0["download_time"]
+    q0["upload_delay"][ev0["vehicle"]] = ev0["upload_delay"]
+
+    M = rounds
+    veh = np.empty(M, np.int32)
+    cyc = np.empty(M, np.int32)
+    dlr = np.empty(M, np.int32)
+    times = np.empty(M)
+    c_l = np.empty(M)
+    c_u = np.empty(M)
+    dlt = np.empty(M)
+    last_pop = np.full(p.K, -1, np.int32)
+    for r in range(M):
+        ev = tl.queue.pop()
+        veh[r], cyc[r] = ev.vehicle, ev.cycle
+        dlr[r] = last_pop[ev.vehicle]
+        times[r], c_l[r], c_u[r] = ev.time, ev.train_delay, ev.upload_delay
+        dlt[r] = ev.download_time
+        last_pop[ev.vehicle] = r
+        tl.schedule(ev.vehicle, ev.time)
+        tl.prune()
+
+    # Wave partition, the batched engine's rule: a wave trains every
+    # not-yet-trained consumed upload whose payload round has completed,
+    # then the segment consumes pops up to the first event scheduled
+    # during it.
+    waves = []
+    trained = np.zeros(M, bool)
+    s = 0
+    while s < M:
+        T = np.where(~trained & (dlr < s))[0]
+        trained[T] = True
+        untrained = np.where(~trained)[0]
+        e = int(untrained[0]) if len(untrained) else M
+        waves.append((tuple(int(x) for x in T), s, e))
+        s = e
+
+    return FleetPlan(veh=veh, cycle=cyc, dl_round=dlr, times=times,
+                     train_delay=c_l, upload_delay=c_u, download_time=dlt,
+                     waves=tuple(waves), n_slots=tl.gains.last_slot + 3,
+                     q0=q0)
+
+
+def eval_rounds_of(rounds: int, eval_every: int) -> tuple:
+    return tuple(rr for rr in range(1, rounds + 1)
+                 if rr % eval_every == 0 or rr == rounds)
+
+
+def needed_rounds(plan: FleetPlan, eval_rounds: Sequence[int]) -> set:
+    """Rounds whose post-round model must be stored: later-wave payloads
+    and eval rows.  No other row is ever read, so the chain streams
+    straight through it."""
+    d = plan.dl_round
+    needed = set(int(x) for x in eval_rounds)
+    for T, _s, _e in plan.waves:
+        needed |= {int(d[t]) + 1 for t in T if d[t] >= 0}
+    return needed
+
+
+def chain_bounds(s: int, e: int, needed: set) -> list:
+    """Ends of the ``ring_agg`` chains of segment ``[s, e)``: each needed
+    round inside it, and ``e``.  One chain (one launch) per end."""
+    return sorted({x for x in needed if s < x <= e} | {e})
+
+
+def _chain_segment(g, locals_buf, coeffs, snaps, s: int, e: int,
+                   needed: set, store):
+    """Advance the f32 master ``g`` across segment ``[s, e)`` as fused
+    ``ring_agg`` chains, storing a snapshot row only at the rounds in
+    ``needed``.  ``coeffs`` are the segment's ``(c, d)`` pairs,
+    ``f32[e-s, 2]``; ``snaps`` maps round -> stored row."""
+    a = s
+    for b in chain_bounds(s, e, needed):
+        g = agg_ops.ring_agg(g, locals_buf[a:b], coeffs[a - s:b - s])
+        if b in needed:
+            snaps[b] = store(g)
+        a = b
+    return g
+
+
+class _SlotQueue:
+    """The device slot queue and the Eq. 3-6 re-scheduler.
+
+    Channel constants are rounded to f32 first and applied as f32 scalars
+    in ``repro``'s op order."""
+
+    def __init__(self, p: ChannelParams, plan: FleetPlan, gains, x0,
+                 device):
+        f32 = np.float32
+        self.K = p.K
+        self.n_slots = plan.n_slots
+        self.gains = gains.reshape(-1)              # [S*K], row-major
+        self.x0 = x0
+        self.v = float(f32(p.v))
+        self.cov = float(f32(p.coverage))
+        self.dy2H2 = float(f32(p.d_y ** 2 + p.H ** 2))
+        self.pm = float(f32(p.p_m))
+        self.alpha = float(f32(p.alpha))
+        self.sigma2 = float(f32(p.sigma2))
+        self.bw = float(f32(p.B))
+        self.bits = float(f32(p.model_bits))
+        self.gamma = float(f32(p.gamma))
+        self.zeta = float(f32(p.zeta))
+
+        def col(x):
+            return torch.from_numpy(
+                np.asarray(x, np.float64).astype(np.float32)).to(device)
+        self.qt = col(plan.q0["time"])
+        self.qdl = col(plan.q0["download_time"])
+        self.qcu = col(plan.q0["upload_delay"])
+        self.qcl = col(plan.q0["train_delay"])
+
+    def upload_delay(self, idx, t_up):
+        """Eq. 3-6: slot gain -> position wrap -> distance -> SNR ->
+        Shannon rate -> upload delay, for vehicles ``idx`` uploading at
+        ``t_up`` (both ``[n]`` device tensors)."""
+        # int32 cast truncates toward zero, as astype(int32) does
+        slot = t_up.to(torch.int32).clamp_(0, self.n_slots - 1)
+        gain = self.gains.index_select(0, slot.long() * self.K + idx)
+        dx = self.x0.index_select(0, idx) + self.v * t_up      # Eq. 3
+        # floored modulo (jnp.mod), not fmod: dx may be negative
+        dx = torch.remainder(dx + self.cov, 2.0 * self.cov) - self.cov
+        dist = torch.sqrt(dx * dx + self.dy2H2)                 # Eq. 4
+        snr = self.pm * gain * dist ** (-self.alpha) / self.sigma2
+        rate = self.bw * torch.log2(1.0 + snr)                  # Eq. 5
+        return self.bits / torch.clamp_min(rate, 1e-12)         # Eq. 6
+
+    def pop(self, mafl: bool):
+        """Pop the earliest slot and re-schedule its vehicle (download now,
+        train C_l, upload C_u).  Returns the trace columns of the pop as
+        one-element tensors: (vehicle, time, C_u, C_l, download time,
+        delay weight)."""
+        i = torch.argmin(self.qt, dim=0, keepdim=True)
+        t = self.qt.index_select(0, i)
+        cu = self.qcu.index_select(0, i)
+        cl = self.qcl.index_select(0, i)
+        dl_t = self.qdl.index_select(0, i)
+        if mafl:                                                # Eqs. 7, 9
+            weight = self.gamma ** (cu - 1.0) * self.zeta ** (cl - 1.0)
+        else:
+            weight = torch.ones_like(t)
+        t_up = t + cl
+        cu_new = self.upload_delay(i, t_up)
+        self.qt.index_copy_(0, i, t_up + cu_new)
+        self.qdl.index_copy_(0, i, t)
+        self.qcu.index_copy_(0, i, cu_new)
+        return i, t, cu, cl, dl_t, weight
+
+
+def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
+                   needed: set, store, *, scheme: str, interpretation: str,
+                   beta: float, fedasync_mix: float):
+    """The event loop between two waves: pops ``s..e-1`` of the slot queue,
+    their chain coefficients, and the ``ring_agg`` chains that merge them
+    into ``g``.  Nothing here reads a device value on the host.  Returns
+    the new ``g`` and the segment's six trace columns (``[e-s]`` each)."""
+    pops = [queue.pop(scheme == "mafl") for _ in range(s, e)]
+    cols = tuple(torch.cat(c) for c in zip(*pops))
+    _, t_c, _, _, dlt_c, w_c = cols
+    cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
+                          dl_t=dlt_c, fedasync_mix=fedasync_mix)
+    coeffs = torch.stack([cc, dd], dim=1)
+    g = _chain_segment(g, locals_buf, coeffs, snaps, s, e, needed, store)
+    return g, cols
+
+
+def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
+                 w0, imgs, labs, lr: float, *, scheme: str,
+                 interpretation: str, beta: float, fedasync_mix: float,
+                 ring_dtype: str, eval_rounds: tuple):
+    """The flat program: waves and event segments in plan order.  Returns
+    the final master ``[P]``, the stored rows and the trace columns."""
+    M = len(plan.veh)
+    d = plan.dl_round
+    device = imgs.device
+    bf16 = ring_dtype == "bf16"
+    store_dtype = torch.bfloat16 if bf16 else torch.float32
+    # a stored row is a new tensor (bf16) or g itself (f32): g is never
+    # written in place, so sharing it by reference is safe
+    store = ((lambda x: x.to(torch.bfloat16)) if bf16 else (lambda x: x))
+    needed = needed_rounds(plan, eval_rounds)
+
+    g = layout.pack(w0)                         # f32[P] master weights
+    locals_buf = torch.zeros((M, layout.P), dtype=store_dtype, device=device)
+    snaps = {0: store(g)}
+    traces = []
+    for T, s, e in plan.waves:
+        T = np.asarray(T, np.int64)
+        if len(T):
+            pay_rounds = d[T] + 1
+            T_dev = torch.from_numpy(T).to(device)
+            if (pay_rounds == pay_rounds[0]).all():
+                pay = layout.unpack(snaps[int(pay_rounds[0])])
+                train = client_mod._local_scan_shared
+            else:
+                pay = layout.unpack(torch.stack(
+                    [snaps[int(pr)] for pr in pay_rounds]))
+                train = client_mod._local_scan_vmap
+            loc, _ = train(pay, imgs.index_select(0, T_dev),
+                           labs.index_select(0, T_dev), lr)
+            # in place: rows T are written once, before any chain reads them
+            locals_buf.index_copy_(0, T_dev,
+                                   layout.pack(loc, dtype=store_dtype))
+        g, cols = _event_segment(
+            queue, g, locals_buf, snaps, s, e, needed, store, scheme=scheme,
+            interpretation=interpretation, beta=beta,
+            fedasync_mix=fedasync_mix)
+        traces.append(cols)
+    trace = tuple(torch.cat([tr[k] for tr in traces]) for k in range(6))
+    return g, snaps, trace
+
+
+def _check_jit_args(scheme, ring_dtype, flat, mesh, metrics):
+    if scheme not in _SUPPORTED_SCHEMES:
+        raise ValueError(
+            f"engine='jit' supports schemes {_SUPPORTED_SCHEMES}, not "
+            f"{scheme!r} (fedbuff keeps host-side buffer state — use the "
+            "serial or batched engine)")
+    if ring_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown ring_dtype {ring_dtype!r}; "
+                         "expected 'f32' or 'bf16'")
+    if not flat:
+        raise unported("engine='jit' with flat=False (the pytree program)",
+                       "pytree fleet-program (item 15)")
+    if mesh is not None:
+        raise unported("mesh sharding of the wave training",
+                       "distribution (item 13)")
+    if metrics not in (None, "off", False):
+        raise unported("run metrics", "telemetry (item 10)")
+
+
+def _stage_run(vehicles_data, *, rounds, l_iters, lr, params, seed,
+               init_params, batch_size, selection, faults, device):
+    """Plan and stage one fleet run: the plan, the slot queue, the initial
+    params and one minibatch stack per round, all on ``device``."""
+    p = params or ChannelParams()
+    if len(vehicles_data) != p.K:
+        raise ValueError(
+            f"{len(vehicles_data)} vehicle shards for K={p.K} vehicles")
+    if rounds < 1:
+        raise ValueError("rounds must be >= 1")
+    plan = plan_fleet(p, seed, rounds, selection, faults=faults,
+                      l_iters=l_iters)
+    w0 = (init_params if init_params is not None
+          else init_cnn(torch.Generator().manual_seed(seed), device=device))
+
+    # one minibatch stack per consumed round, drawn from the same
+    # per-vehicle RNG streams in the same per-cycle order as the host
+    # engines, then copied to the device once
+    fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
+    clients = [Vehicle(d, lr=lr, batch_size=fleet_batch, seed=seed,
+                       device=device) for d in vehicles_data]
+    im_list, lab_list = [], []
+    for r in range(rounds):
+        im, lab = clients[plan.veh[r]].sample_batches(l_iters)
+        im_list.append(im)
+        lab_list.append(lab)
+    imgs = torch.from_numpy(np.stack(im_list)).to(device)
+    labs = torch.from_numpy(np.stack(lab_list).astype(np.int64)).to(device)
+
+    gains = torch.from_numpy(slot_gain_table(p, seed, plan.n_slots)
+                             .astype(np.float32)).to(device)
+    x0 = torch.from_numpy(Mobility(p).x0.astype(np.float32)).to(device)
+    queue = _SlotQueue(p, plan, gains, x0, device)
+    return p, plan, queue, w0, imgs, labs
+
+
+def run_simulation_jit(
+    vehicles_data: Sequence[VehicleData],
+    test_images: np.ndarray,
+    test_labels: np.ndarray,
+    *,
+    scheme: str = "mafl",
+    rounds: int = 60,
+    l_iters: int = 5,
+    lr: float = 0.01,
+    params: Optional[ChannelParams] = None,
+    seed: int = 0,
+    eval_every: int = 1,
+    use_kernel: bool = False,
+    init_params=None,
+    interpretation: str = "mixing",
+    progress=None,
+    batch_size: int = 128,
+    mesh=None,
+    selection=None,
+    flat: bool = True,
+    ring_dtype: str = "f32",
+    metrics=None,
+    faults=None,
+    device=None,
+) -> SimResult:
+    """Run M rounds on the device; returns the ``SimResult`` the host
+    engines produce (same record fields, same eval cadence).
+
+    Aggregation is always the fused ``ring_agg`` chain, so ``use_kernel``
+    changes nothing here: every merge goes through the kernel on the card
+    (its plain version on the CPU).  ``ring_dtype="bf16"`` stores snapshot
+    and upload rows in bf16 around f32 master weights and accumulation.
+    ``progress`` fires after the run, in round order.  ``device=None`` runs
+    on the card.
+
+    Not ported yet, and raising: ``flat=False``, ``mesh``, ``selection``,
+    ``faults`` and ``metrics`` other than None/"off"."""
+    _check_jit_args(scheme, ring_dtype, flat, mesh, metrics)
+    device = resolve_device(device)
+    p, plan, queue, w0, imgs, labs = _stage_run(
+        vehicles_data, rounds=rounds, l_iters=l_iters, lr=lr, params=params,
+        seed=seed, init_params=init_params, batch_size=batch_size,
+        selection=selection, faults=faults, device=device)
+    layout = ParamLayout.from_tree(w0)
+    eval_rounds = eval_rounds_of(rounds, eval_every)
+    g, snaps, trace = _run_program(
+        plan, queue, layout, w0, imgs, labs, lr, scheme=scheme,
+        interpretation=interpretation, beta=p.beta,
+        fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
+        eval_rounds=eval_rounds)
+    t_veh, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
+                                              for x in trace)
+
+    # divergence guards: the minibatch stacks were paired to rounds by the
+    # host plan, so a device pop order that disagrees fails loudly instead
+    # of training the wrong vehicle's batches
+    if not np.array_equal(t_veh, plan.veh):
+        bad = int(np.argmax(t_veh != plan.veh))
+        raise RuntimeError(
+            "jit engine: device pop order diverged from the host dry run "
+            f"at round {bad} (device vehicle {int(t_veh[bad])}, host "
+            f"{int(plan.veh[bad])}) — f32 time ties are not expected")
+    if not np.allclose(t_time, plan.times, rtol=1e-4, atol=1e-3):
+        bad = int(np.argmax(~np.isclose(t_time, plan.times,
+                                        rtol=1e-4, atol=1e-3)))
+        raise RuntimeError(
+            "jit engine: device event times diverged from the host dry run "
+            f"at round {bad}: {t_time[bad]} vs {plan.times[bad]}")
+    if ring_dtype == "bf16" and not bool(torch.isfinite(g).all()):
+        # the timeline guards stay exact (times never depend on params);
+        # a non-finite master means the quantized chain blew up
+        raise RuntimeError(
+            "jit engine: non-finite master weights under "
+            "ring_dtype='bf16' — the quantized snapshot ring diverged "
+            "(rerun with ring_dtype='f32' to bisect)")
+
+    result = SimResult(scheme=scheme, rounds=[], acc_history=[],
+                       loss_history=[], final_params=layout.unpack(g))
+    test_images = torch.as_tensor(test_images, device=device)
+    test_labels = torch.as_tensor(test_labels, device=device)
+    for r in range(rounds):
+        rec = RoundRecord(round=r + 1, time=float(t_time[r]),
+                          vehicle=int(t_veh[r]),
+                          upload_delay=float(t_cu[r]),
+                          train_delay=float(t_cl[r]),
+                          weight=float(t_w[r]))
+        rr = r + 1
+        if rr in eval_rounds:
+            acc, loss = evaluate(layout.unpack(snaps[rr]), test_images,
+                                 test_labels, device=device)
+            rec.accuracy, rec.loss = acc, loss
+            result.acc_history.append((rr, acc))
+            result.loss_history.append((rr, loss))
+            if progress:
+                progress(rr, acc)
+        result.rounds.append(rec)
+    return result

@@ -16,8 +16,13 @@ engines of ``repro.core.mafl`` share identical event semantics
     events strictly in time order, so the (round, vehicle, time) sequence
     is identical to the serial engine's.
 
-The timeline is host numpy f64 and never reads parameters; the model,
-local training, aggregation and eval run on ``device``.
+``engine="jit"``
+    The device-resident fleet engine (``core/jit_engine.py``): an f32 slot
+    queue on the card, wave-hoisted training and fused ``ring_agg`` chains
+    over the packed flat layout, optionally with a bf16 ring.
+
+The host engines' timeline is numpy f64 and never reads parameters; the
+model, local training, aggregation and eval run on ``device``.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.cnn import cnn_forward, init_cnn
 
 # accepted run_simulation engine names ('unbatched' is a legacy alias for
-# 'serial'); repro's 'jit' engine arrives with the fleet-engine slice
-ENGINES = ("batched", "serial", "unbatched")
+# 'serial')
+ENGINES = ("batched", "serial", "unbatched", "jit")
 
 
 @dataclass
@@ -121,6 +126,7 @@ def run_simulation(
     wave_chunk: int = 16,
     batch_size: int = 128,
     selection=None,
+    flat: bool = True,
     ring_dtype: str = "f32",
     metrics=None,
     faults=None,
@@ -134,18 +140,28 @@ def run_simulation(
     it the model is drawn by :func:`init_cnn` from a generator seeded with
     ``seed``.  ``device=None`` runs on the card.
 
-    Not ported yet, and raising: ``engine="jit"``, ``ring_dtype`` other
-    than f32, ``selection``, ``faults`` and ``metrics`` other than
+    ``engine="jit"`` runs the device fleet engine
+    (:func:`repro_torch.core.jit_engine.run_simulation_jit`); ``flat`` and
+    ``ring_dtype="bf16"`` reach it only.  Not ported yet, and raising:
+    ``flat=False``, ``selection``, ``faults`` and ``metrics`` other than
     None/"off"."""
     if engine == "jit":
-        raise unported("engine='jit'", "fleet-engine (item 5)")
+        from repro_torch.core.jit_engine import run_simulation_jit
+        return run_simulation_jit(
+            vehicles_data, test_images, test_labels, scheme=scheme,
+            rounds=rounds, l_iters=l_iters, lr=lr, params=params, seed=seed,
+            eval_every=eval_every, use_kernel=use_kernel,
+            init_params=init_params, interpretation=interpretation,
+            progress=progress, batch_size=batch_size, selection=selection,
+            flat=flat, ring_dtype=ring_dtype, metrics=metrics,
+            faults=faults, device=device)
     if engine not in ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}; expected one of {ENGINES}")
     if ring_dtype != "f32":
         raise ValueError(
-            f"ring_dtype={ring_dtype!r} requires the device fleet engine; "
-            "the host engines keep full-precision params")
+            f"ring_dtype={ring_dtype!r} requires engine='jit'; the host "
+            "engines keep full-precision params")
     if selection is not None:
         raise unported("vehicle selection", "selection (item 8)")
     if faults not in (None, "off"):

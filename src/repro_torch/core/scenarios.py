@@ -2,12 +2,14 @@
 
 The full registry of ``repro.core.scenarios``, as data, so every named world
 builds identically in both packages.  ``run_scenario`` runs the single-RSU
-worlds on the host engines (``serial`` and ``batched``); the corridor,
-device-engine, sweep, selection, fault and bf16 worlds raise with the name of
-the slice of the port they wait for.
+worlds on the host engines (``serial`` and ``batched``) and on the device
+fleet engine (``jit``, with the bf16 ring where the world asks for it); the
+corridor, sweep, selection and fault worlds raise with the name of the slice
+of the port they wait for.
 
     from repro_torch.core.scenarios import run_scenario
     result = run_scenario("paper-k10", use_kernel=True)     # on the card
+    result = run_scenario("fleet-k10000")       # fleet engine, bf16 ring
 """
 from __future__ import annotations
 
@@ -284,12 +286,16 @@ def build_world(sc: Scenario, seed: int = 0):
 
 def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                  engine: Optional[str] = None, eval_every: int = 10,
-                 progress=None, use_kernel: bool = False, metrics=None,
-                 device=None, **overrides) -> SimResult:
+                 progress=None, use_kernel: bool = False, mesh=None,
+                 flat: Optional[bool] = None, metrics=None, device=None,
+                 **overrides) -> SimResult:
     """Build the named world and run it on ``device`` (``None`` -> the
     card); ``overrides`` replace Scenario fields (e.g. ``rounds=20``).
 
-    Single-RSU worlds only; ``engine=None`` auto-selects ``"batched"``."""
+    Single-RSU worlds only.  ``engine=None`` auto-selects as ``repro``
+    does: ``"jit"`` when the world's ring is not f32 (the bf16 ring exists
+    only on the fleet engine's flat path), else ``"batched"``.  ``flat``
+    reaches the fleet engine (``None`` = its default, flat on)."""
     device = resolve_device(device)
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if overrides:
@@ -297,24 +303,31 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
     if sc.n_rsus > 1 or engine == "corridor":
         raise unported(f"multi-RSU corridor world {sc.name!r}",
                         "corridor (item 7)")
-    if engine == "jit" or sc.ring_dtype != "f32":
-        raise unported("the device-resident fleet engine and its bf16 "
-                        "ring", "fleet-engine (item 5)")
     if engine == "vmap":
         raise unported("engine='vmap'", "sweep (item 11)")
+    if mesh is not None:
+        raise unported("mesh sharding of the wave training",
+                        "distribution (item 13)")
     if sc.selection is not None:
         raise unported(f"selection policy {sc.selection!r}",
                         "selection (item 8)")
     if sc.faults is not None:
         raise unported(f"fault profile {sc.faults!r}", "faults (item 9)")
-    eng = engine or "batched"
+    if sc.ring_dtype != "f32" and (engine not in (None, "jit")
+                                   or flat is False):
+        raise ValueError(
+            f"ring_dtype={sc.ring_dtype!r} needs the flat fast path of the "
+            "fleet engine (engine='jit'); the host engines and the pytree "
+            "layout keep full precision")
+    eng = engine or ("jit" if sc.ring_dtype != "f32" else "batched")
     if eng not in ENGINES:
         raise ValueError(
             f"unknown engine {eng!r}; expected one of {ENGINES}")
     veh, te_i, te_l, p = build_world(sc, seed=seed)
+    kw = {} if flat is None else {"flat": flat}
     return run_simulation(
         veh, te_i, te_l, scheme=sc.scheme,
         rounds=sc.rounds, l_iters=sc.l_iters, lr=sc.lr,
         params=p, seed=seed, eval_every=eval_every,
         use_kernel=use_kernel, engine=eng, progress=progress,
-        metrics=metrics, device=device)
+        ring_dtype=sc.ring_dtype, metrics=metrics, device=device, **kw)

@@ -4,8 +4,9 @@
 zeroes their counts, so a run can show which kernels its path went
 through."""
 from repro_torch.kernels.weighted_agg.ops import KERNEL as WEIGHTED_AGG
+from repro_torch.kernels.weighted_agg.ops import RING_KERNEL as RING_AGG
 
-KERNELS = (WEIGHTED_AGG,)
+KERNELS = (WEIGHTED_AGG, RING_AGG)
 
 
 def reset_launches() -> None:

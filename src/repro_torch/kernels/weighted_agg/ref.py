@@ -1,12 +1,13 @@
-"""Plain PyTorch version of the fused aggregation (Eqs. 10-11).
+"""Plain PyTorch versions of the fused aggregations (Eqs. 10-11).
 
-The CPU path of :func:`repro_torch.kernels.weighted_agg.ops.weighted_agg`,
-and what the tests and ``chip_smoke.py`` hold the CUDA kernel against.  It
-repeats the kernel's arithmetic step for step; it is no yardstick of speed.
+The CPU paths of :mod:`repro_torch.kernels.weighted_agg.ops`, and what the
+tests and ``chip_smoke.py`` hold the CUDA kernels against.  They repeat the
+kernels' arithmetic step for step; they are no yardstick of speed.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def agg_scalars(beta: float, weight: float) -> tuple[float, float]:
@@ -24,3 +25,19 @@ def weighted_agg(g, l, beta: float, weight: float):
     ``g``'s dtype.  Eager: two multiplies and an add, each rounded."""
     b, coef = agg_scalars(beta, weight)
     return (g.float() * b + l.float() * coef).to(g.dtype)
+
+
+def ring_agg(g, locs, coeffs):
+    """The fused multi-upload chain: ``g`` ``[P]``, ``locs`` ``[U, P]``
+    (f32 or bf16), ``coeffs`` ``f32[U, 2]`` of per-upload ``(c, d)``
+    pairs.  Applies the U mixes in order,
+
+        acc <- c_u * acc + d_u * locs[u]        (f32)
+
+    from ``acc = g``, and returns ``acc`` as a new f32 tensor.  Eager: each
+    multiply and the add round on their own (no FMA), so on the card this
+    is bitwise the CUDA kernel."""
+    acc = g.to(torch.float32, copy=True)
+    for u in range(locs.shape[0]):
+        acc = coeffs[u, 0] * acc + coeffs[u, 1] * locs[u].float()
+    return acc

@@ -1,13 +1,14 @@
 """Shared by the port's slice tests: one world run through ``repro`` and
 ``repro_torch`` from the same (JAX-drawn) init, and the comparison.
 
-Tolerances: the (round, vehicle) trace is host f64 and must be identical,
-event times and delay weights equal to rtol 1e-9.  Parameters: both sides
-train in f32, but the convolutions sum in different orders (and XLA
-contracts some multiply-adds into FMAs), a few ulps per op that SGD carries
-from round to round — about 4e-7 absolute after 8 paper-k10 rounds — so
-final params are held to atol 2e-5 / rtol 1e-4.  Accuracy within 0.02, the
-golden suite's bar."""
+Tolerances of the host engines: the (round, vehicle) trace is host f64 and
+must be identical, event times and delay weights equal to rtol 1e-9.
+Parameters: both sides train in f32, but the convolutions sum in different
+orders (and XLA contracts some multiply-adds into FMAs), a few ulps per op
+that SGD carries from round to round — about 4e-7 absolute after 8
+paper-k10 rounds — so final params are held to atol 2e-5 / rtol 1e-4.
+Accuracy within 0.02, the golden suite's bar.  The fleet engine's bands are
+stated beside ``assert_fleet_conforms``."""
 from __future__ import annotations
 
 import jax
@@ -59,6 +60,36 @@ def assert_conforms(jres, tres):
         assert tres.final_params[k].device.type == "cpu"
         np.testing.assert_allclose(tnp[k], np.asarray(v), err_msg=k,
                                    **PARAM_TOL)
+    assert [r for r, _ in jres.acc_history] == [r for r, _ in
+                                                tres.acc_history]
+    for (_, a), (_, b) in zip(jres.acc_history, tres.acc_history):
+        assert abs(a - b) <= ACC_TOL
+        assert np.isfinite(b)
+
+
+# engine="jit" against repro's engine="jit": event times, delays and weights
+# are f32 device arithmetic on both sides, held to the f32 band of
+# tests/test_engine_conformance.py; with a bf16 ring one stored bf16 row
+# element may round the other way (2^-8 relative), so params get 1e-2.
+FLEET_TIME_TOL = dict(rtol=2e-5, atol=1e-3)
+FLEET_WEIGHT_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_PARAM_TOL = dict(rtol=0.0, atol=1e-2)
+
+
+def assert_fleet_conforms(jres, tres, bf16: bool = False):
+    assert ([(r.round, r.vehicle) for r in jres.rounds]
+            == [(r.round, r.vehicle) for r in tres.rounds])
+    for a, b in zip(jres.rounds, tres.rounds):
+        np.testing.assert_allclose(
+            [b.time, b.upload_delay, b.train_delay],
+            [a.time, a.upload_delay, a.train_delay], **FLEET_TIME_TOL)
+        np.testing.assert_allclose(b.weight, a.weight, **FLEET_WEIGHT_TOL)
+    tnp = params_to_numpy(tres.final_params)
+    for k, v in jres.final_params.items():
+        assert tres.final_params[k].device.type == "cpu"
+        np.testing.assert_allclose(
+            tnp[k], np.asarray(v), err_msg=k,
+            **(BF16_PARAM_TOL if bf16 else PARAM_TOL))
     assert [r for r, _ in jres.acc_history] == [r for r, _ in
                                                 tres.acc_history]
     for (_, a), (_, b) in zip(jres.acc_history, tres.acc_history):

@@ -62,7 +62,7 @@ def test_kernel_path_runs_or_raises_on_card(cuda_device):
         ops.weighted_agg(g.t(), g.t(), 0.5, 1.0)
     assert ops.KERNEL.launches == 0
     ops.weighted_agg(g, g, 0.5, 1.0)
-    assert kernels.launch_counts() == {"weighted_agg": 1}
+    assert kernels.launch_counts() == {"weighted_agg": 1, "ring_agg": 0}
 
 
 @pytest.mark.cuda
@@ -74,3 +74,124 @@ def test_slice_on_card_uses_the_kernel(cuda_device):
                        device=cuda_device)
     assert ops.KERNEL.launches == 8 * len(res.rounds) == 32
     assert all(v.is_cuda for v in res.final_params.values())
+
+
+# K1 ring_agg: chain lengths the fleet engine gives it and beyond one
+# shared-memory coefficient tile; the paper CNN's P and a P ragged against
+# any power-of-two tile
+RING_U = [0, 1, 2, 7, 9, 10, 30, 60, 1500]
+RING_P = [422016, 128 * 300]
+
+
+def _ring_inputs(P, U, tdt, gen, device, neg_zero):
+    g = torch.randn(P, generator=gen, device=device)
+    locs = torch.randn(U, P, generator=gen, device=device).to(tdt)
+    c = torch.rand(U, generator=gen, device=device) * 0.5 + 0.5
+    coeffs = torch.stack([c, 1.0 - c], dim=1).contiguous()
+    if neg_zero:
+        g[::7] = -0.0
+        if U:
+            locs[:, ::7] = 0.0
+            coeffs[0] = torch.tensor([1.0, 0.0], device=device)
+    return g, locs, coeffs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ring_agg_matches_plain_version_on_card(cuda_device, tdt):
+    """K1 against its plain version, bitwise, with one launch per chain
+    and none for an empty one."""
+    kernels.reset_launches()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    chains = 0
+    for P in RING_P:
+        for U in RING_U:
+            for neg_zero in (False, True):
+                g, locs, coeffs = _ring_inputs(P, U, tdt, gen, cuda_device,
+                                               neg_zero)
+                out = ops.ring_agg(g, locs, coeffs)
+                want = ref.ring_agg(g, locs, coeffs)
+                torch.cuda.synchronize()
+                assert out.dtype == torch.float32 and out.is_cuda
+                assert torch.equal(_int_view(out), _int_view(want)), (
+                    P, U, neg_zero)
+                assert out.data_ptr() != g.data_ptr()
+                chains += U > 0
+    assert kernels.launch_counts() == {"weighted_agg": 0, "ring_agg": chains}
+
+
+@pytest.mark.cuda
+def test_ring_agg_wrapper_raises_on_card(cuda_device):
+    """Non-contiguous, misshaped or misaligned inputs raise before any
+    launch; nothing falls back to the plain version."""
+    kernels.reset_launches()
+    P, U = 128 * 4, 3
+    g = torch.zeros(P, device=cuda_device)
+    locs = torch.zeros(U, P, device=cuda_device)
+    coeffs = torch.zeros(U, 2, device=cuda_device)
+    buf = torch.zeros(P + 1, device=cuda_device)
+    for bad in [(g, torch.zeros(P, U, device=cuda_device).t(), coeffs),
+                (g, torch.zeros(U, P + 128, device=cuda_device), coeffs),
+                (g, locs, torch.zeros(U, 3, device=cuda_device)),
+                (g, locs, coeffs.cpu()),
+                (buf[1:], locs, coeffs)]:
+        with pytest.raises((ValueError, TypeError)):
+            ops.ring_agg(*bad)
+    assert kernels.launch_counts() == {"weighted_agg": 0, "ring_agg": 0}
+    ops.ring_agg(g, locs, coeffs)
+    assert kernels.launch_counts() == {"weighted_agg": 0, "ring_agg": 1}
+
+
+def _expected_chains(name, rounds, eval_every):
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import get_scenario
+    sc = get_scenario(name)
+    plan = jit_engine.plan_fleet(sc.channel(), 0, rounds)
+    need = jit_engine.needed_rounds(
+        plan, jit_engine.eval_rounds_of(rounds, eval_every))
+    return sum(len(jit_engine.chain_bounds(s, e, need))
+               for _, s, e in plan.waves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring_dtype", ["f32", "bf16"])
+def test_fleet_engine_on_card_uses_only_ring_agg(cuda_device, ring_dtype):
+    from repro_torch.core.scenarios import run_scenario
+    kernels.reset_launches()
+    res = run_scenario("quick-k5", engine="jit", rounds=6, eval_every=3,
+                       use_kernel=True, ring_dtype=ring_dtype,
+                       device=cuda_device)
+    assert len(res.rounds) == 6
+    assert kernels.launch_counts() == {
+        "weighted_agg": 0, "ring_agg": _expected_chains("quick-k5", 6, 3)}
+    assert all(v.is_cuda and bool(torch.isfinite(v).all())
+               for v in res.final_params.values())
+
+
+@pytest.mark.cuda
+def test_event_loop_never_waits_for_the_card(cuda_device, monkeypatch):
+    """The event loop between waves (pops, chain coefficients, ring_agg
+    chains) runs with CUDA synchronisation made an error."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import run_scenario
+    real = jit_engine._event_segment
+    segments = []
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        segments.append(out[1][0].numel())
+        return out
+
+    # build and load the kernel outside the checked region
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    monkeypatch.setattr(jit_engine, "_event_segment", strict)
+    res = run_scenario("quick-k5", engine="jit", rounds=8,
+                       ring_dtype="bf16", device=cuda_device)
+    assert sum(segments) == len(res.rounds) == 8 and len(segments) > 1

@@ -79,9 +79,22 @@ def _tiny_world():
     return data
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.jit_engine",
+                                    "repro_torch.core.flat"])
+def test_fleet_modules_import_alone_without_jax(module):
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("entry", [
     "resolve_device", "run_scenario", "run_simulation", "evaluate",
-    "Vehicle", "RSUServer"])
+    "Vehicle", "RSUServer", "run_simulation_jit"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the card: without one the call raises instead
     of running on the host."""
@@ -98,6 +111,9 @@ def test_entry_points_default_to_the_card(entry):
         "evaluate": lambda: evaluate(params, data.images, data.labels),
         "Vehicle": lambda: Vehicle(data),
         "RSUServer": lambda: RSUServer(params, ChannelParams()),
+        "run_simulation_jit": lambda: run_simulation(
+            [data], data.images, data.labels,
+            params=ChannelParams(K=1), rounds=1, engine="jit"),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -105,8 +121,10 @@ def test_entry_points_default_to_the_card(entry):
 
 @pytest.mark.parametrize("kwargs, slice_name", [
     (dict(scenario="corridor-quick-r2-k8"), "corridor"),
-    (dict(scenario="quick-k5", engine="jit"), "fleet-engine"),
-    (dict(scenario="fleet-k10000"), "fleet-engine"),
+    (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
+    (dict(scenario="fleet-k1000-topk", engine="jit"), "selection"),
+    (dict(scenario="quick-k5", engine="jit", mesh=object()),
+     "distribution"),
     (dict(scenario="quick-k5", engine="vmap"), "sweep"),
     (dict(scenario="fleet-k1000-topk"), "selection"),
     (dict(scenario="fleet-k1000-flaky"), "faults"),
