@@ -26,6 +26,23 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    Launch counts are zeroed before and read after each timed run of 3-4.
 5. card against host: paper-k10 for 8 rounds on the card and on the CPU
    from one numpy-made init, on the serial and on the fleet engine.
+6. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4}, hd in
+   {64, 128}, pos = 0, S - 1 and a mixed per-row vector, and
+   ``swa_attention`` (K5) at window = S, windows under S, a window that is
+   not a multiple of the 64-row tile and S not a multiple of it, G in
+   {1, 3}; f32 and bf16, each held to its plain version (2e-5 in f32,
+   3e-2 in bf16); then kernel, plain version and
+   ``scaled_dot_product_attention`` timed at the serve path's shapes and
+   at smollm-360m's decode_32k / 1024-token prefill geometry.
+7. serve path: full-width smollm-360m (32 layers, f32, the port's torch
+   init) behind a ``BatchedServer`` of 8 slots and max_seq 2048 serves 16
+   requests (numpy prompts of 64-1024 tokens, 64 new tokens each);
+   ``decode_attention`` launches 32 per tick and ``swa_attention`` 32 per
+   admitted request; a second run under torch.profiler gives the device
+   busy share.
+8. serve, card against host: the same config cut to 4 layers, one CPU
+   init, two of the prompts: prefill and 16 teacher-forced decode steps on
+   both, logits within atol 1e-3 / rtol 1e-3.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -118,11 +135,14 @@ def rotating(fn, sets):
     return call
 
 
-def device_ms_per_call(fn, kernel_name, iters=50):
-    """Device time of the kernels named ``kernel_name`` per call of ``fn``,
+def device_ms_per_call(fn, kernel_names, iters=50):
+    """Device time of the kernels whose names contain one of
+    ``kernel_names`` (a string or a tuple of strings) per call of ``fn``,
     from torch.profiler's CUDA activity (None if it records none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if isinstance(kernel_names, str):
+        kernel_names = (kernel_names,)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -131,24 +151,23 @@ def device_ms_per_call(fn, kernel_name, iters=50):
             fn()
         torch.cuda.synchronize()
     us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel_name in e.key)
+             if any(n in e.key for n in kernel_names))
     return us / iters / 1e3 if us > 0 else None
 
 
-def profile_run(name, engine, rounds, wall_ms):
-    """One main-path run under torch.profiler: the kernels that take the
-    most device time, and their sum over the wall time of the profiled
-    run and of the unprofiled run (``wall_ms``; the profiler slows the
-    host, so the first share is a lower bound)."""
+def profile_call(label, fn, wall_ms):
+    """``fn()`` under torch.profiler: the kernels that take the most device
+    time, and their sum over the wall time of the profiled call and of an
+    unprofiled one (``wall_ms``; the profiler slows the host, so the first
+    share is a lower bound).  Returns the device ms (None if the profiler
+    recorded no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.scenarios import run_scenario
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_scenario(name, engine=engine, use_kernel=True, device=DEVICE,
-                     rounds=rounds)
+        fn()
         torch.cuda.synchronize()
     prof_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.device_time_total / 1e3, e.count, e.key)
@@ -158,15 +177,25 @@ def profile_run(name, engine, rounds, wall_ms):
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
     if not rows:
-        log(f"profile: {name}/{engine}: no device activity recorded "
+        log(f"profile: {label}: no device activity recorded "
             f"(device busy share not measured)")
-        return
-    log(f"profile: {name}/{engine} {rounds} rounds: device kernels "
+        return None
+    log(f"profile: {label}: device kernels "
         f"{dev_ms:.3f} ms; wall {prof_ms:.3f} ms profiled (busy share "
         f"{dev_ms / prof_ms:.4f}), {wall_ms:.3f} ms unprofiled (busy share "
         f"{dev_ms / wall_ms:.4f}); top kernels by device time:")
     for t, n, key in rows[:10]:
         log(f"profile:   {t:10.3f} ms {n:7d} x  {key[:90]}")
+    return dev_ms
+
+
+def profile_run(name, engine, rounds, wall_ms):
+    """One main-path run of the simulator under torch.profiler."""
+    from repro_torch.core.scenarios import run_scenario
+    profile_call(f"{name}/{engine} {rounds} rounds",
+                 lambda: run_scenario(name, engine=engine, use_kernel=True,
+                                      device=DEVICE, rounds=rounds),
+                 wall_ms)
 
 
 def bits(t):
@@ -249,7 +278,7 @@ def phase_kernels(dev):
     return {
         "name": "weighted_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
-        "replaces": "src/repro/kernels/weighted_agg/kernel.py:35",
+        "replaces": "src/repro/kernels/weighted_agg/kernel.py:48",
         "max_abs_err": max_err, "ms": ms["kernel"],
         "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
         "bound_ms": bound_ms,
@@ -569,6 +598,410 @@ def phase_host(engine):
         f"accuracy max |diff| {acc_diff}")
 
 
+# K4 decode_attention / K5 swa_attention: f32 inputs from N(0, 1) within
+# 2e-5 of the plain version (the online softmax sums in another order than
+# the dense softmax), bf16 within 3e-2 (the plain version rounds scores and
+# weights to bf16; the band of repro's own bf16 kernel test)
+ATTN_TOL = {"f32": 2e-5, "bf16": 3e-2}
+BF16_FLOP_PER_S = 989e12
+# the serve path: smollm-360m behind 8 slots of 2048 positions, 16
+# requests of 64-1024 prompt tokens and 64 new tokens each
+SERVE_ARCH, SERVE_SLOTS, SERVE_MAX_SEQ = "smollm-360m", 8, 2048
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 64, (64, 1024)
+# card vs CPU on the serve path: 4 layers, 2 prompts, 16 forced steps;
+# the two sides sum the f32 products in different orders (a few ulps per
+# layer on logits of size ~1), far under the 1e-3 a wrong kernel, cache
+# write or position would exceed
+SERVE_CPU_LAYERS, SERVE_CPU_PROMPTS, SERVE_CPU_STEPS = 4, 2, 16
+SERVE_CPU_TOL = dict(atol=1e-3, rtol=1e-3)
+# timed geometries, G = 3, Kv = 5, hd = 64 as smollm-360m's attention; the
+# first of each is the serve path's shape.  K4: (label, B, S, dtype) at
+# pos = S - 1 (S = 32768 is the decode_32k shape's cache); K5: (label, S,
+# dtype) at B = 1, window = S (prefill of an S-token prompt)
+DECODE_TIMED = (("serve B=8 S=2048 f32", SERVE_SLOTS, SERVE_MAX_SEQ, "f32"),
+                ("B=8 S=32768 f32", 8, 32768, "f32"),
+                ("decode_32k B=128 S=32768 bf16", 128, 32768, "bf16"))
+SWA_TIMED = (("prefill S=1024 f32", 1024, "f32"),
+             ("prefill S=512 f32", 512, "f32"),
+             ("prefill S=1024 bf16", 1024, "bf16"))
+
+
+def in_turns(runs, reps=6, iters=100, warmup=10):
+    """Median ms per call of each zero-argument call in ``runs``, timed in
+    turns with the order alternating; returns (medians, samples)."""
+    samples = {k: [] for k in runs}
+    for rep in range(reps):
+        order = list(runs) if rep % 2 == 0 else list(runs)[::-1]
+        for name in order:
+            samples[name].append(time_ms(runs[name], iters, warmup))
+    return {k: float(np.median(v)) for k, v in samples.items()}, samples
+
+
+def attn_inputs(shape_q, shape_kv, dtype, gen, dev):
+    import torch
+    return (torch.randn(shape_q, generator=gen, device=dev).to(dtype),
+            torch.randn(shape_kv, generator=gen, device=dev).to(dtype),
+            torch.randn(shape_kv, generator=gen, device=dev).to(dtype))
+
+
+def attn_check(name, out, want, tag, where):
+    """max |out - want|, checked against ``ATTN_TOL[tag]``."""
+    import torch
+    torch.cuda.synchronize()
+    check(out.shape == want.shape and out.dtype == want.dtype,
+          f"{name} shape/dtype at {where}")
+    e = (out.float() - want.float()).abs().max().item()
+    check(e <= ATTN_TOL[tag],
+          f"{name} differs from its plain version by {e} at {where}")
+    return e
+
+
+def attn_timings(label, runs, sets_info, bytes_moved, flops, peak, busy,
+                 reps, iters, warmup):
+    """Time kernel / plain / library in turns; log and return the row."""
+    ms, samples = in_turns(runs, reps, iters, warmup)
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / peak * 1e3
+    log(f"kernels: {label} ({sets_info}, {bytes_moved} bytes, {flops} "
+        f"flops): kernel {ms['kernel']:.6f} ms, plain {ms['plain']:.6f} "
+        f"ms, SDPA {ms['library']:.6f} ms")
+    log(f"kernels:   bound {max(bound_bytes, bound_ops):.6f} ms (bytes "
+        f"{bound_bytes:.6f}, operations {bound_ops:.6f}); device time "
+        f"(torch.profiler) "
+        f"{'not measured' if busy is None else f'{busy:.6f} ms'}; "
+        f"samples {samples}")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations",
+            "library_ms": ms["library"], "device_ms": busy}
+
+
+def phase_decode_kernel(dev):
+    """K4 against its plain version over G, hd, pos and dtypes; then
+    kernel, plain version and SDPA timed at three geometries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    kernels.reset_launches()
+    err = {"f32": 0.0, "bf16": 0.0}
+    cases = 0
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for G in (1, 3, 4):
+            for hd in (64, 128):
+                for B, S, Kv in ((SERVE_SLOTS, SERVE_MAX_SEQ, 5),
+                                 (2, 1000, 2)):
+                    q, k, v = attn_inputs((B, G * Kv, hd), (B, S, Kv, hd),
+                                          dtype, gen, dev)
+                    mixed = torch.randint(0, S, (B,), generator=gen,
+                                          device=dev, dtype=torch.int32)
+                    for pname, pos in (("0", 0), ("S-1", S - 1),
+                                       ("vector", mixed)):
+                        e = attn_check(
+                            "decode_attention",
+                            ops.decode_attention(q, k, v, pos),
+                            ref.decode_attention(q, k, v, pos), tag,
+                            f"B={B} S={S} G={G} hd={hd} {tag} pos={pname}")
+                        err[tag] = max(err[tag], e)
+                        cases += 1
+    launched = kernels.launch_counts()["decode_attention"]
+    check(launched == cases, f"decode_attention launched {launched} times "
+          f"for {cases} calls")
+    log(f"kernels: decode_attention within tolerance of its plain version "
+        f"in {cases} cases (G in (1, 3, 4), hd in (64, 128), pos = 0, "
+        f"S - 1 and a per-row vector, B/S/Kv = 8/2048/5 and 2/1000/2); "
+        f"max_abs_err f32 {err['f32']} (tol {ATTN_TOL['f32']}), bf16 "
+        f"{err['bf16']} (tol {ATTN_TOL['bf16']}); {launched} launches")
+
+    geometries = {}
+    for label, B, S, tag in DECODE_TIMED:
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        peak = FP32_FLOP_PER_S if tag == "f32" else BF16_FLOP_PER_S
+        Kv, G, hd = 5, 3, 64
+        H = G * Kv
+        s = torch.finfo(dtype).bits // 8
+        pos = S - 1
+        bytes_moved = (2 * B * Kv * (pos + 1) * hd + 2 * B * H * hd) * s
+        flops = 4 * B * H * (pos + 1) * hd
+        n_sets = max(1, int(np.ceil(2 * L2_BYTES / bytes_moved)))
+        mask = (torch.arange(S, device=dev) <= pos).expand(B, 1, 1, S)
+        sets = [attn_inputs((B, H, hd), (B, S, Kv, hd), dtype, gen, dev)
+                for _ in range(n_sets)]
+
+        def kernel(q, k, v):
+            return ops.decode_attention(q, k, v, pos)
+
+        def plain(q, k, v):
+            return ref.decode_attention(q, k, v, pos)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)[:, :, 0]
+        runs = {"kernel": rotating(kernel, sets),
+                "plain": rotating(plain, sets),
+                "library": rotating(sdpa, sets)}
+        attn_check("SDPA yardstick", sdpa(*sets[0]), kernel(*sets[0]), tag,
+                   label)
+        big = bytes_moved > 1e9
+        iters, warmup, reps = (5, 2, 4) if big else (100, 10, 6)
+        busy = device_ms_per_call(
+            rotating(kernel, sets),
+            ("decode_chunk_kernel", "decode_combine_kernel"), iters=iters)
+        chunk, n_chunks = ops.split(B, S, Kv)
+        geometries[label] = attn_timings(
+            f"decode_attention {label} G={G} hd={hd} pos=S-1",
+            runs, f"{n_sets} input sets; {n_chunks} chunks of {chunk}, "
+            f"{B * Kv * n_chunks} blocks", bytes_moved, flops, peak, busy,
+            reps, iters, warmup)
+        del sets, runs
+        torch.cuda.empty_cache()
+    main = geometries[DECODE_TIMED[0][0]]
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:76",
+        "max_abs_err": max(err.values()), "max_abs_err_f32": err["f32"],
+        "max_abs_err_bf16": err["bf16"], "tolerance": ATTN_TOL,
+        **main, "shape": DECODE_TIMED[0][0], "geometries": geometries,
+    }
+
+
+def phase_swa_kernel(dev):
+    """K5 against its plain version over windows, S, G and dtypes; then
+    kernel, plain version and SDPA timed at prefill geometries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.swa_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kernels.reset_launches()
+    err = {"f32": 0.0, "bf16": 0.0}
+    cases = 0
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for G in (1, 3):
+            for B, S, Kv, hd in ((1, 1024, 5, 64), (2, 200, 2, 128),
+                                 (1, 33, 1, 64)):
+                q, k, v = attn_inputs((B, S, G * Kv, hd), (B, S, Kv, hd),
+                                      dtype, gen, dev)
+                for window in (S, 64, 45, 1, 10 * S):
+                    e = attn_check(
+                        "swa_attention", ops.swa_attention(q, k, v, window),
+                        ref.swa_attention(q, k, v, window), tag,
+                        f"B={B} S={S} G={G} hd={hd} {tag} window={window}")
+                    err[tag] = max(err[tag], e)
+                    cases += 1
+    launched = kernels.launch_counts()["swa_attention"]
+    check(launched == cases, f"swa_attention launched {launched} times "
+          f"for {cases} calls")
+    log(f"kernels: swa_attention within tolerance of its plain version in "
+        f"{cases} cases (G in (1, 3); B/S/Kv/hd = 1/1024/5/64, 2/200/2/128, "
+        f"1/33/1/64; window S, 64, 45, 1, 10 S); max_abs_err f32 "
+        f"{err['f32']} (tol {ATTN_TOL['f32']}), bf16 {err['bf16']} (tol "
+        f"{ATTN_TOL['bf16']}); {launched} launches")
+
+    geometries = {}
+    for label, S, tag in SWA_TIMED:
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        peak = FP32_FLOP_PER_S if tag == "f32" else BF16_FLOP_PER_S
+        B, Kv, G, hd = 1, 5, 3, 64
+        H = G * Kv
+        s = torch.finfo(dtype).bits // 8
+        bytes_moved = (2 * B * S * H * hd + 2 * B * S * Kv * hd) * s
+        flops = 4 * B * H * (S * (S + 1) // 2) * hd   # window = S: causal
+        n_sets = int(np.ceil(2 * L2_BYTES / bytes_moved))
+        sets = [attn_inputs((B, S, H, hd), (B, S, Kv, hd), dtype, gen, dev)
+                for _ in range(n_sets)]
+
+        def kernel(q, k, v):
+            return ops.swa_attention(q, k, v, S)
+
+        def plain(q, k, v):
+            return ref.swa_attention(q, k, v, S)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+        runs = {"kernel": rotating(kernel, sets),
+                "plain": rotating(plain, sets),
+                "library": rotating(sdpa, sets)}
+        attn_check("SDPA yardstick", sdpa(*sets[0]), kernel(*sets[0]), tag,
+                   label)
+        busy = device_ms_per_call(rotating(kernel, sets), "swa_kernel")
+        geometries[label] = attn_timings(
+            f"swa_attention {label} B=1 H=15 Kv=5 hd=64 window=S", runs,
+            f"{n_sets} input sets", bytes_moved, flops, peak, busy,
+            reps=6, iters=50, warmup=5)
+    main = geometries[SWA_TIMED[0][0]]
+    return {
+        "name": "swa_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention/kernel.py:101",
+        "max_abs_err": max(err.values()), "max_abs_err_f32": err["f32"],
+        "max_abs_err_bf16": err["bf16"], "tolerance": ATTN_TOL,
+        **main, "shape": SWA_TIMED[0][0], "geometries": geometries,
+    }
+
+
+def serve_prompts(vocab):
+    """The serve phase's requests: numpy prompts of 64-1024 tokens."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                           SERVE_REQUESTS)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
+
+
+def timed(fn, out):
+    """``fn`` that appends its own time (ms, to the card's finish) to
+    ``out``."""
+    import torch
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+    return call
+
+
+def serve_run(cfg, model, prompts, stats=None):
+    """One drained ``BatchedServer`` run; returns (requests, ticks,
+    seconds).  With ``stats``, prefill and decode-step times land in it."""
+    import torch
+    from repro_torch.serving import BatchedServer
+    srv = BatchedServer(cfg, model, n_slots=SERVE_SLOTS,
+                        max_seq=SERVE_MAX_SEQ)
+    if stats is not None:
+        srv._prefill = timed(srv._prefill, stats["prefill_ms"])
+        srv._step = timed(srv._step, stats["tick_ms"])
+    reqs = [srv.submit(p, SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = srv.run_until_drained()
+    torch.cuda.synchronize()
+    return reqs, ticks, time.perf_counter() - t0
+
+
+def phase_serve(dev):
+    """Full-width smollm-360m served on the card; returns the launches of
+    (decode_attention, swa_attention) in the counted run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    log(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.resolved_head_dim} "
+        f"vocab {cfg.vocab_size}: {T.param_count(cfg)} f32 parameters, "
+        f"torch init on the card {time.perf_counter() - t0:.3f} s")
+    prompts = serve_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()                     # warm-up, not counted
+    serve_run(cfg, model, prompts[:2])
+    log(f"serve: warm-up (2 requests) {time.perf_counter() - t0:.3f} s")
+
+    stats = {"prefill_ms": [], "tick_ms": []}
+    kernels.reset_launches()
+    reqs, ticks, wall = serve_run(cfg, model, prompts, stats)
+    counts = kernels.launch_counts()
+    admitted = len(stats["prefill_ms"])
+    check(admitted == SERVE_REQUESTS,
+          f"serve: {admitted} of {SERVE_REQUESTS} requests admitted")
+    for r in reqs:
+        check(r.done and len(r.out) == SERVE_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"serve: request {r.rid} out {r.out}")
+    check(counts["decode_attention"] == cfg.n_layers * ticks,
+          f"serve: {counts['decode_attention']} decode_attention launches "
+          f"for {ticks} ticks of {cfg.n_layers} layers")
+    check(counts["swa_attention"] == cfg.n_layers * admitted,
+          f"serve: {counts['swa_attention']} swa_attention launches for "
+          f"{admitted} admits of {cfg.n_layers} layers")
+    check(counts["weighted_agg"] == counts["ring_agg"] == 0,
+          f"serve: aggregation kernels launched {counts}")
+    new_tokens = SERVE_REQUESTS * SERVE_NEW
+    lengths = [len(p) for p in prompts]
+    log(f"serve: {SERVE_REQUESTS} requests (prompts {min(lengths)}-"
+        f"{max(lengths)} tokens, mean {np.mean(lengths):.1f}; {SERVE_NEW} "
+        f"new tokens each) over {SERVE_SLOTS} slots of {SERVE_MAX_SEQ}: "
+        f"{ticks} ticks in {wall:.3f} s, {new_tokens / wall:.1f} tokens/s; "
+        f"launches {counts} (decode_attention = {cfg.n_layers} x {ticks} "
+        f"ticks, swa_attention = {cfg.n_layers} x {admitted} admits)")
+    log(f"serve:   prefill ms per request: mean "
+        f"{np.mean(stats['prefill_ms']):.3f}, median "
+        f"{np.median(stats['prefill_ms']):.3f}, max "
+        f"{np.max(stats['prefill_ms']):.3f}; decode ms per tick: mean "
+        f"{np.mean(stats['tick_ms']):.3f}, median "
+        f"{np.median(stats['tick_ms']):.3f}; sum prefill "
+        f"{np.sum(stats['prefill_ms']):.3f} ms, sum ticks "
+        f"{np.sum(stats['tick_ms']):.3f} ms of {wall * 1e3:.3f} ms")
+    profile_call(f"serve {cfg.name} {SERVE_REQUESTS} requests",
+                 lambda: serve_run(cfg, model, prompts), wall * 1e3)
+    return counts["decode_attention"], counts["swa_attention"]
+
+
+def phase_serve_vs_cpu(dev):
+    """The serve path cut to 4 layers, card against CPU, one CPU init:
+    prefill and teacher-forced decode steps on both sides."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SERVE_ARCH).variant(n_layers=SERVE_CPU_LAYERS)
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    worst, agree, steps = 0.0, 0, 0
+
+    def compare(lg, lc, where):
+        d = (lg.cpu() - lc).abs().max().item()
+        check(torch.allclose(lg.cpu(), lc, **SERVE_CPU_TOL),
+              f"serve card vs CPU: {where} logits differ by {d}")
+        return d
+
+    for prompt in serve_prompts(cfg.vocab_size)[:SERVE_CPU_PROMPTS]:
+        P = len(prompt)
+        tokens = torch.from_numpy(prompt[None])
+        t0 = time.perf_counter()
+        lc, cc = T.prefill(cfg, cpu, tokens)
+        t1 = time.perf_counter()
+        lg, cg = T.prefill(cfg, gpu, tokens.to(dev))
+        worst = max(worst, compare(lg, lc, f"prefill (P={P})"))
+        cc = T.grow_cache(cfg, cc, 1, P + SERVE_CPU_STEPS)
+        cg = T.grow_cache(cfg, cg, 1, P + SERVE_CPU_STEPS)
+        forced = torch.argmax(lc[:, -1:], -1)
+        for i in range(SERVE_CPU_STEPS):
+            lc, cc = T.decode_step(cfg, cpu, forced, cc, P + i)
+            lg, cg = T.decode_step(cfg, gpu, forced.to(dev), cg, P + i)
+            worst = max(worst, compare(lg, lc, f"step {i} (P={P})"))
+            agree += int(torch.equal(torch.argmax(lg, -1).cpu(),
+                                     torch.argmax(lc, -1)))
+            steps += 1
+            forced = torch.argmax(lc, -1)        # teacher-forced: CPU's
+        cache_diff = max((cg["stack"]["sub0"]["mixer"][k].cpu()
+                          - cc["stack"]["sub0"]["mixer"][k]).abs().max()
+                         .item() for k in ("k", "v"))
+        log(f"serve vs CPU: {cfg.name} cut to {cfg.n_layers} layers, "
+            f"prompt {P} tokens (CPU prefill {t1 - t0:.3f} s): cache max "
+            f"|diff| {cache_diff}")
+    log(f"serve vs CPU: prefill + {SERVE_CPU_STEPS} teacher-forced steps "
+        f"on {SERVE_CPU_PROMPTS} prompts: logits max |diff| {worst} (atol "
+        f"{SERVE_CPU_TOL['atol']}, rtol {SERVE_CPU_TOL['rtol']}); greedy "
+        f"tokens agree in {agree} of {steps} steps")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -594,12 +1027,16 @@ def main() -> int:
 
     k2 = phase_kernels(dev)
     k1 = phase_ring_kernel(dev)
+    k4 = phase_decode_kernel(dev)
+    k5 = phase_swa_kernel(dev)
     k2["launches"] = phase_main()
     k1["launches"] = phase_fleet()
+    k4["launches"], k5["launches"] = phase_serve(dev)
     phase_host("serial")
     phase_host("jit")
+    phase_serve_vs_cpu(dev)
 
-    log(json.dumps({"kernels": [k2, k1]}))
+    log(json.dumps({"kernels": [k2, k1, k4, k5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,15 @@
-"""Move CNN weights between the JAX package's layout and the port's.
+"""Move weights between the JAX package's layout and the port's.
 
-Both packages keep the same leaf names and element order (HWIO kernels,
-(h, w, c)-ordered ``fc1_w`` rows), so conversion is a checked copy.  This is
-how the tests and ``chip_smoke.py`` give both packages the same weights:
-``run_simulation(init_params=params_from_jax(tree, device))``.
+CNN: both packages keep the same leaf names and element order (HWIO
+kernels, (h, w, c)-ordered ``fc1_w`` rows), so conversion is a checked
+copy.  This is how the tests and ``chip_smoke.py`` give both packages the
+same weights: ``run_simulation(init_params=params_from_jax(tree, device))``.
+
+Transformer: ``repro``'s pytree carries a leading period axis on every
+``stack`` leaf; the port's ``Transformer`` holds one block per period.  A
+leaf ``stack.sub0.mixer.wq [n_periods, d, H, hd]`` is the port's
+``stack.<i>.sub0.mixer.wq`` for i < n_periods; every other leaf keeps its
+name and shape.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNN_SHAPES
+from repro_torch.models.transformer import Transformer
 
 
 def params_from_jax(tree: dict, device) -> dict[str, torch.Tensor]:
@@ -37,3 +44,81 @@ def params_from_jax(tree: dict, device) -> dict[str, torch.Tensor]:
 def params_to_numpy(params: dict) -> dict[str, np.ndarray]:
     """Param tensors (any device) -> numpy leaves in ``repro``'s layout."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _flatten(tree: dict, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _jax_shapes(model: Transformer, n_periods: int) -> dict:
+    """``repro``'s flat leaf names -> shapes, from the port's model."""
+    shapes = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "stack":
+            if parts[1] == "0":
+                shapes[".".join(["stack", *parts[2:]])] = (n_periods,
+                                                           *p.shape)
+        else:
+            shapes[name] = tuple(p.shape)
+    return shapes
+
+
+def transformer_params_from_jax(tree: dict, cfg, device) -> Transformer:
+    """The numpy (or array-like) leaves of ``repro``'s ``T.init_params``
+    pytree -> a ``Transformer`` on ``device`` holding copies of them.
+    Raises on a missing or extra leaf, a wrong shape or a dtype other than
+    float32."""
+    device = resolve_device(device)
+    model = Transformer(cfg, torch.float32, device)
+    want = _jax_shapes(model, cfg.n_periods)
+    leaves = _flatten(tree)
+    if set(leaves) != set(want):
+        raise ValueError(
+            f"transformer params: missing {sorted(set(want) - set(leaves))}, "
+            f"extra {sorted(set(leaves) - set(want))}")
+    arrays = {}
+    for name, shape in want.items():
+        leaf = np.asarray(leaves[name])
+        if leaf.shape != shape or leaf.dtype != np.float32:
+            raise ValueError(
+                f"{name}: expected float32{list(shape)}, got "
+                f"{leaf.dtype}{list(leaf.shape)}")
+        arrays[name] = leaf
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "stack":
+            src = arrays[".".join(["stack", *parts[2:]])][int(parts[1])]
+        else:
+            src = arrays[name]
+        p.copy_(torch.from_numpy(np.array(src)))
+    return model
+
+
+def transformer_params_to_numpy(model: Transformer) -> dict:
+    """A ``Transformer`` (any device) -> numpy leaves nested as ``repro``'s
+    pytree, with the period axis leading on ``stack``."""
+    flat, stacked = {}, {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        value = p.detach().cpu().numpy()
+        if parts[0] == "stack":
+            stacked.setdefault(".".join(["stack", *parts[2:]]), []).append(
+                value)
+        else:
+            flat[name] = value
+    flat.update({k: np.stack(v) for k, v in stacked.items()})
+    tree: dict = {}
+    for name, value in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree

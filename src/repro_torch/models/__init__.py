@@ -1,1 +1,1 @@
-"""Models the port trains: the paper CNN."""
+"""Models of the port: the paper CNN and the dense-attention decoder LM."""

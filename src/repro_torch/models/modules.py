@@ -1,0 +1,114 @@
+"""Building blocks of the transformer, the counterpart of
+``repro.models.modules``.
+
+Parameters keep ``repro``'s shapes (a weight is ``[in_dim, *out_shape]``),
+so weights convert between the packages by a checked copy
+(:mod:`repro_torch.convert`).  Norm statistics and RoPE angles are computed
+in float32 whatever the parameter dtype.  ``layernorm`` and
+``chunked_scan`` come with the SSM layers (ROADMAP queue 1, item 12).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def dense_init(generator, in_dim, out_shape, dtype, scale=None,
+               device=None):
+    """Variance-scaled normal init of a weight ``[in_dim, *out_shape]``,
+    drawn from ``generator`` on its own device and moved to ``device``."""
+    if isinstance(out_shape, int):
+        out_shape = (out_shape,)
+    shape = (in_dim, *out_shape)
+    if scale is None:
+        scale = 1.0 / np.sqrt(in_dim)
+    w = torch.randn(shape, generator=generator,
+                    device=generator.device) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+def embed_init(generator, vocab, dim, dtype, device=None):
+    w = torch.randn((vocab, dim), generator=generator,
+                    device=generator.device) * 0.02
+    return w.to(device=device, dtype=dtype)
+
+
+def rmsnorm(scale, x, eps):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim, eps, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x):
+        return rmsnorm(self.scale, x, self.eps)
+
+
+def embed_lookup(table, tokens):
+    return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim, theta):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, freqs):
+    """x: [..., S, H, hd] (hd even); positions: broadcastable to [..., S];
+    ``freqs``: ``rope_freqs(hd, theta)`` as an f32 tensor on x's device
+    (the caller keeps it there: a copy from the host would wait for the
+    card).  Split-halves layout: the first hd/2 lanes rotate with the
+    second."""
+    angles = positions[..., None].float() * freqs      # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]              # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def swiglu_mlp(w_gate, w_up, w_down, x):
+    g = x @ w_gate
+    u = x @ w_up
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return h @ w_down
+
+
+class SwiGLU(nn.Module):
+    """``w_gate``/``w_up`` ``[d, f]`` and ``w_down`` ``[f, d]``, as
+    ``repro``'s ``swiglu_mlp_init`` shapes them."""
+
+    def __init__(self, d_model, d_ff, dtype=torch.float32, device=None):
+        super().__init__()
+
+        def empty(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                            device=device),
+                                requires_grad=False)
+        self.w_gate = empty(d_model, d_ff)
+        self.w_up = empty(d_model, d_ff)
+        self.w_down = empty(d_ff, d_model)
+
+    def reset_parameters(self, generator):
+        d, f = self.w_gate.shape
+        for name, (i, o) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                             ("w_down", (f, d))):
+            w = getattr(self, name)
+            w.copy_(dense_init(generator, i, o, w.dtype, device=w.device))
+
+    def forward(self, x):
+        return swiglu_mlp(self.w_gate, self.w_up, self.w_down, x)

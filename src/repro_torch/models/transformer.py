@@ -1,0 +1,241 @@
+"""Decoder LM for dense-attention architectures, the counterpart of
+``repro.models.transformer``.
+
+``Transformer`` holds ``embed``, ``final_norm`` and ``stack``, an
+``nn.ModuleList`` of the ``n_periods`` period blocks; block i holds
+``sub{j}`` with ``ln1``, ``ln2``, ``mixer`` and ``mlp``, as ``repro``'s
+pytree does with a leading period axis on ``stack``.  ``prefill`` builds the
+cache and ``decode_step`` takes one token against it.
+
+The cache is ``{"stack": {"sub0": {"mixer": {"k", "v"}}}}`` as in
+``repro``, each leaf ``[n_periods, B, S, Kv, hd]``.  ``decode_step`` writes
+it in place and returns the same dict.
+
+MoE, Mamba, RWKV and MLA sublayers, modality frontends and
+``first_k_dense`` prefix layers raise ``NotImplementedError``, as do
+``forward``/``forward_hidden`` (training): ROADMAP queue 1, item 12.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import (ArchConfig, MIXER_ATTN,
+                                      MIXER_ATTN_GLOBAL, MLP_DENSE)
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.modules import (RMSNorm, SwiGLU, dense_init,
+                                        embed_init, embed_lookup)
+
+UNPORTED = attn.UNPORTED
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    for sub in cfg.sublayers():
+        if sub.mixer not in (MIXER_ATTN, MIXER_ATTN_GLOBAL):
+            raise NotImplementedError(
+                f"{cfg.name}: {sub.mixer!r} mixers are {UNPORTED}")
+        if sub.mlp != MLP_DENSE:
+            raise NotImplementedError(
+                f"{cfg.name}: {sub.mlp!r} MLPs are {UNPORTED}")
+    if cfg.family == "ssm":
+        raise NotImplementedError(f"{cfg.name}: LayerNorm stacks are "
+                                  f"{UNPORTED}")
+    if cfg.first_k_dense:
+        raise NotImplementedError(f"{cfg.name}: first_k_dense prefix layers "
+                                  f"are {UNPORTED}")
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
+                                  f"is {UNPORTED}")
+
+
+class SubLayerBlock(nn.Module):
+    """One (attention, dense MLP) pair with its two RMSNorms."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.mixer = attn.Attention(cfg, dtype, device)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class PeriodBlock(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        for j, _ in enumerate(cfg.sublayers()):
+            self.add_module(f"sub{j}", SubLayerBlock(cfg, dtype, device))
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab, dim, dtype, device):
+        super().__init__()
+        self.table = nn.Parameter(
+            torch.empty((vocab, dim), dtype=dtype, device=device),
+            requires_grad=False)
+
+
+class LMHead(nn.Module):
+    def __init__(self, dim, vocab, dtype, device):
+        super().__init__()
+        self.w = nn.Parameter(
+            torch.empty((dim, vocab), dtype=dtype, device=device),
+            requires_grad=False)
+
+
+class Transformer(nn.Module):
+    """Parameters only, uninitialised (``init_params`` draws them,
+    ``convert.transformer_params_from_jax`` copies them in)."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.stack = nn.ModuleList(
+            PeriodBlock(cfg, dtype, device) for _ in range(cfg.n_periods))
+        if not cfg.tie_embeddings:
+            self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.float32, device=None) -> Transformer:
+    """``repro``'s init distributions (normal embeddings times 0.02,
+    variance-scaled dense weights, unit norm scales), drawn from
+    ``generator`` on its own device and placed on ``device`` (``None``: the
+    card)."""
+    device = resolve_device(device)
+    model = Transformer(cfg, dtype, device)
+    model.embed.table.copy_(embed_init(generator, cfg.vocab_size,
+                                       cfg.d_model, dtype, device))
+    for period in model.stack:
+        for j, _ in enumerate(cfg.sublayers()):
+            sub = getattr(period, f"sub{j}")
+            sub.mixer.reset_parameters(generator)
+            sub.mlp.reset_parameters(generator)
+    if not cfg.tie_embeddings:
+        model.lm_head.w.copy_(dense_init(generator, cfg.d_model,
+                                         cfg.vocab_size, dtype,
+                                         device=device))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# sublayer application
+# ---------------------------------------------------------------------------
+def _apply_sublayer(cfg, p, mixer_kind, h, positions):
+    """Prefill path.  Returns (h, cache)."""
+    kind, width = attn.mask_spec_for(cfg, mixer_kind)
+    y, c = attn.attention_fwd(cfg, p.mixer, p.ln1(h), positions, kind, width)
+    h = h + y
+    h = h + p.mlp(p.ln2(h))
+    return h, {"mixer": c}
+
+
+def _apply_sublayer_decode(cfg, p, mixer_kind, h, cache, pos):
+    """One-token path; writes ``cache`` in place.  Returns h."""
+    kind, width = attn.mask_spec_for(cfg, mixer_kind)
+    y, _ = attn.attention_decode(cfg, p.mixer, p.ln1(h), cache["mixer"], pos,
+                                 kind, width)
+    h = h + y
+    return h + p.mlp(p.ln2(h))
+
+
+def _lm_head(cfg, model, h):
+    if cfg.tie_embeddings:
+        return h @ model.embed.table.t()
+    return h @ model.lm_head.w
+
+
+def forward(cfg, model, tokens, frontend_embeds=None):
+    raise NotImplementedError(f"training forward is {UNPORTED}")
+
+
+def forward_hidden(cfg, model, tokens, frontend_embeds=None):
+    raise NotImplementedError(f"training forward is {UNPORTED}")
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+def prefill(cfg: ArchConfig, model: Transformer, tokens,
+            frontend_embeds=None):
+    """tokens: [B, S] int.  Returns (logits [B, S, V], cache)."""
+    if frontend_embeds is not None:
+        raise NotImplementedError(f"frontend embeddings are {UNPORTED}")
+    h = embed_lookup(model.embed.table, tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    subs = cfg.sublayers()
+    per_layer = {f"sub{j}": [] for j in range(len(subs))}
+    for period in model.stack:
+        for j, sub in enumerate(subs):
+            h, c = _apply_sublayer(cfg, getattr(period, f"sub{j}"),
+                                   sub.mixer, h, positions)
+            per_layer[f"sub{j}"].append(c["mixer"])
+    stack = {name: {"mixer": {leaf: torch.stack([c[leaf] for c in cs])
+                              for leaf in ("k", "v")}}
+             for name, cs in per_layer.items()}
+    h = model.final_norm(h)
+    return _lm_head(cfg, model, h), {"stack": stack}
+
+
+def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
+    """token: [B, 1] int; ``pos``: an int, a 0-d tensor or a per-sequence
+    ``[B]`` tensor of absolute positions.  Writes the new K/V into
+    ``cache`` in place.  Returns (logits [B, 1, V], cache)."""
+    h = embed_lookup(model.embed.table, token)
+    pos = attn.as_positions(pos, h.device)
+    subs = cfg.sublayers()
+    for i, period in enumerate(model.stack):
+        for j, sub in enumerate(subs):
+            leaves = cache["stack"][f"sub{j}"]["mixer"]
+            layer = {"mixer": {"k": leaves["k"][i], "v": leaves["v"][i]}}
+            h = _apply_sublayer_decode(cfg, getattr(period, f"sub{j}"),
+                                       sub.mixer, h, layer, pos)
+    h = model.final_norm(h)
+    return _lm_head(cfg, model, h), cache
+
+
+# ---------------------------------------------------------------------------
+# cache construction
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch, max_seq, dtype=torch.float32,
+               device=None):
+    """Zero caches, each leaf ``[n_periods, batch, max_seq, Kv, hd]`` on
+    ``device`` (``None``: the card)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    stack = {}
+    for j, sub in enumerate(cfg.sublayers()):
+        kind, width = attn.mask_spec_for(cfg, sub.mixer)
+        c = attn.init_attn_cache(cfg, batch, max_seq, kind, width, dtype,
+                                 device)
+        stack[f"sub{j}"] = {"mixer": {
+            k: v.new_zeros((cfg.n_periods, *v.shape)) for k, v in c.items()}}
+    return {"stack": stack}
+
+
+def grow_cache(cfg: ArchConfig, cache, batch, max_seq, dtype=torch.float32):
+    """Pad a prefill-produced cache out to ``max_seq`` decode capacity:
+    full-attention caches grow along the sequence axis, zero-padded at the
+    tail (future slots).  Returns new tensors on the cache's device."""
+    out = {}
+    for name, sub in cache["stack"].items():
+        leaves = {}
+        for k, c in sub["mixer"].items():
+            target = (cfg.n_periods, batch, max_seq, *c.shape[3:])
+            if c.shape[2] > max_seq or tuple(c.shape[:2]) != target[:2]:
+                raise ValueError(f"grow_cache: {k} {tuple(c.shape)} does not "
+                                 f"fit {target}")
+            g = torch.zeros(target, dtype=dtype, device=c.device)
+            g[:, :, :c.shape[2]] = c
+            leaves[k] = g
+        out[name] = {"mixer": leaves}
+    return {"stack": out}
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Parameter count, from the shapes alone (built on the meta device)."""
+    return sum(p.numel() for p in
+               Transformer(cfg, torch.bfloat16, "meta").parameters())

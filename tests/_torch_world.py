@@ -95,3 +95,20 @@ def assert_fleet_conforms(jres, tres, bf16: bool = False):
     for (_, a), (_, b) in zip(jres.acc_history, tres.acc_history):
         assert abs(a - b) <= ACC_TOL
         assert np.isfinite(b)
+
+
+def transformer_pair(variant: dict | None = None, seed: int = 0):
+    """smollm-360m reduced (optionally a ``variant`` of it) in both
+    packages with ``repro``'s ``T.init_params`` weights: returns
+    ``(jax cfg, jax params, port cfg, port model on the CPU)``."""
+    from repro.configs import get_config as jget_config
+    from repro.models import transformer as jT
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.convert import transformer_params_from_jax
+
+    jcfg = jget_config("smollm-360m").reduced().variant(**(variant or {}))
+    tcfg = tget_config("smollm-360m").reduced().variant(**(variant or {}))
+    jparams = jT.init_params(jcfg, jax.random.PRNGKey(seed))
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    return jcfg, jparams, tcfg, transformer_params_from_jax(tree, tcfg,
+                                                            "cpu")

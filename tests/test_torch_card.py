@@ -62,7 +62,9 @@ def test_kernel_path_runs_or_raises_on_card(cuda_device):
         ops.weighted_agg(g.t(), g.t(), 0.5, 1.0)
     assert ops.KERNEL.launches == 0
     ops.weighted_agg(g, g, 0.5, 1.0)
-    assert kernels.launch_counts() == {"weighted_agg": 1, "ring_agg": 0}
+    assert kernels.launch_counts() == {
+        "weighted_agg": 1, "ring_agg": 0, "decode_attention": 0,
+        "swa_attention": 0}
 
 
 @pytest.mark.cuda
@@ -118,7 +120,9 @@ def test_ring_agg_matches_plain_version_on_card(cuda_device, tdt):
                     P, U, neg_zero)
                 assert out.data_ptr() != g.data_ptr()
                 chains += U > 0
-    assert kernels.launch_counts() == {"weighted_agg": 0, "ring_agg": chains}
+    assert kernels.launch_counts() == {
+        "weighted_agg": 0, "ring_agg": chains, "decode_attention": 0,
+        "swa_attention": 0}
 
 
 @pytest.mark.cuda
@@ -138,9 +142,13 @@ def test_ring_agg_wrapper_raises_on_card(cuda_device):
                 (buf[1:], locs, coeffs)]:
         with pytest.raises((ValueError, TypeError)):
             ops.ring_agg(*bad)
-    assert kernels.launch_counts() == {"weighted_agg": 0, "ring_agg": 0}
+    assert kernels.launch_counts() == {
+        "weighted_agg": 0, "ring_agg": 0, "decode_attention": 0,
+        "swa_attention": 0}
     ops.ring_agg(g, locs, coeffs)
-    assert kernels.launch_counts() == {"weighted_agg": 0, "ring_agg": 1}
+    assert kernels.launch_counts() == {
+        "weighted_agg": 0, "ring_agg": 1, "decode_attention": 0,
+        "swa_attention": 0}
 
 
 def _expected_chains(name, rounds, eval_every):
@@ -164,7 +172,8 @@ def test_fleet_engine_on_card_uses_only_ring_agg(cuda_device, ring_dtype):
                        device=cuda_device)
     assert len(res.rounds) == 6
     assert kernels.launch_counts() == {
-        "weighted_agg": 0, "ring_agg": _expected_chains("quick-k5", 6, 3)}
+        "weighted_agg": 0, "ring_agg": _expected_chains("quick-k5", 6, 3),
+        "decode_attention": 0, "swa_attention": 0}
     assert all(v.is_cuda and bool(torch.isfinite(v).all())
                for v in res.final_params.values())
 
@@ -195,3 +204,156 @@ def test_event_loop_never_waits_for_the_card(cuda_device, monkeypatch):
     res = run_scenario("quick-k5", engine="jit", rounds=8,
                        ring_dtype="bf16", device=cuda_device)
     assert sum(segments) == len(res.rounds) == 8 and len(segments) > 1
+
+
+# K4 decode_attention and K5 swa_attention against their plain versions:
+# f32 inputs from N(0, 1) within 2e-5 (the online softmax sums in another
+# order than the dense plain version), bf16 within 3e-2 (the plain version
+# rounds scores and weights to bf16, the kernel keeps them in f32)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _attn_max_err(out, want):
+    assert out.dtype == want.dtype and out.shape == want.shape
+    return (out.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4])
+def test_decode_attention_matches_plain_version_on_card(cuda_device, tdt,
+                                                        hd, G):
+    """K4 at pos = 0, S - 1 and a mixed per-row vector, with the sequence
+    split into chunks (small batch) and whole (large batch)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    gen = torch.Generator(device=cuda_device).manual_seed(G * hd)
+    kernels.reset_launches()
+    calls = 0
+    for B, S, Kv in [(2, 1000, 2), (64, 300, 5)]:
+        q = torch.randn(B, G * Kv, hd, generator=gen,
+                        device=cuda_device).to(tdt)
+        k, v = (torch.randn(B, S, Kv, hd, generator=gen,
+                            device=cuda_device).to(tdt) for _ in range(2))
+        mixed = torch.randint(0, S, (B,), generator=gen, device=cuda_device,
+                              dtype=torch.int32)
+        for pos in (0, S - 1, mixed):
+            out = dops.decode_attention(q, k, v, pos)
+            want = dref.decode_attention(q, k, v, pos)
+            torch.cuda.synchronize()
+            assert _attn_max_err(out, want) <= ATTN_TOL[tdt], (B, S, pos)
+            calls += 1
+    assert kernels.launch_counts()["decode_attention"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 3])
+def test_swa_attention_matches_plain_version_on_card(cuda_device, tdt, G):
+    """K5 at window = S, windows under S (one not a multiple of the 64-row
+    tile) and S not a multiple of the tile."""
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import ref as sref
+    gen = torch.Generator(device=cuda_device).manual_seed(G)
+    kernels.reset_launches()
+    calls = 0
+    for B, S, Kv, hd in [(1, 256, 5, 64), (2, 200, 2, 128), (1, 33, 1, 64)]:
+        q = torch.randn(B, S, G * Kv, hd, generator=gen,
+                        device=cuda_device).to(tdt)
+        k, v = (torch.randn(B, S, Kv, hd, generator=gen,
+                            device=cuda_device).to(tdt) for _ in range(2))
+        for window in (S, 64, 45, 1, 10 * S):
+            out = sops.swa_attention(q, k, v, window)
+            want = sref.swa_attention(q, k, v, window)
+            torch.cuda.synchronize()
+            assert _attn_max_err(out, want) <= ATTN_TOL[tdt], (B, S, window)
+            calls += 1
+    assert kernels.launch_counts()["swa_attention"] == calls
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_on_card(cuda_device):
+    """A CPU/CUDA mix, an unsupported dtype or head dim and a
+    non-contiguous input raise before any launch; nothing falls back to
+    the plain version."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.swa_attention import ops as sops
+    kernels.reset_launches()
+    q = torch.zeros(2, 6, 64, device=cuda_device)
+    k = torch.zeros(2, 32, 2, 64, device=cuda_device)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    for bad in [(q, k.cpu(), k, pos), (q, k, k, pos.cpu()),
+                (q.half(), k.half(), k.half(), pos),
+                (q[:, :, :32], k[..., :32], k[..., :32], pos),
+                (q, k.transpose(1, 2).contiguous().transpose(1, 2), k, pos),
+                (torch.zeros(2, 18, 64, device=cuda_device), k, k, pos)]:
+        with pytest.raises((ValueError, TypeError)):
+            dops.decode_attention(*bad)
+    qs = torch.zeros(1, 32, 6, 64, device=cuda_device)
+    ks = torch.zeros(1, 32, 2, 64, device=cuda_device)
+    for bad in [(qs, ks.cpu(), ks, 32), (qs.half(), ks.half(), ks.half(), 32),
+                (qs.transpose(1, 2).contiguous().transpose(1, 2), ks, ks, 32),
+                (qs[..., :32], ks[..., :32], ks[..., :32], 32)]:
+        with pytest.raises((ValueError, TypeError)):
+            sops.swa_attention(*bad)
+    assert kernels.launch_counts() == {
+        "weighted_agg": 0, "ring_agg": 0, "decode_attention": 0,
+        "swa_attention": 0}
+
+
+@pytest.mark.cuda
+def test_reduced_serve_launches_only_the_attention_kernels(cuda_device):
+    """A reduced smollm-360m server on the card: one ``swa_attention`` per
+    layer per admitted request, one ``decode_attention`` per layer per
+    tick, no other kernel, and the same tokens as on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import BatchedServer
+    cfg = get_config("smollm-360m").reduced().variant(n_heads=6,
+                                                      n_kv_heads=2)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 70, 9)]
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        srv = BatchedServer(cfg, model.to(dev), n_slots=2, max_seq=96)
+        reqs = [srv.submit(p, max_new=6) for p in prompts]
+        kernels.reset_launches()
+        ticks = srv.run_until_drained()
+        counts = kernels.launch_counts()
+        outs[dev.type] = [r.out for r in reqs]
+        if dev.type == "cuda":
+            assert counts == {"weighted_agg": 0, "ring_agg": 0,
+                              "decode_attention": cfg.n_layers * ticks,
+                              "swa_attention": cfg.n_layers * len(prompts)}
+        else:
+            assert not any(counts.values())
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_decode_step_never_waits_for_the_card(cuda_device):
+    """A decode step (cache writes at a pos vector, K4, the MLPs) runs with
+    CUDA synchronisation made an error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-360m").reduced()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device=cuda_device)
+    cache = T.init_cache(cfg, 3, 64, device=cuda_device)
+    token = torch.zeros(3, 1, dtype=torch.int32, device=cuda_device)
+    pos = torch.tensor([0, 5, 63], dtype=torch.int32, device=cuda_device)
+    T.decode_step(cfg, model, token, cache, pos)     # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = T.decode_step(cfg, model, token, cache, pos)
+        logits, _ = T.decode_step(cfg, model, token, cache, 7)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())

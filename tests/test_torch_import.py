@@ -14,11 +14,15 @@ import pytest
 import torch
 
 from repro_torch.channel import ChannelParams
+from repro_torch.configs import get_config
 from repro_torch.core.client import Vehicle, VehicleData
 from repro_torch.core.mafl import evaluate, run_simulation
 from repro_torch.core.scenarios import run_scenario
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve
+from repro_torch.models import attention
+from repro_torch.models import transformer as T
 from repro_torch.models.cnn import init_cnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +48,7 @@ def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 45
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -79,8 +83,12 @@ def _tiny_world():
     return data
 
 
-@pytest.mark.parametrize("module", ["repro_torch.core.jit_engine",
-                                    "repro_torch.core.flat"])
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.jit_engine", "repro_torch.core.flat",
+    "repro_torch.configs", "repro_torch.models.transformer",
+    "repro_torch.launch.serve", "repro_torch.launch.steps",
+    "repro_torch.serving", "repro_torch.kernels.decode_attention.ops",
+    "repro_torch.kernels.swa_attention.ops"])
 def test_fleet_modules_import_alone_without_jax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -94,7 +102,8 @@ def test_fleet_modules_import_alone_without_jax(module):
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "run_scenario", "run_simulation", "evaluate",
-    "Vehicle", "RSUServer", "run_simulation_jit"])
+    "Vehicle", "RSUServer", "run_simulation_jit", "init_params",
+    "init_cache", "serve"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the card: without one the call raises instead
     of running on the host."""
@@ -114,6 +123,11 @@ def test_entry_points_default_to_the_card(entry):
         "run_simulation_jit": lambda: run_simulation(
             [data], data.images, data.labels,
             params=ChannelParams(K=1), rounds=1, engine="jit"),
+        "init_params": lambda: T.init_params(
+            get_config("smollm-360m").reduced(), torch.Generator()),
+        "init_cache": lambda: T.init_cache(
+            get_config("smollm-360m").reduced(), 1, 8),
+        "serve": lambda: serve.main(["--reduced"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -138,3 +152,21 @@ def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
 def test_unknown_engine_raises():
     with pytest.raises(ValueError, match="unknown engine"):
         run_scenario("quick-k5", engine="nope", device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-lite-16b",
+                                  "rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_unported_arch_raises_naming_item_12(arch):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        get_config(arch)
+
+
+@pytest.mark.parametrize("mask_kind", ["swa", "chunk"])
+def test_non_full_mask_raises_naming_item_12(mask_kind):
+    cfg = get_config("smollm-360m").reduced()
+    p = attention.init_attention(cfg, torch.Generator(), device="cpu")
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        attention.attention_fwd(cfg, p, x, torch.arange(4), mask_kind, 2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        attention.attention_decode(cfg, p, x[:, :1], {}, 0, mask_kind, 2)
