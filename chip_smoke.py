@@ -43,6 +43,27 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 8. serve, card against host: the same config cut to 4 layers, one CPU
    init, two of the prompts: prefill and 16 teacher-forced decode steps on
    both, logits within atol 1e-3 / rtol 1e-3.
+9. cross-entropy kernel: ``cross_entropy`` (K3) at R in {1, 7, 512, 4096}
+   and V in {512, 1111, 49152, 131072}, f32 and bf16, labels at 0, V - 1
+   and random, plus rows of +-1e4 logits: (nll, lse) within 1e-4 (f32) /
+   3e-2 (bf16) / 1e-3 (+-1e4 rows) of the plain version, and the
+   backward's d logits within 1e-6 of plain autograd; then kernel, plain
+   version and ``F.cross_entropy`` timed at the training path's shapes.
+10. training path: ``launch/train.py``'s MAFL loop on full-width
+    smollm-360m (the port's torch init, f32) with ``--use-kernel`` and the
+    defaults (batch 8, seq-len 64, 4 local steps, lr 0.05) for 10 rounds;
+    ``cross_entropy`` launches once per local step and held-out eval,
+    ``weighted_agg`` once per parameter leaf (290) per merge; every printed
+    loss finite; a second run under torch.profiler gives the busy share.
+11. train step: ``make_train_step`` at full width, B 8, S 512 (4096 rows
+    into K3): one warm-up and 5 timed steps.
+12. training, card against host: the same config cut to 4 layers, one CPU
+    init, 2 rounds of 2 local steps on both: the same vehicles, losses
+    within rtol 1e-4, final params within atol 1e-4 / rtol 1e-3.
+
+Every torch.profiler reading (kernels' device times, the main paths'
+busy shares) is taken last, after all host-clock and CUDA-event timings:
+a finished profiler trace slows every later launch (``PROFILED``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -176,12 +197,13 @@ def profile_call(label, fn, wall_ms):
             and str(getattr(e, "device_type", "")).endswith("CUDA")]
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
+    launched = sum(r[1] for r in rows)
     if not rows:
         log(f"profile: {label}: no device activity recorded "
             f"(device busy share not measured)")
         return None
-    log(f"profile: {label}: device kernels "
-        f"{dev_ms:.3f} ms; wall {prof_ms:.3f} ms profiled (busy share "
+    log(f"profile: {label}: device kernels {dev_ms:.3f} ms in {launched} "
+        f"launches; wall {prof_ms:.3f} ms profiled (busy share "
         f"{dev_ms / prof_ms:.4f}), {wall_ms:.3f} ms unprofiled (busy share "
         f"{dev_ms / wall_ms:.4f}); top kernels by device time:")
     for t, n, key in rows[:10]:
@@ -190,12 +212,51 @@ def profile_call(label, fn, wall_ms):
 
 
 def profile_run(name, engine, rounds, wall_ms):
-    """One main-path run of the simulator under torch.profiler."""
+    """One main-path run of the simulator under torch.profiler (queued)."""
     from repro_torch.core.scenarios import run_scenario
-    profile_call(f"{name}/{engine} {rounds} rounds",
-                 lambda: run_scenario(name, engine=engine, use_kernel=True,
-                                      device=DEVICE, rounds=rounds),
-                 wall_ms)
+    profile_later(f"{name}/{engine} {rounds} rounds",
+                  lambda: run_scenario(name, engine=engine, use_kernel=True,
+                                       device=DEVICE, rounds=rounds),
+                  wall_ms)
+
+
+# A finished torch.profiler trace leaves the card's launch path slower for
+# the rest of the process (on an H100 80GB HBM3 at 700 W, ``launch_us``
+# read 10.2 us per tiny launch before the queue below and 16.9 us after
+# it).  So every profiler reading is queued here and taken after all
+# host-clock and CUDA-event timings of the run.
+PROFILED = []
+
+
+def launch_us(dev, n=20000):
+    """Host time per launch of a tiny kernel (an in-place add on 16
+    floats) over ``n`` back-to-back launches, synchronised around them."""
+    import torch
+    x = torch.zeros(16, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def profile_later(label, fn, wall_ms):
+    PROFILED.append(lambda: profile_call(label, fn, wall_ms))
+
+
+def device_time_later(label, row, fn, kernel_names, iters=50):
+    """Queue the profiler's device time per call of ``fn``'s kernels: it
+    is logged and stored in ``row["device_ms"]`` when the queue runs."""
+    row["device_ms"] = None
+
+    def measure():
+        busy = device_ms_per_call(fn, kernel_names, iters)
+        row["device_ms"] = busy
+        log(f"device time: {label}: "
+            f"{'not measured' if busy is None else f'{busy:.6f} ms'} per "
+            f"call (torch.profiler)")
+    PROFILED.append(measure)
 
 
 def bits(t):
@@ -271,11 +332,7 @@ def phase_kernels(dev):
         f"kernel {ms['kernel']:.6f} ms, plain {ms['plain']:.6f} ms, "
         f"torch.lerp {ms['library']:.6f} ms, bound {bound_ms:.6f} ms "
         f"({bytes_moved} bytes at 3.35 TB/s); samples {samples}")
-    busy = device_ms_per_call(runs["kernel"], "weighted_agg_kernel")
-    log(f"kernels: weighted_agg device time per full-model merge (sum of "
-        f"its 8 launches, torch.profiler): "
-        f"{'not measured' if busy is None else f'{busy:.6f} ms'}")
-    return {
+    record = {
         "name": "weighted_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
         "replaces": "src/repro/kernels/weighted_agg/kernel.py:48",
@@ -285,6 +342,9 @@ def phase_kernels(dev):
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": ms["library"],
     }
+    device_time_later("weighted_agg per full-model merge (its 8 launches)",
+                      record, runs["kernel"], "weighted_agg_kernel")
+    return record
 
 
 def ring_inputs(P, U, dtype, gen, dev, neg_zero=False):
@@ -370,8 +430,6 @@ def phase_ring_kernel(dev):
         ms = {k: float(np.median(v)) for k, v in samples.items()}
         bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         bound_ops = 3 * U * P / FP32_FLOP_PER_S * 1e3
-        busy = device_ms_per_call(rotating(ops.ring_agg, sets),
-                                  "ring_agg_kernel")
         tag = "f32" if dtype == torch.float32 else "bf16"
         lib = (f"addmv {ms['library']:.6f} ms" if "library" in ms
                else "addmv not timed (f32 only)")
@@ -379,24 +437,26 @@ def phase_ring_kernel(dev):
             f"({n_sets} input sets, {bytes_moved} bytes per chain): kernel "
             f"{ms['kernel']:.6f} ms, plain {ms['plain']:.6f} ms, {lib}")
         log(f"kernels:   bound {max(bound_bytes, bound_ops):.6f} ms "
-            f"(bytes {bound_bytes:.6f}, operations {bound_ops:.6f}); device "
-            f"time per chain (torch.profiler) "
-            f"{'not measured' if busy is None else f'{busy:.6f} ms'}; "
+            f"(bytes {bound_bytes:.6f}, operations {bound_ops:.6f}); "
             f"samples {samples}")
         timings[tag] = {
             "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations",
-            "library_ms": ms.get("library"), "device_ms": busy}
-    entry = {
+            "library_ms": ms.get("library")}
+        device_time_later(f"ring_agg U={U} P={P} {tag} uploads per chain",
+                          timings[tag], rotating(ops.ring_agg, sets),
+                          "ring_agg_kernel")
+    return {
         "name": "ring_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ring_agg.cu",
         "replaces": "src/repro/kernels/weighted_agg/kernel.py:113",
         "max_abs_err": max_err, **timings["f32"],
-        "shape": f"U={U} P={P} f32 uploads", "bf16": timings["bf16"],
+        "shape": f"U={U} P={P} f32 uploads",
+        "geometries": {f"U={U} P={P} {tag} uploads": row
+                       for tag, row in timings.items()},
     }
-    return entry
 
 
 def run_main(name, engine, rounds):
@@ -656,8 +716,8 @@ def attn_check(name, out, want, tag, where):
     return e
 
 
-def attn_timings(label, runs, sets_info, bytes_moved, flops, peak, busy,
-                 reps, iters, warmup):
+def attn_timings(label, runs, sets_info, bytes_moved, flops, peak, reps,
+                 iters, warmup):
     """Time kernel / plain / library in turns; log and return the row."""
     ms, samples = in_turns(runs, reps, iters, warmup)
     bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -666,15 +726,12 @@ def attn_timings(label, runs, sets_info, bytes_moved, flops, peak, busy,
         f"flops): kernel {ms['kernel']:.6f} ms, plain {ms['plain']:.6f} "
         f"ms, SDPA {ms['library']:.6f} ms")
     log(f"kernels:   bound {max(bound_bytes, bound_ops):.6f} ms (bytes "
-        f"{bound_bytes:.6f}, operations {bound_ops:.6f}); device time "
-        f"(torch.profiler) "
-        f"{'not measured' if busy is None else f'{busy:.6f} ms'}; "
-        f"samples {samples}")
+        f"{bound_bytes:.6f}, operations {bound_ops:.6f}); samples {samples}")
     return {"ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations",
-            "library_ms": ms["library"], "device_ms": busy}
+            "library_ms": ms["library"]}
 
 
 def phase_decode_kernel(dev):
@@ -748,17 +805,16 @@ def phase_decode_kernel(dev):
                    label)
         big = bytes_moved > 1e9
         iters, warmup, reps = (5, 2, 4) if big else (100, 10, 6)
-        busy = device_ms_per_call(
-            rotating(kernel, sets),
-            ("decode_chunk_kernel", "decode_combine_kernel"), iters=iters)
         chunk, n_chunks = ops.split(B, S, Kv)
         geometries[label] = attn_timings(
             f"decode_attention {label} G={G} hd={hd} pos=S-1",
             runs, f"{n_sets} input sets; {n_chunks} chunks of {chunk}, "
-            f"{B * Kv * n_chunks} blocks", bytes_moved, flops, peak, busy,
+            f"{B * Kv * n_chunks} blocks", bytes_moved, flops, peak,
             reps, iters, warmup)
-        del sets, runs
-        torch.cuda.empty_cache()
+        device_time_later(f"decode_attention {label}", geometries[label],
+                          rotating(kernel, sets),
+                          ("decode_chunk_kernel", "decode_combine_kernel"),
+                          iters=iters)
     main = geometries[DECODE_TIMED[0][0]]
     return {
         "name": "decode_attention", "route": "cuda",
@@ -832,11 +888,12 @@ def phase_swa_kernel(dev):
                 "library": rotating(sdpa, sets)}
         attn_check("SDPA yardstick", sdpa(*sets[0]), kernel(*sets[0]), tag,
                    label)
-        busy = device_ms_per_call(rotating(kernel, sets), "swa_kernel")
         geometries[label] = attn_timings(
             f"swa_attention {label} B=1 H=15 Kv=5 hd=64 window=S", runs,
-            f"{n_sets} input sets", bytes_moved, flops, peak, busy,
+            f"{n_sets} input sets", bytes_moved, flops, peak,
             reps=6, iters=50, warmup=5)
+        device_time_later(f"swa_attention {label}", geometries[label],
+                          rotating(kernel, sets), "swa_kernel")
     main = geometries[SWA_TIMED[0][0]]
     return {
         "name": "swa_attention", "route": "cuda",
@@ -945,8 +1002,8 @@ def phase_serve(dev):
         f"{np.median(stats['tick_ms']):.3f}; sum prefill "
         f"{np.sum(stats['prefill_ms']):.3f} ms, sum ticks "
         f"{np.sum(stats['tick_ms']):.3f} ms of {wall * 1e3:.3f} ms")
-    profile_call(f"serve {cfg.name} {SERVE_REQUESTS} requests",
-                 lambda: serve_run(cfg, model, prompts), wall * 1e3)
+    profile_later(f"serve {cfg.name} {SERVE_REQUESTS} requests",
+                  lambda: serve_run(cfg, model, prompts), wall * 1e3)
     return counts["decode_attention"], counts["swa_attention"]
 
 
@@ -1002,6 +1059,358 @@ def phase_serve_vs_cpu(dev):
         f"tokens agree in {agree} of {steps} steps")
 
 
+# K3 cross_entropy: (nll, lse) within 1e-4 of the plain version in f32
+# (repro's bar for its kernel, tests/test_kernels.py) and 3e-2 in bf16; rows
+# of +-1e4 logits within 1e-3 (repro's bar for them: lse ~ 1e4, where one
+# f32 ulp is 1e-3); d logits within 1e-6 of plain autograd
+CE_TOL = {"f32": 1e-4, "bf16": 3e-2}
+CE_EXTREME_TOL, CE_GRAD_TOL = 1e-3, 1e-6
+CE_R, CE_V = (1, 7, 512, 4096), (512, 1111, 49152, 131072)
+CE_GRAD_CASES = ((7, 1111), (512, 49152), (4096, 49152))
+# (label, R, V, dtype): the training loop's local step (batch 8 x seq 64)
+# first, its held-out eval (32 x 64), make_train_step at B 8 S 512, the
+# same in bf16, and mistral-nemo's vocab (benchmarks/kernel_micro.py)
+CE_TIMED = (("train step R=512 V=49152 f32", 512, 49152, "f32"),
+            ("held-out R=2048 V=49152 f32", 2048, 49152, "f32"),
+            ("train_step R=4096 V=49152 f32", 4096, 49152, "f32"),
+            ("train_step R=4096 V=49152 bf16", 4096, 49152, "bf16"),
+            ("R=256 V=131072 f32", 256, 131072, "f32"))
+CE_OPS_PER_LOGIT = 4       # compare, subtract, exponential, add
+# training: full-width smollm-360m, train.py's defaults, 10 rounds
+TRAIN_ROUNDS = 10
+TRAIN_STEP_B, TRAIN_STEP_S, TRAIN_STEP_TIMED = 8, 512, 5
+# card vs CPU on the training path: 4 layers, 2 rounds x 2 local steps;
+# cuBLAS and the CPU sum the f32 products in different orders, a few ulps
+# per op that 4 SGD steps at lr 0.05 carry forward; 1e-4 on weights of size
+# ~0.01-1 is far above that and far below what a wrong kernel, gradient or
+# merge would change
+TRAIN_CPU_LAYERS, TRAIN_CPU_ROUNDS, TRAIN_CPU_ITERS = 4, 2, 2
+TRAIN_CPU_LOSS_RTOL = 1e-4
+TRAIN_CPU_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def ce_inputs(R, V, dtype, gen, dev):
+    import torch
+    x = (torch.randn(R, V, generator=gen, device=dev) * 3).to(dtype)
+    y = torch.randint(0, V, (R,), generator=gen, device=dev)
+    y[0] = 0
+    y[-1] = V - 1
+    return x, y
+
+
+def ce_err(got, want):
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def phase_ce_kernel(dev):
+    """K3 against its plain version over R, V, dtypes and labels, with
+    +-1e4 rows; the backward against plain autograd; then kernel, plain
+    version and ``F.cross_entropy`` timed at the training path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.cross_entropy import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    kernels.reset_launches()
+    err = {"f32": 0.0, "bf16": 0.0, "extreme": 0.0}
+    cases = 0
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for R in CE_R:
+            for V in CE_V:
+                x, y = ce_inputs(R, V, dtype, gen, dev)
+                got = ops.nll_and_lse(x, y)
+                torch.cuda.synchronize()
+                check(all(t.dtype == torch.float32 and t.shape == (R,)
+                          for t in got), f"cross_entropy shape/dtype R={R} "
+                      f"V={V} {tag}")
+                e = ce_err(got, ref.nll_and_lse(x, y))
+                check(e <= CE_TOL[tag], f"cross_entropy differs from its "
+                      f"plain version by {e} at R={R} V={V} {tag}")
+                err[tag] = max(err[tag], e)
+                cases += 1
+                del x, y, got
+        for V in CE_V:
+            x = torch.tensor([1e4, -1e4, 0.0, 5.0], device=dev).repeat(
+                8, V // 4 + 1)[:, :V].contiguous().to(dtype)
+            y = torch.tensor([0, 1, 2, 3, V - 1, 0, 1, 2], device=dev)
+            got = ops.nll_and_lse(x, y)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"cross_entropy: +-1e4 rows not finite at V={V} {tag}")
+            e = ce_err(got, ref.nll_and_lse(x, y))
+            check(e <= CE_EXTREME_TOL, f"cross_entropy: +-1e4 rows differ "
+                  f"by {e} at V={V} {tag}")
+            err["extreme"] = max(err["extreme"], e)
+            cases += 1
+    launched = kernels.launch_counts()["cross_entropy"]
+    check(launched == cases, f"cross_entropy launched {launched} times for "
+          f"{cases} calls")
+    grad_err = 0.0
+    for R, V in CE_GRAD_CASES:
+        x, y = ce_inputs(R, V, torch.float32, gen, dev)
+        grads = []
+        for use_kernel in (True, False):
+            xl = x.clone().requires_grad_()
+            loss = ops.lm_loss(xl[None], y[None], use_kernel=use_kernel)
+            grads.append(torch.autograd.grad(loss, xl)[0])
+        e = (grads[0] - grads[1]).abs().max().item()
+        check(e <= CE_GRAD_TOL, f"cross_entropy backward differs from plain "
+              f"autograd by {e} at R={R} V={V}")
+        grad_err = max(grad_err, e)
+        del x, grads
+    log(f"kernels: cross_entropy within tolerance of its plain version in "
+        f"{cases} cases (R in {CE_R}, V in {CE_V}, f32 and bf16, labels 0, "
+        f"V - 1 and random; +-1e4 rows at every V); max_abs_err f32 "
+        f"{err['f32']} (tol {CE_TOL['f32']}), bf16 {err['bf16']} (tol "
+        f"{CE_TOL['bf16']}), +-1e4 rows {err['extreme']} (tol "
+        f"{CE_EXTREME_TOL}); backward d logits vs plain autograd at "
+        f"{CE_GRAD_CASES} max_abs_err {grad_err} (tol {CE_GRAD_TOL}); "
+        f"{launched} launches")
+
+    geometries = {}
+    for label, R, V, tag in CE_TIMED:
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        s = torch.finfo(dtype).bits // 8
+        # logits and i32 labels read once, nll and lse written once
+        bytes_moved = R * V * s + R * 4 + 2 * R * 4
+        flops = CE_OPS_PER_LOGIT * R * V
+        n_sets = max(2, int(np.ceil(2 * L2_BYTES / bytes_moved)))
+        sets = [ce_inputs(R, V, dtype, gen, dev) for _ in range(n_sets)]
+        runs = {"kernel": rotating(ops.nll_and_lse, sets),
+                "plain": rotating(ref.nll_and_lse, sets),
+                "library": rotating(
+                    lambda x, y: F.cross_entropy(x, y, reduction="none"),
+                    sets)}
+        # the yardstick computes the same function (in bf16 it returns
+        # bf16: one ulp is 2^-7 relative)
+        lib = F.cross_entropy(*sets[0], reduction="none").float()
+        nll = ops.nll_and_lse(*sets[0])[0]
+        d = (lib - nll).abs().max().item()
+        check(torch.allclose(lib, nll, atol=CE_TOL["f32"],
+                             rtol=0.0 if tag == "f32" else 2 ** -7),
+              f"F.cross_entropy yardstick differs by {d} at {label}")
+        ms, samples = in_turns(runs, reps=6, iters=50, warmup=5)
+        bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / FP32_FLOP_PER_S * 1e3
+        log(f"kernels: cross_entropy {label} ({n_sets} input sets, "
+            f"{bytes_moved} bytes): kernel {ms['kernel']:.6f} ms, plain "
+            f"{ms['plain']:.6f} ms, F.cross_entropy {ms['library']:.6f} ms")
+        log(f"kernels:   bound {max(bound_bytes, bound_ops):.6f} ms (bytes "
+            f"{bound_bytes:.6f}, operations {bound_ops:.6f}); samples "
+            f"{samples}")
+        geometries[label] = {
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations",
+            "library_ms": ms["library"]}
+        device_time_later(f"cross_entropy {label}", geometries[label],
+                          rotating(ops.nll_and_lse, sets),
+                          "cross_entropy_kernel")
+    main = geometries[CE_TIMED[0][0]]
+    return {
+        "name": "cross_entropy", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cross_entropy.cu",
+        "replaces": "src/repro/kernels/cross_entropy/kernel.py:77",
+        "max_abs_err": max(err["f32"], err["bf16"]),
+        "max_abs_err_f32": err["f32"], "max_abs_err_bf16": err["bf16"],
+        "max_abs_err_extreme": err["extreme"], "max_abs_err_grad": grad_err,
+        "tolerance": CE_TOL, **main, "shape": CE_TIMED[0][0],
+        "geometries": geometries,
+    }
+
+
+def train_args(*extra):
+    from repro_torch.launch import train
+    return train.build_parser().parse_args(
+        ["--use-kernel", "--rounds", str(TRAIN_ROUNDS), *extra])
+
+
+def phase_train(dev):
+    """``launch/train.py``'s loop at full width on the card; returns the
+    launches of (cross_entropy, weighted_agg) in the counted run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SERVE_ARCH)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    leaves = len(T.param_dict(model))
+    args = train_args()
+    # warm-up, not counted: the same run, so the caching allocator already
+    # holds the segments of the pending downloads the counted run keeps
+    t0 = time.perf_counter()
+    train.run_training(cfg, model, args, log=lambda *a: None)
+    torch.cuda.synchronize()
+    log(f"train: warm-up (the same {args.rounds} rounds) "
+        f"{time.perf_counter() - t0:.3f} s; {leaves} parameter leaves")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)      # the model, queued inputs
+    lines = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = train.run_training(cfg, model, args, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    for line in lines:
+        log(f"train:   {line}")
+    evals = len(run.heldout)
+    steps = args.rounds * args.l_iters
+    check(counts["cross_entropy"] == steps + evals,
+          f"train: {counts['cross_entropy']} cross_entropy launches for "
+          f"{steps} local steps and {evals} held-out evals")
+    check(counts["weighted_agg"] == leaves * args.rounds,
+          f"train: {counts['weighted_agg']} weighted_agg launches for "
+          f"{args.rounds} merges of {leaves} leaves")
+    check(counts["ring_agg"] == counts["decode_attention"]
+          == counts["swa_attention"] == 0, f"train: launches {counts}")
+    losses = [float(v) for v in run.local_losses] + [v for _, v in
+                                                     run.heldout]
+    check(len(run.vehicles) == args.rounds and all(np.isfinite(losses)),
+          f"train: losses {losses}")
+    check(all(bool(torch.isfinite(v).all()) for v in run.params.values()),
+          "train: final global model not finite")
+
+    # ms per SGD step, timed alone: the loop's step (loss and gradient
+    # through K3, the update) on one minibatch, synchronised
+    vg = train.lm_loss_and_grad(cfg, model)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.seq_len + 1)).astype(
+            np.int32)).to(dev)
+    params = T.param_dict(model)
+
+    def sgd_step(p):
+        loss, grads = vg(p, tokens)
+        return {k: w - args.lr * grads[k] for k, w in p.items()}, loss
+    p, _ = sgd_step(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        p, _ = sgd_step(p)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    del p
+    tokens_per_step = args.batch * args.seq_len
+    log(f"train: {cfg.name} full width ({T.param_count(cfg)} f32 "
+        f"parameters), {args.rounds} rounds x {args.l_iters} local steps "
+        f"(batch {args.batch} x seq {args.seq_len}, lr {args.lr}), "
+        f"use_kernel: {wall:.3f} s, {wall / args.rounds * 1e3:.3f} ms/round, "
+        f"{steps * tokens_per_step / wall:.1f} trained tokens/s end to end; "
+        f"vehicles {run.vehicles}; held-out {run.heldout}; peak device "
+        f"memory {peak_gb:.3f} GB above the model")
+    log(f"train:   SGD step timed alone: {step_ms:.3f} ms per step, "
+        f"{tokens_per_step / step_ms * 1e3:.1f} tokens/s; launches {counts} "
+        f"(cross_entropy = {steps} steps + {evals} evals, weighted_agg = "
+        f"{leaves} leaves x {args.rounds} merges)")
+    profile_later(f"train {cfg.name} {args.rounds} rounds",
+                  lambda: train.run_training(cfg, model, args,
+                                             log=lambda *a: None),
+                  wall * 1e3)
+    return counts["cross_entropy"], counts["weighted_agg"]
+
+
+def phase_train_step(dev):
+    """``make_train_step`` at full width, B 8, S 512."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth_tokens
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SERVE_ARCH)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    step = make_train_step(cfg, lr=0.05)
+    batch = {"tokens": torch.from_numpy(synth_tokens(
+        TRAIN_STEP_B, TRAIN_STEP_S + 1, cfg.vocab_size, seed=5)).to(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params, metrics = step(model, T.param_dict(model), batch)   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEP_TIMED):
+        params, metrics = step(model, params, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_STEP_TIMED * 1e3
+    counts = kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    check(counts["cross_entropy"] == TRAIN_STEP_TIMED,
+          f"train_step: {counts['cross_entropy']} cross_entropy launches for "
+          f"{TRAIN_STEP_TIMED} steps")
+    check(all(np.isfinite(losses)), f"train_step: losses {losses}")
+    rows = TRAIN_STEP_B * TRAIN_STEP_S
+    log(f"train_step: {cfg.name} full width, B {TRAIN_STEP_B} S "
+        f"{TRAIN_STEP_S} ({rows} rows into cross_entropy): {ms:.3f} ms per "
+        f"step over {TRAIN_STEP_TIMED} steps, {rows / ms * 1e3:.1f} tokens/s; "
+        f"losses {losses}; peak device memory "
+        f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.3f} GB above "
+        f"the model")
+
+
+def phase_train_vs_cpu(dev):
+    """The training loop cut to 4 layers, card against CPU, one CPU
+    init."""
+    import copy
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SERVE_ARCH).variant(n_layers=TRAIN_CPU_LAYERS)
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    args = train_args("--rounds", str(TRAIN_CPU_ROUNDS), "--l-iters",
+                      str(TRAIN_CPU_ITERS))
+    runs = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs[name] = train.run_training(cfg, model, args,
+                                        log=lambda *a: None)
+        counts = kernels.launch_counts()
+        log(f"train vs CPU: {cfg.name} cut to {cfg.n_layers} layers on "
+            f"{name}: {time.perf_counter() - t0:.3f} s; launches {counts}")
+        if name == "cuda":
+            want = args.rounds * args.l_iters + len(runs[name].heldout)
+            check(counts["cross_entropy"] == want,
+                  f"train vs CPU: {counts['cross_entropy']} cross_entropy "
+                  f"launches on the card, expected {want}")
+    g, c = runs["cuda"], runs["cpu"]
+    check(g.vehicles == c.vehicles, f"train vs CPU: vehicles {g.vehicles} "
+          f"vs {c.vehicles}")
+    lg = np.array([float(v) for v in g.local_losses] + [v for _, v in
+                                                        g.heldout])
+    lc = np.array([float(v) for v in c.local_losses] + [v for _, v in
+                                                        c.heldout])
+    loss_rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    check(loss_rel <= TRAIN_CPU_LOSS_RTOL, f"train vs CPU: losses {lg} vs "
+          f"{lc}")
+    worst = 0.0
+    for k, v in c.params.items():
+        d = (g.params[k].cpu() - v).abs().max().item()
+        worst = max(worst, d)
+        check(torch.allclose(g.params[k].cpu(), v, **TRAIN_CPU_TOL),
+              f"train vs CPU: final {k} differs by {d}")
+    log(f"train vs CPU: {TRAIN_CPU_ROUNDS} rounds x {TRAIN_CPU_ITERS} local "
+        f"steps, vehicles identical {g.vehicles}; losses max relative diff "
+        f"{loss_rel} (rtol {TRAIN_CPU_LOSS_RTOL}); final params max |diff| "
+        f"{worst} (atol {TRAIN_CPU_TOL['atol']}, rtol "
+        f"{TRAIN_CPU_TOL['rtol']})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1029,14 +1438,29 @@ def main() -> int:
     k1 = phase_ring_kernel(dev)
     k4 = phase_decode_kernel(dev)
     k5 = phase_swa_kernel(dev)
-    k2["launches"] = phase_main()
+    k3 = phase_ce_kernel(dev)
+    host_merges = phase_main()
     k1["launches"] = phase_fleet()
     k4["launches"], k5["launches"] = phase_serve(dev)
+    k3["launches"], train_merges = phase_train(dev)
+    # K2 runs on two main paths: the host engines' merges and training's
+    k2["launches"] = host_merges + train_merges
+    k2["launches_by_path"] = {"host engines": host_merges,
+                              "training": train_merges}
+    phase_train_step(dev)
     phase_host("serial")
     phase_host("jit")
     phase_serve_vs_cpu(dev)
+    phase_train_vs_cpu(dev)
+    before = launch_us(dev)
+    for measure in PROFILED:            # every profiler reading, last
+        measure()
+    log(f"launch cost: {before:.3f} us per tiny launch before the profiler "
+        f"readings, {launch_us(dev):.3f} us after them")
+    for rec in (k1, k4, k5, k3):        # the main shape's device time
+        rec["device_ms"] = rec["geometries"][rec["shape"]]["device_ms"]
 
-    log(json.dumps({"kernels": [k2, k1, k4, k5]}))
+    log(json.dumps({"kernels": [k2, k1, k4, k5, k3]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

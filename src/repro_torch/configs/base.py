@@ -96,8 +96,9 @@ class ArchConfig:
                                            # ~fwd-worth of recompute FLOPs)
     remat_policy: str = "full"             # full | dots (save matmul outputs,
                                            # recompute elementwise only)
-    loss_chunk: int = 0                    # 0=auto: vocab-chunked flash-CE for
-                                           # V>32k (avoids [B,S,V] f32 logits)
+    loss_chunk: int = 0                    # 0: materialise the [B,S,V] logits;
+                                           # >0: vocab-chunked CE in chunks of
+                                           # this many columns (opt-in)
     # misc -----------------------------------------------------------------------
     scan_period: int = 1                   # layers per scan step (heterogeneous stacks)
     notes: str = ""

@@ -9,7 +9,9 @@ Transformer: ``repro``'s pytree carries a leading period axis on every
 ``stack`` leaf; the port's ``Transformer`` holds one block per period.  A
 leaf ``stack.sub0.mixer.wq [n_periods, d, H, hd]`` is the port's
 ``stack.<i>.sub0.mixer.wq`` for i < n_periods; every other leaf keeps its
-name and shape.
+name and shape.  A checkpoint of a transformer (either package's) holds
+that nested tree: ``checkpointing.load_checkpoint(path,
+transformer_params_to_numpy(model))`` then ``transformer_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -101,19 +103,23 @@ def transformer_params_from_jax(tree: dict, cfg, device) -> Transformer:
     return model
 
 
-def transformer_params_to_numpy(model: Transformer) -> dict:
-    """A ``Transformer`` (any device) -> numpy leaves nested as ``repro``'s
-    pytree, with the period axis leading on ``stack``."""
+def transformer_params_to_numpy(params) -> dict:
+    """A ``Transformer``, or its ``{name: tensor}`` param dict (training's
+    form, any device) -> numpy leaves nested as ``repro``'s pytree, with the
+    period axis leading on ``stack``."""
+    if isinstance(params, Transformer):
+        params = dict(params.named_parameters())
     flat, stacked = {}, {}
-    for name, p in model.named_parameters():
+    for name, p in params.items():
         parts = name.split(".")
         value = p.detach().cpu().numpy()
         if parts[0] == "stack":
-            stacked.setdefault(".".join(["stack", *parts[2:]]), []).append(
-                value)
+            stacked.setdefault(".".join(["stack", *parts[2:]]), {})[
+                int(parts[1])] = value
         else:
             flat[name] = value
-    flat.update({k: np.stack(v) for k, v in stacked.items()})
+    flat.update({k: np.stack([v[i] for i in sorted(v)])
+                 for k, v in stacked.items()})
     tree: dict = {}
     for name, value in flat.items():
         node = tree

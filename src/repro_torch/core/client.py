@@ -9,6 +9,9 @@ with one set of launches per chunk.
 
 Minibatches are drawn with host numpy RNG in exactly ``repro.core.client``'s
 order, so both packages train on identical batches.
+
+``make_lm_local_step`` is the local SGD step of a transformer client, over
+a ``{name: tensor}`` param dict with the loss through K3.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.cross_entropy.ops import lm_loss
 from repro_torch.models.cnn import sgd_train_step
+from repro_torch.models.transformer import value_and_grad
 
 
 @dataclass
@@ -128,3 +133,22 @@ def local_update_many(payloads: Sequence, batches: Sequence, lr: float,
         outs.append(params)
         losses.append(float(loss))
     return outs, losses
+
+
+def make_lm_local_step(cfg, forward_fn):
+    """Local SGD step factory for transformer clients:
+    ``step(params, tokens, lr) -> (params, loss)`` with ``forward_fn(cfg,
+    params, inputs) -> (logits, aux)`` (e.g. ``transformer.apply_params``
+    of a model) and the mean next-token loss through K3."""
+
+    def loss_fn(p, tokens):
+        logits, aux = forward_fn(cfg, p, tokens[:, :-1])
+        return lm_loss(logits, tokens[:, 1:]) + aux
+
+    vg = value_and_grad(loss_fn)
+
+    def step(params, tokens, lr):
+        loss, grads = vg(params, tokens)
+        return {k: w - lr * grads[k] for k, w in params.items()}, loss
+
+    return step

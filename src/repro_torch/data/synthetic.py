@@ -64,3 +64,21 @@ def synth_mnist(n_train: int = 60000, n_test: int = 10000, seed: int = 0,
     te_i, te_l = make(n_test, np.random.default_rng(seed + 1))
     return tr_i, tr_l, te_i, te_l
 
+
+
+def synth_tokens(n_seqs: int, seq_len: int, vocab: int, seed: int = 0):
+    """Markov-ish synthetic token streams for transformer FL clients: each
+    sequence follows a random sparse bigram table so there is real
+    next-token signal to learn.  int32 [n_seqs, seq_len]; the same numpy
+    draws, in the same order, as ``repro.data.synth_tokens``."""
+    rng = np.random.default_rng(seed)
+    n_next = min(8, vocab)
+    table = rng.integers(0, vocab, size=(vocab, n_next))
+    toks = np.empty((n_seqs, seq_len), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, n_seqs)
+    for t in range(1, seq_len):
+        choice = rng.integers(0, n_next, n_seqs)
+        explore = rng.random(n_seqs) < 0.1
+        nxt = table[toks[:, t - 1], choice]
+        toks[:, t] = np.where(explore, rng.integers(0, vocab, n_seqs), nxt)
+    return toks

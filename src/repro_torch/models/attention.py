@@ -2,13 +2,19 @@
 ``repro.models.attention``.
 
 Cache layout per layer (the transformer stacks a leading period axis):
-``k, v [B, S, Kv, hd]`` with S the maximum context.  Only full (causal)
-attention is ported: prefill runs K5 (``swa_attention`` with
+``k, v [B, S, Kv, hd]`` with S the maximum context.  Serving ports only
+full (causal) attention: prefill runs K5 (``swa_attention`` with
 ``window = S``, which is causal attention) and every decode step runs K4
 (``decode_attention``).  Each wrapper takes its plain version for CPU
 tensors and launches its CUDA kernel for CUDA tensors.  Sliding-window and
-chunked masks (ring caches), QKV biases and MLA raise
-``NotImplementedError`` (ROADMAP queue 1, item 12).
+chunked ring caches, QKV biases and MLA raise ``NotImplementedError``
+(ROADMAP queue 1, item 12).
+
+Training (``attention_fwd(..., train=True)``) takes the differentiable
+path of ``repro``'s ``_sdpa_any``: torch matmuls and softmax with an
+additive ``-1e30`` mask (full, sliding-window or chunked), q-blocked with
+each block checkpointed above ``BLOCKED_SDPA_THRESHOLD``.  It is XLA code
+in ``repro``, not a kernel; K5 has no backward.
 
 Unlike ``repro``, ``attention_decode`` writes the new K/V into the cache
 in place: a full-width cache is gigabytes, and the caller never needs the
@@ -16,9 +22,12 @@ old one.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import MIXER_ATTN_GLOBAL
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -26,6 +35,9 @@ from repro_torch.kernels.swa_attention.ops import swa_attention
 from repro_torch.models.modules import apply_rope, dense_init, rope_freqs
 
 UNPORTED = "not ported yet (ROADMAP queue 1, item 12)"
+NEG_INF = -1e30
+BLOCKED_SDPA_THRESHOLD = 1024   # S above which the q-blocked path is used
+SDPA_BLOCK_Q = 128
 
 
 def mask_spec_for(cfg, mixer_kind):
@@ -102,13 +114,69 @@ def _out(p, o):
     return o.reshape(*o.shape[:-2], H * hd) @ p.wo.reshape(H * hd, d)
 
 
-def attention_fwd(cfg, p, x, positions, mask_kind="full", width=0):
-    """Full-sequence causal attention (prefill).  Returns (y, cache_kv);
-    the cache is ``k, v [B, S, Kv, hd]``, already in decode layout."""
-    _full_only(mask_kind)
+def _sdpa(q, k, v, bias):
+    """q: [B, Sq, H, hd]; k, v: [B, Sk, Kv, hd]; bias: [B or 1, 1, Sq, Sk]
+    additive.  Scores in f32, the softmax cast back to q's dtype."""
+    B, Sq, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Sq, Kv, G, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    scores = scores / math.sqrt(hd) + bias[:, :, None]
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _causal_bias(q_pos, k_pos, mask_kind, width):
+    """Additive f32 bias ``[1, 1, Sq, Sk]`` from absolute positions."""
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    ok = kp <= qp
+    if mask_kind == "swa":
+        ok &= (qp - kp) < width
+    elif mask_kind == "chunk":
+        ok &= (qp // width) == (kp // width)
+    bias = torch.full(ok.shape, NEG_INF, dtype=torch.float32,
+                      device=ok.device).masked_fill_(ok, 0.0)
+    return bias[None, None]
+
+
+def _sdpa_block(q, k, v, positions, start, mask_kind, width):
+    stop = start + SDPA_BLOCK_Q
+    bias = _causal_bias(positions[start:stop], positions, mask_kind, width)
+    return _sdpa(q[:, start:stop], k, v, bias)
+
+
+def _sdpa_any(q, k, v, positions, mask_kind, width):
+    """Dense S x S scores up to ``BLOCKED_SDPA_THRESHOLD``; beyond it (for
+    S a multiple of ``SDPA_BLOCK_Q``) one checkpointed block of query rows
+    at a time, so the backward holds one block's scores, not ``[H, S, S]``.
+    """
+    S = q.shape[1]
+    if S <= BLOCKED_SDPA_THRESHOLD or S % SDPA_BLOCK_Q:
+        bias = _causal_bias(positions, positions, mask_kind, width)
+        return _sdpa(q, k, v, bias)
+    blocks = [checkpoint(_sdpa_block, q, k, v, positions, start, mask_kind,
+                         width, use_reentrant=False,
+                         preserve_rng_state=False)
+              for start in range(0, S, SDPA_BLOCK_Q)]
+    return torch.cat(blocks, dim=1)
+
+
+def attention_fwd(cfg, p, x, positions, mask_kind="full", width=0,
+                  train=False):
+    """Full-sequence attention.  Prefill (``train=False``): causal through
+    K5; returns (y, cache_kv), the cache ``k, v [B, S, Kv, hd]`` already in
+    decode layout.  Training (``train=True``): the differentiable torch
+    path for any mask; returns (y, None)."""
+    if not train:
+        _full_only(mask_kind)
     q, k, v = _qkv(p, x)
     q = apply_rope(q, positions, p.rope_freqs)
     k = apply_rope(k, positions, p.rope_freqs)
+    if train:
+        return _out(p, _sdpa_any(q, k, v, positions, mask_kind, width)), None
     out = swa_attention(q, k, v, window=x.shape[1])   # causal: window = S
     return _out(p, out), {"k": to_decode_layout(k, mask_kind, width),
                           "v": to_decode_layout(v, mask_kind, width)}

@@ -7,18 +7,31 @@
 pytree does with a leading period axis on ``stack``.  ``prefill`` builds the
 cache and ``decode_step`` takes one token against it.
 
+Training differentiates with respect to a ``{name: tensor}`` dict of the
+parameters (``param_dict``; 9 leaves per layer plus the embedding and the
+final norm, 290 at smollm-360m): ``apply_params`` runs ``forward`` or
+``forward_hidden`` with the module's parameters replaced by the dict
+(``torch.func.functional_call``), and ``value_and_grad`` takes gradients by
+plain autograd.  The module's own parameters never require grad, so
+serving builds no graph.  Each period of the stack runs under one
+``torch.utils.checkpoint`` (``repro``'s default ``remat_policy="full"``),
+with the period's parameters handed to the checkpointed function, so the
+recomputation in the backward sees the same tensors.
+
 The cache is ``{"stack": {"sub0": {"mixer": {"k", "v"}}}}`` as in
 ``repro``, each leaf ``[n_periods, B, S, Kv, hd]``.  ``decode_step`` writes
 it in place and returns the same dict.
 
 MoE, Mamba, RWKV and MLA sublayers, modality frontends and
-``first_k_dense`` prefix layers raise ``NotImplementedError``, as do
-``forward``/``forward_hidden`` (training): ROADMAP queue 1, item 12.
+``first_k_dense`` prefix layers raise ``NotImplementedError``, as do the
+XLA checkpoint policies ``remat_policy="dots"``/``"dots_nb"`` and
+``remat_sublayer``: ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ArchConfig, MIXER_ATTN,
                                       MIXER_ATTN_GLOBAL, MLP_DENSE)
@@ -66,6 +79,13 @@ class PeriodBlock(nn.Module):
         for j, _ in enumerate(cfg.sublayers()):
             self.add_module(f"sub{j}", SubLayerBlock(cfg, dtype, device))
 
+    def forward(self, cfg, h, positions):
+        """The period's sublayers on the training path."""
+        for j, sub in enumerate(cfg.sublayers()):
+            h, _ = _apply_sublayer(cfg, getattr(self, f"sub{j}"), sub.mixer,
+                                   h, positions, train=True)
+        return h
+
 
 class Embed(nn.Module):
     def __init__(self, vocab, dim, dtype, device):
@@ -97,6 +117,11 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
 
+    def forward(self, cfg, tokens, hidden=False):
+        """Training forward (``forward_hidden`` when ``hidden``) with the
+        parameters the module holds: what ``apply_params`` calls."""
+        return (forward_hidden if hidden else forward)(cfg, self, tokens)
+
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> Transformer:
@@ -123,10 +148,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # sublayer application
 # ---------------------------------------------------------------------------
-def _apply_sublayer(cfg, p, mixer_kind, h, positions):
-    """Prefill path.  Returns (h, cache)."""
+def _apply_sublayer(cfg, p, mixer_kind, h, positions, train=False):
+    """Prefill (``train=False``, through K5) or training (``train=True``,
+    the differentiable attention).  Returns (h, cache); the training cache
+    is ``{"mixer": None}``."""
     kind, width = attn.mask_spec_for(cfg, mixer_kind)
-    y, c = attn.attention_fwd(cfg, p.mixer, p.ln1(h), positions, kind, width)
+    y, c = attn.attention_fwd(cfg, p.mixer, p.ln1(h), positions, kind, width,
+                              train=train)
     h = h + y
     h = h + p.mlp(p.ln2(h))
     return h, {"mixer": c}
@@ -147,12 +175,94 @@ def _lm_head(cfg, model, h):
     return h @ model.lm_head.w
 
 
-def forward(cfg, model, tokens, frontend_embeds=None):
-    raise NotImplementedError(f"training forward is {UNPORTED}")
+# ---------------------------------------------------------------------------
+# forward (train)
+# ---------------------------------------------------------------------------
+def _period_call(cfg, block, params, h, positions):
+    return torch.func.functional_call(block, params, (cfg, h, positions))
 
 
-def forward_hidden(cfg, model, tokens, frontend_embeds=None):
-    raise NotImplementedError(f"training forward is {UNPORTED}")
+def _run_stack(cfg, model, h, positions):
+    """The period blocks in order, each under one checkpoint unless
+    ``cfg.no_remat`` (``repro``'s ``_make_period_fn``)."""
+    if cfg.remat_sublayer:
+        raise NotImplementedError(f"remat_sublayer is {UNPORTED}")
+    if not cfg.no_remat and cfg.remat_policy in ("dots", "dots_nb"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} (an XLA checkpoint policy) "
+            f"is {UNPORTED}")
+    if cfg.shard_activations:
+        raise NotImplementedError("shard_activations is not ported yet "
+                                  "(ROADMAP queue 1, item 13)")
+    for block in model.stack:
+        if cfg.no_remat:
+            h = block(cfg, h, positions)
+        else:
+            # the period's current parameters go in as an argument: the
+            # recomputation in the backward runs outside any functional_call
+            h = checkpoint(_period_call, cfg, block,
+                           dict(block.named_parameters()), h, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+    return h
+
+
+def forward_hidden(cfg: ArchConfig, model: Transformer, tokens,
+                   frontend_embeds=None):
+    """Like ``forward`` but returns the final-norm hidden states instead of
+    logits: the vocab-chunked loss applies the LM head itself."""
+    if frontend_embeds is not None:
+        raise NotImplementedError(f"frontend embeddings are {UNPORTED}")
+    h = embed_lookup(model.embed.table, tokens)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = _run_stack(cfg, model, h, positions)
+    return model.final_norm(h), aux
+
+
+def forward(cfg: ArchConfig, model: Transformer, tokens,
+            frontend_embeds=None):
+    """tokens: [B, S] int.  Returns (logits [B, S, V], aux); ``aux`` is a
+    0-d f32 zero (dense MLPs have no auxiliary loss)."""
+    h, aux = forward_hidden(cfg, model, tokens, frontend_embeds)
+    return _lm_head(cfg, model, h), aux
+
+
+def param_dict(model: Transformer) -> dict:
+    """``{name: tensor}`` of the model's parameters (the tensors
+    themselves, not copies)."""
+    return dict(model.named_parameters())
+
+
+def head_weight(cfg: ArchConfig, params: dict):
+    """[d, V] LM-head weight of a ``param_dict`` (the transposed embedding
+    when tied)."""
+    if cfg.tie_embeddings:
+        return params["embed.table"].t()
+    return params["lm_head.w"]
+
+
+def apply_params(cfg: ArchConfig, model: Transformer, params: dict, tokens,
+                 hidden=False):
+    """``forward`` (``forward_hidden`` when ``hidden``) of ``model`` with its
+    parameters replaced by ``params``, a dict named as ``param_dict``
+    names them; the module's buffers (RoPE frequencies) stay its own."""
+    return torch.func.functional_call(model, params, (cfg, tokens),
+                                      {"hidden": hidden})
+
+
+def value_and_grad(loss_fn):
+    """``loss_fn(params, *args)`` -> ``vg(params, *args) = (loss,
+    grads)``, ``grads`` a dict like ``params``: ``jax.value_and_grad`` over
+    a param dict, by plain autograd (``torch.func``'s transforms refuse the
+    checkpointed periods' saved-tensor hooks).  ``loss`` comes back
+    detached, on the device: reading it is the caller's choice."""
+    def vg(params, *args):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            loss = loss_fn(leaves, *args)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+    return vg
 
 
 # ---------------------------------------------------------------------------

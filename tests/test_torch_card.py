@@ -64,7 +64,7 @@ def test_kernel_path_runs_or_raises_on_card(cuda_device):
     ops.weighted_agg(g, g, 0.5, 1.0)
     assert kernels.launch_counts() == {
         "weighted_agg": 1, "ring_agg": 0, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
 
 
 @pytest.mark.cuda
@@ -122,7 +122,7 @@ def test_ring_agg_matches_plain_version_on_card(cuda_device, tdt):
                 chains += U > 0
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": chains, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
 
 
 @pytest.mark.cuda
@@ -144,11 +144,11 @@ def test_ring_agg_wrapper_raises_on_card(cuda_device):
             ops.ring_agg(*bad)
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": 0, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
     ops.ring_agg(g, locs, coeffs)
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": 1, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
 
 
 def _expected_chains(name, rounds, eval_every):
@@ -173,7 +173,7 @@ def test_fleet_engine_on_card_uses_only_ring_agg(cuda_device, ring_dtype):
     assert len(res.rounds) == 6
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": _expected_chains("quick-k5", 6, 3),
-        "decode_attention": 0, "swa_attention": 0}
+        "decode_attention": 0, "swa_attention": 0, "cross_entropy": 0}
     assert all(v.is_cuda and bool(torch.isfinite(v).all())
                for v in res.final_params.values())
 
@@ -301,7 +301,7 @@ def test_attention_wrappers_reject_on_card(cuda_device):
             sops.swa_attention(*bad)
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": 0, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
 
 
 @pytest.mark.cuda
@@ -330,7 +330,8 @@ def test_reduced_serve_launches_only_the_attention_kernels(cuda_device):
         if dev.type == "cuda":
             assert counts == {"weighted_agg": 0, "ring_agg": 0,
                               "decode_attention": cfg.n_layers * ticks,
-                              "swa_attention": cfg.n_layers * len(prompts)}
+                              "swa_attention": cfg.n_layers * len(prompts),
+                              "cross_entropy": 0}
         else:
             assert not any(counts.values())
     assert outs["cuda"] == outs["cpu"]
@@ -357,3 +358,161 @@ def test_decode_step_never_waits_for_the_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(logits).all())
+
+
+# K3 cross_entropy against its plain version: nll and lse within 1e-4 in
+# f32 (repro's bar for its kernel, tests/test_kernels.py) and 3e-2 in bf16;
+# rows of +-1e4 logits within 1e-3 (repro's bar for them: lse ~ 1e4, where
+# one f32 ulp is 1e-3); the backward's d logits within 1e-6 of plain
+# autograd in f32
+CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+CE_EXTREME_TOL = 1e-3
+CE_GRAD_TOL = 1e-6
+
+
+def _ce_inputs(R, V, tdt, gen, device):
+    x = (torch.randn(R, V, generator=gen, device=device) * 3).to(tdt)
+    y = torch.randint(0, V, (R,), generator=gen, device=device)
+    y[0] = 0
+    y[-1] = V - 1
+    return x, y
+
+
+def _ce_err(got, want):
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cross_entropy_matches_plain_version_on_card(cuda_device, tdt):
+    """K3's (nll, lse) at small, ragged (V = 1111: rows not 16-byte
+    aligned) and smollm-360m vocab widths, labels at 0, V - 1 and random,
+    and rows of +-1e4 logits."""
+    from repro_torch.kernels.cross_entropy import ops as ce_ops
+    from repro_torch.kernels.cross_entropy import ref as ce_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    kernels.reset_launches()
+    calls = 0
+    for R in (1, 7, 512):
+        for V in (512, 1111, 49152):
+            x, y = _ce_inputs(R, V, tdt, gen, cuda_device)
+            got = ce_ops.nll_and_lse(x, y)
+            torch.cuda.synchronize()
+            assert all(t.dtype == torch.float32 and t.shape == (R,)
+                       for t in got)
+            assert _ce_err(got, ce_ref.nll_and_lse(x, y)) <= CE_TOL[tdt], \
+                (R, V)
+            calls += 1
+    for V in (512, 1111):
+        x = torch.tensor([1e4, -1e4, 0.0, 5.0], device=cuda_device).repeat(
+            8, V // 4 + 1)[:, :V].contiguous().to(tdt)
+        y = torch.tensor([0, 1, 2, 3, V - 1, 0, 1, 2], device=cuda_device)
+        got = ce_ops.nll_and_lse(x, y)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        assert _ce_err(got, ce_ref.nll_and_lse(x, y)) <= CE_EXTREME_TOL
+        calls += 1
+    assert kernels.launch_counts()["cross_entropy"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V", [(7, 1111), (512, 49152)])
+def test_cross_entropy_backward_matches_autograd_on_card(cuda_device, R, V):
+    """d logits of the kernel-backed ``lm_loss`` against plain autograd of
+    ``log_softmax`` on the same f32 logits."""
+    from repro_torch.kernels.cross_entropy import ops as ce_ops
+    gen = torch.Generator(device=cuda_device).manual_seed(R)
+    x, y = _ce_inputs(R, V, torch.float32, gen, cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        xl = x.clone().requires_grad_()
+        loss = ce_ops.lm_loss(xl[None], y[None], use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(loss, xl)[0])
+    assert (grads[0] - grads[1]).abs().max().item() <= CE_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_cross_entropy_wrapper_rejects_on_card(cuda_device):
+    """A CPU/CUDA mix, an unsupported dtype, a misshaped or
+    non-contiguous input raise before any launch; nothing falls back to
+    the plain version."""
+    from repro_torch.kernels.cross_entropy import ops as ce_ops
+    kernels.reset_launches()
+    x = torch.zeros(4, 64, device=cuda_device)
+    y = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    for bad in [(x, y.cpu()), (x.half(), y), (x, y.float()), (x[0], y),
+                (x, y[:3]), (torch.zeros(64, 4, device=cuda_device).t(), y),
+                (x[:, :0], y)]:
+        with pytest.raises((ValueError, TypeError)):
+            ce_ops.nll_and_lse(*bad)
+    assert kernels.launch_counts()["cross_entropy"] == 0
+    ce_ops.nll_and_lse(x, y.long())
+    assert kernels.launch_counts()["cross_entropy"] == 1
+
+
+@pytest.mark.cuda
+def test_train_step_never_waits_for_the_card(cuda_device):
+    """A full-width-shaped train step (smollm-360m's widths cut to 2
+    layers, B 8, S 64) and the loop's kernel merge run with CUDA
+    synchronisation made an error; K3 launches once per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregation import mafl_update
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-360m").variant(n_layers=2)
+    model = T.init_params(cfg, torch.Generator(device=cuda_device)
+                          .manual_seed(0), device=cuda_device)
+    step = make_train_step(cfg, lr=0.05)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 65), device=cuda_device)
+    params, _ = step(model, T.param_dict(model), {"tokens": tokens})
+    torch.cuda.synchronize()                     # kernels built and loaded
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, metrics = step(model, params, {"tokens": tokens})
+        merged = mafl_update(T.param_dict(model), params, 0.5, 0.8719,
+                             use_kernel=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.launch_counts() == {
+        "weighted_agg": len(params), "ring_agg": 0, "decode_attention": 0,
+        "swa_attention": 0, "cross_entropy": 1}
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert all(bool(torch.isfinite(v).all()) for v in merged.values())
+
+
+@pytest.mark.cuda
+def test_reduced_training_on_card_matches_cpu(cuda_device):
+    """``launch/train.py``'s loop on smollm-360m reduced, on the card and
+    on the CPU from one init: the same vehicles, losses and final model
+    within the f32 band of ``chip_smoke.py``'s card-vs-CPU check, K3 once
+    per local step and held-out eval, K2 once per leaf per merge."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-360m").reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    args = train.build_parser().parse_args(
+        ["--reduced", "--rounds", "5", "--l-iters", "2", "--use-kernel"])
+    runs = {}
+    for dev, model in ((cuda_device, copy.deepcopy(cpu).to(cuda_device)),
+                       (torch.device("cpu"), cpu)):
+        kernels.reset_launches()
+        runs[dev.type] = train.run_training(cfg, model, args,
+                                            log=lambda *a: None)
+        counts = kernels.launch_counts()
+        if dev.type == "cuda":
+            assert counts["cross_entropy"] == 5 * 2 + 1
+            assert counts["weighted_agg"] == len(T.param_dict(model)) * 5
+        else:
+            assert not any(counts.values())
+    g, c = runs["cuda"], runs["cpu"]
+    assert g.vehicles == c.vehicles
+    np.testing.assert_allclose([float(v) for v in g.local_losses],
+                               [float(v) for v in c.local_losses], rtol=1e-4)
+    for k, v in c.params.items():
+        torch.testing.assert_close(g.params[k].cpu(), v, atol=1e-4,
+                                   rtol=1e-3)

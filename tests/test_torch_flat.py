@@ -205,7 +205,7 @@ def test_ring_agg_wrapper_rejects_bad_inputs(case):
         ops.ring_agg(*bad)
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": 0, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
 
 
 @pytest.mark.parametrize("U", [1, 4, 9])

@@ -20,7 +20,7 @@ from repro_torch.core.mafl import evaluate, run_simulation
 from repro_torch.core.scenarios import run_scenario
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import attention
 from repro_torch.models import transformer as T
 from repro_torch.models.cnn import init_cnn
@@ -48,7 +48,7 @@ def test_importing_every_module_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45
+    assert int(out.stdout.strip()) >= 51
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -88,7 +88,9 @@ def _tiny_world():
     "repro_torch.configs", "repro_torch.models.transformer",
     "repro_torch.launch.serve", "repro_torch.launch.steps",
     "repro_torch.serving", "repro_torch.kernels.decode_attention.ops",
-    "repro_torch.kernels.swa_attention.ops"])
+    "repro_torch.kernels.swa_attention.ops", "repro_torch.launch.train",
+    "repro_torch.checkpointing", "repro_torch.kernels.cross_entropy.ops",
+    "repro_torch.data"])
 def test_fleet_modules_import_alone_without_jax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -103,7 +105,7 @@ def test_fleet_modules_import_alone_without_jax(module):
 @pytest.mark.parametrize("entry", [
     "resolve_device", "run_scenario", "run_simulation", "evaluate",
     "Vehicle", "RSUServer", "run_simulation_jit", "init_params",
-    "init_cache", "serve"])
+    "init_cache", "serve", "train"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the card: without one the call raises instead
     of running on the host."""
@@ -128,6 +130,7 @@ def test_entry_points_default_to_the_card(entry):
         "init_cache": lambda: T.init_cache(
             get_config("smollm-360m").reduced(), 1, 8),
         "serve": lambda: serve.main(["--reduced"]),
+        "train": lambda: train.main(["--reduced", "--rounds", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -130,5 +130,8 @@ def test_unported_layers_raise():
     swa = cfg.variant(sliding_window=16)
     with pytest.raises(NotImplementedError, match="item 12"):
         tT.init_cache(swa, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tT.forward(cfg, None, None)
+    model = tT.Transformer(cfg, device="cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.int64)
+    for bad in (dict(remat_policy="dots"), dict(remat_sublayer=True)):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tT.forward(cfg.variant(**bad), model, tokens)

@@ -94,7 +94,7 @@ def test_tree_over_cnn_leaves_and_no_launch_on_cpu():
     out = ops.weighted_agg_tree(g, l, 0.9, 1.0)
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": 0, "decode_attention": 0,
-        "swa_attention": 0}
+        "swa_attention": 0, "cross_entropy": 0}
     jout = jops.weighted_agg_tree({k: jnp.asarray(v.numpy())
                                    for k, v in g.items()},
                                   {k: jnp.asarray(v.numpy())
