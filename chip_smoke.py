@@ -6,9 +6,10 @@ Hopper card.  Run from the root of a checkout:
 
 Phases, each of which fails the run (non-zero exit) on any failed check:
 
-1. build: compile every kernel under ``src/repro_torch/kernels/csrc`` with
-   nvcc for sm_90a, one nvcc per source, all started together; print the
-   card's name and power limit.
+1. build: compile every kernel under ``src/repro_torch/kernels/csrc`` and
+   the race analyzer's fixture ``src/repro_torch/check/corpus/
+   racy_sum.cu`` with nvcc for sm_90a, one nvcc per source, all started
+   together; print the card's name and power limit.
 2. kernels: hold each kernel against its plain PyTorch version on the card
    at the shapes the main paths give it (``weighted_agg`` at every CNN leaf
    shape; ``ring_agg`` at U in {0, 1, 2, 7, 9, 10, 30, 60}, f32 and bf16
@@ -60,6 +61,19 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 12. training, card against host: the same config cut to 4 layers, one CPU
     init, 2 rounds of 2 local steps on both: the same vehicles, losses
     within rtol 1e-4, final params within atol 1e-4 / rtol 1e-3.
+13. check (after phase 12, before the profiler readings): the analyzer entry
+    point ``python -m repro_torch.check src/repro_torch --strict
+    --format=json`` in this process, every probe included: exit 0, no live
+    finding, every production kernel parallel-safe.  Each kernel's Python
+    launch geometry (``ops.geometry``) against its ``.cu``'s
+    ``<name>_geometry`` export at its registered case and at every
+    main-path shape; each kernel launched at its case shape into
+    NaN-filled, guarded outputs writes exactly its declared ranges.  F1
+    (``check/corpus/racy_sum.cu``, built with the others): equal to its
+    plain version at one row tile (grid (1, U), integer-valued inputs);
+    its lost updates at the analyzer's grid (4, 2) and at grid (4096, 2)
+    printed, not asserted; timed against its plain version and
+    ``x.sum(0)``; launched 0 times on the main paths.
 
 Every torch.profiler reading (kernels' device times, the main paths'
 busy shares) is taken last, after all host-clock and CUDA-event timings:
@@ -1411,6 +1425,254 @@ def phase_train_vs_cpu(dev):
         f"{TRAIN_CPU_TOL['rtol']})")
 
 
+# F1, the race analyzer's racy fixture: launches of the analyzer's grid
+# (4, 2) and of the large grid whose lost updates are reported (not
+# asserted: a racy kernel's result is undefined)
+F1_LOST_RUNS = 5
+F1_LARGE = (8192, 2, 2)            # R, U, block rows: 4,096 blocks a column
+# elements of NaN before and after each output of the write-set checks
+# (256 bytes: the outputs stay 16-byte aligned)
+GUARD = 64
+
+
+def run_analyzer():
+    """``python -m repro_torch.check src/repro_torch --strict
+    --format=json`` in this process: (exit code, the JSON report)."""
+    import contextlib
+    import io
+    from repro_torch.check import runner
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = runner.main([str(ROOT / "src" / "repro_torch"), "--strict",
+                          "--format=json"])
+    return rc, json.loads(buf.getvalue())
+
+
+def guarded(n, dev):
+    """(buffer, view): ``n`` f32 elements with GUARD NaNs on each side."""
+    import torch
+    buf = torch.full((n + 2 * GUARD,), float("nan"), device=dev)
+    return buf, buf[GUARD:GUARD + n]
+
+
+def check_written(label, geo, name, buf):
+    """The elements of ``buf``'s view that came back written (not NaN) are
+    exactly the union of ``geo``'s declared ranges for output ``name``,
+    and both guards are still NaN."""
+    import torch
+    torch.cuda.synchronize()
+    got = ~torch.isnan(buf[GUARD:-GUARD]).cpu().numpy()
+    want = geo.written(name)
+    check(bool(torch.isnan(buf[:GUARD]).all())
+          and bool(torch.isnan(buf[-GUARD:]).all()),
+          f"{label}: {geo.kernel} stored outside {name}")
+    check(np.array_equal(got, want),
+          f"{label}: {geo.kernel} wrote {int(got.sum())} elements of "
+          f"{name}, {int((got != want).sum())} differ from the declared "
+          f"{int(want.sum())}")
+    return int(got.sum())
+
+
+def nan_launches(dev):
+    """Launch each production kernel at its registered case shape into
+    NaN-filled, guarded outputs, with the arguments its wrapper passes;
+    returns {kernel_id: elements written}."""
+    import math
+    import torch
+    from repro_torch.check.grid_race import KERNEL_CASES
+    from repro_torch.kernels.cross_entropy import ops as ce
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.swa_attention import ops as sa
+    from repro_torch.kernels.weighted_agg import ops as wa
+    from repro_torch.kernels.weighted_agg import ref as wa_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    written = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    kid = "weighted_agg.weighted_agg"
+    n, dt, aligned = KERNEL_CASES[kid].args
+    check(dt == torch.float32 and aligned, f"{kid}: case is f32, aligned")
+    g, l = randn(n), randn(n)
+    buf, out = guarded(n, dev)
+    b, coef = wa_ref.agg_scalars(0.5, 0.8719)
+    wa.KERNEL.launch("weighted_agg_f32", dev, out.data_ptr(), g.data_ptr(),
+                     l.data_ptr(), n, b, coef, stream)
+    (geo,) = KERNEL_CASES[kid].launches()
+    written[kid] = check_written(kid, geo, "out", buf)
+
+    kid = "weighted_agg.ring_agg"
+    P, U, dt = KERNEL_CASES[kid].args
+    g, locs, coeffs = randn(P), randn(U, P), randn(U, 2)
+    buf, out = guarded(P, dev)
+    wa.RING_KERNEL.launch("ring_agg_f32", dev, out.data_ptr(), g.data_ptr(),
+                          locs.data_ptr(), coeffs.data_ptr(), P, U, stream)
+    (geo,) = KERNEL_CASES[kid].launches()
+    written[kid] = check_written(kid, geo, "out", buf)
+
+    kid = "cross_entropy.nll_and_lse"
+    R, V = KERNEL_CASES[kid].args
+    logits = randn(R, V)
+    labels = torch.randint(0, V, (R,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    nll_buf, nll = guarded(R, dev)
+    lse_buf, lse = guarded(R, dev)
+    ce.KERNEL.launch("cross_entropy_f32", dev, logits.data_ptr(),
+                     labels.data_ptr(), nll.data_ptr(), lse.data_ptr(), R,
+                     V, stream)
+    (geo,) = KERNEL_CASES[kid].launches()
+    written[kid] = (check_written(kid, geo, "nll", nll_buf)
+                    + check_written(kid, geo, "lse", lse_buf))
+
+    kid = "decode_attention.decode_attention"
+    B, S, H, Kv, hd = KERNEL_CASES[kid].args
+    q, k, v = randn(B, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)  # all live
+    chunk, n_chunks = da.split(B, S, Kv)
+    out_buf, out = guarded(B * H * hd, dev)
+    part_buf, part = guarded(B * H * n_chunks * (hd + 2), dev)
+    da.KERNEL.launch("decode_attention_f32", dev, out.data_ptr(),
+                     part.data_ptr(), q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), pos.data_ptr(), B, S, H, Kv, hd, chunk,
+                     n_chunks, 1.0 / math.sqrt(hd), stream)
+    chunk_geo, combine_geo = KERNEL_CASES[kid].launches()
+    written[kid] = (check_written(kid, chunk_geo, "part", part_buf)
+                    + check_written(kid, combine_geo, "out", out_buf))
+
+    kid = "swa_attention.swa_attention"
+    B, S, H, Kv, hd = KERNEL_CASES[kid].args
+    q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+    buf, out = guarded(B * S * H * hd, dev)
+    sa.KERNEL.launch("swa_attention_f32", dev, out.data_ptr(), q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), B, S, H, Kv, hd, S,
+                     1.0 / math.sqrt(hd), stream)
+    (geo,) = KERNEL_CASES[kid].launches()
+    written[kid] = check_written(kid, geo, "out", buf)
+    return written
+
+
+def lost_updates(dev, R, U, br, runs):
+    """F1 on all-ones ``x [R, U]``: every tile adds ``br`` to its column, so
+    ``R // br - out[u] / br`` updates of column u were lost.  The total
+    per launch, for ``runs`` launches."""
+    import torch
+    from repro_torch.check.corpus import racy_kernel
+    x = torch.ones(R, U, device=dev)
+    lost = []
+    for _ in range(runs):
+        out = racy_kernel.racy_sum(x, block_rows=br)
+        kept = (out / br).round().long().sum().item()
+        lost.append(int(U * (R // br) - kept))
+    return lost
+
+
+def phase_check(dev):
+    """The analyzer entry point on this card and its kernels: the strict
+    CLI run with every probe, each kernel's Python launch geometry against
+    its ``.cu`` export and against what a launch writes, and F1 (the racy
+    fixture): exact at one row tile, lost updates reported, timed."""
+    import torch
+    from repro_torch.check import grid_race
+    from repro_torch.check.corpus import racy_kernel
+
+    launched_before = racy_kernel.KERNEL.launches
+    t0 = time.perf_counter()
+    rc, report = run_analyzer()
+    wall = time.perf_counter() - t0
+    live = [f for f in report["findings"] if not f["waived"]]
+    check(rc == 0 and not live,
+          f"check: analyzer exit {rc}, live findings {live}")
+    verdicts = {k["kernel_id"]: k["classification"]
+                for k in report["kernels"]}
+    check(set(verdicts) == set(grid_race.KERNEL_CASES)
+          and set(verdicts.values()) == {"parallel-safe"},
+          f"check: kernel verdicts {verdicts}")
+    log(f"check: python -m repro_torch.check src/repro_torch --strict: exit "
+        f"{rc}, {len(report['findings'])} findings (all waived), every "
+        f"production kernel parallel-safe ({len(verdicts)}); timings_s "
+        f"{report['timings_s']}; {wall:.3f} s in all")
+
+    n_grids = 0
+    for kid, case in grid_race.KERNEL_CASES.items():
+        shapes = [("case", case.args)] + grid_race.main_path_shapes()[kid]
+        for label, args in shapes:
+            want = [g.dim3 for g in case.launches(*args)]
+            got = case.grids(*args)
+            check(got == want, f"check: {kid} at {label}: .cu geometry "
+                  f"export {got}, python geometry {want}")
+            n_grids += 1
+    for args in ((8, 2, 2), (2, 2, 2), F1_LARGE):
+        want = [g.dim3 for g in racy_kernel.geometry(*args)]
+        got = racy_kernel.cu_grids(*args)
+        check(got == want, f"check: racy_sum at {args}: export {got}, "
+              f"python {want}")
+        n_grids += 1
+    log(f"check: python grids equal the .cu geometry exports in {n_grids} "
+        f"shapes (every case and main-path shape, F1 at 3)")
+
+    written = nan_launches(dev)
+    log(f"check: launched into NaN-filled outputs at the case shapes, every "
+        f"kernel wrote exactly its declared ranges and nothing past them: "
+        f"{written} elements")
+
+    # F1 at one row tile: one block per column, exact on integer values
+    max_err = 0.0
+    gen = np.random.default_rng(0)
+    for R, U in ((8, 2), (4096, 2), (1024, 7)):
+        x = torch.from_numpy(gen.integers(-100, 100, (R, U)).astype(
+            np.float32)).to(dev)
+        got = racy_kernel.racy_sum(x, block_rows=R)
+        want = racy_kernel.plain_sum(x, block_rows=R)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"racy_sum at one row tile R={R} "
+              f"U={U} differs from its plain version: {got} vs {want}")
+        max_err = max(max_err, (got - want).abs().max().item())
+    rep = grid_race.analyze_callable("fixtures.racy_sum", "racy_sum",
+                                     racy_kernel.invoke)
+    check(rep.classification == "racy" and rep.revisit_axes == (0,),
+          f"check: F1 classified {rep}")
+    small = lost_updates(dev, 8, 2, 2, F1_LOST_RUNS)
+    large = lost_updates(dev, *F1_LARGE, F1_LOST_RUNS)
+    log(f"check: racy_sum equals its plain version at one row tile (grid "
+        f"(1, U), 3 shapes); classified {rep.classification} on grid "
+        f"{rep.grid}, revisit axes {rep.revisit_axes}; lost updates per "
+        f"launch (not asserted: undefined) at grid (4, 2): {small} of 8, "
+        f"at grid ({F1_LARGE[0] // F1_LARGE[2]}, {F1_LARGE[1]}): {large} of "
+        f"{F1_LARGE[0] // F1_LARGE[2] * F1_LARGE[1]}")
+
+    R, U, br = F1_LARGE
+    x = torch.ones(R, U, device=dev)
+    runs = {"kernel": lambda: racy_kernel.racy_sum(x, block_rows=br),
+            "plain": lambda: racy_kernel.plain_sum(x, block_rows=br),
+            "library": lambda: x.sum(0)}
+    ms, samples = in_turns(runs)
+    bytes_moved = 4 * R * U + 4 * U          # read x, write out
+    flops = R * U
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / FP32_FLOP_PER_S * 1e3
+    log(f"check: racy_sum at R={R} U={U} block rows {br} ({bytes_moved} "
+        f"bytes): kernel {ms['kernel']:.6f} ms (the wrapper: zeroing the "
+        f"output and the launch), plain {ms['plain']:.6f} ms, x.sum(0) "
+        f"{ms['library']:.6f} ms, bound {max(bound_bytes, bound_ops):.6f} "
+        f"ms; samples {samples}")
+    return {
+        "name": "racy_sum", "route": "cuda",
+        "source": "src/repro_torch/check/corpus/racy_sum.cu",
+        "replaces": "src/repro/check/fixtures/racy_kernel.py:25",
+        "max_abs_err": max_err, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_ms": ms["library"], "shape": f"R {R} U {U} br {br}",
+        "launches_by_path": {
+            "phase_check": racy_kernel.KERNEL.launches - launched_before},
+        "lost_updates": {"grid (4, 2)": small,
+                         f"grid ({R // br}, {U})": large},
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1418,7 +1680,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from repro_torch.kernels.build import build_all
+        from repro_torch.check.corpus import racy_kernel
+        from repro_torch.kernels.build import CSRC, build
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -1428,8 +1691,9 @@ def main() -> int:
         f"{sys.version.split()[0]}; device {torch.cuda.get_device_name(0)} "
         f"capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
-    libs = build_all()
-    built = ", ".join(f"{s} -> {p.relative_to(ROOT)}"
+    libs = build(sorted(p.name for p in CSRC.glob("*.cu"))
+                 + [str(racy_kernel.SOURCE)])
+    built = ", ".join(f"{Path(s).name} -> {p.relative_to(ROOT)}"
                       for s, p in libs.items())
     log(f"build: {built} in {time.perf_counter() - t0:.3f} s")
     log(card_line())
@@ -1439,10 +1703,15 @@ def main() -> int:
     k4 = phase_decode_kernel(dev)
     k5 = phase_swa_kernel(dev)
     k3 = phase_ce_kernel(dev)
+    f1_before = racy_kernel.KERNEL.launches
     host_merges = phase_main()
     k1["launches"] = phase_fleet()
     k4["launches"], k5["launches"] = phase_serve(dev)
     k3["launches"], train_merges = phase_train(dev)
+    # F1 is a fixture: no main path launches it
+    f1_main = racy_kernel.KERNEL.launches - f1_before
+    check(f1_main == 0,
+          f"racy_sum launched {f1_main} times on the main paths")
     # K2 runs on two main paths: the host engines' merges and training's
     k2["launches"] = host_merges + train_merges
     k2["launches_by_path"] = {"host engines": host_merges,
@@ -1452,6 +1721,11 @@ def main() -> int:
     phase_host("jit")
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
+    # after every host-clock timing of the main paths (its host-side probe
+    # runs the CPU fleet engine), before the profiler readings
+    f1 = phase_check(dev)
+    f1["launches"] = f1_main
+    f1["launches_by_path"]["main paths"] = f1_main
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last
         measure()
@@ -1460,7 +1734,7 @@ def main() -> int:
     for rec in (k1, k4, k5, k3):        # the main shape's device time
         rec["device_ms"] = rec["geometries"][rec["shape"]]["device_ms"]
 
-    log(json.dumps({"kernels": [k2, k1, k4, k5, k3]}))
+    log(json.dumps({"kernels": [k2, k1, k4, k5, k3, f1]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/*.cu`` exports plain C functions.  On first use it is compiled
-with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``kernels/_build/`` (git-ignored), named by a hash of the source and the
-flags, and loaded with ``ctypes``.  Nothing is built or imported at module
-import: CPU-only installs import this module and never reach ``nvcc``.
+Each ``csrc/*.cu`` exports plain C functions.  A source is named by its file
+name under ``csrc/`` (the default directory) or by an absolute path, as the
+race analyzer's fixture kernel is (``check/corpus/racy_sum.cu``).  On
+first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under ``kernels/_build/`` (git-ignored), named by a hash of
+the source and the flags, and loaded with ``ctypes``.  Nothing is built or
+imported at module import: CPU-only installs import this module and never
+reach ``nvcc``.
 
 A failed build raises with nvcc's stderr; a launch that returns a CUDA
 error raises with the error's name.  There is no fallback.
@@ -47,9 +50,15 @@ def nvcc_path() -> str:
         "port's kernels")
 
 
-def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to: keyed by its bytes and flags."""
-    src = CSRC / source
+def source_path(source) -> Path:
+    """``source`` itself when absolute, else ``csrc/<source>``."""
+    p = Path(source)
+    return p if p.is_absolute() else CSRC / p
+
+
+def library_path(source) -> Path:
+    """Where ``source`` builds to: keyed by its bytes and flags."""
+    src = source_path(source)
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{key.hexdigest()[:16]}.so"
 
@@ -66,14 +75,14 @@ def build(sources) -> dict[str, Path]:
     procs = {}
     for s, p in todo.items():
         tmp = p.with_name(f"{p.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(s))]
         procs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True))
     errors = []
     for s, (tmp, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed on {CSRC / s} "
+            errors.append(f"nvcc failed on {source_path(s)} "
                           f"(exit {proc.returncode}):\n{err}")
         else:
             os.replace(tmp, todo[s])      # atomic: no half-written library
@@ -88,7 +97,7 @@ def build_all() -> dict[str, Path]:
 
 
 class CudaKernel:
-    """One ``csrc`` library: lazy build and load, checked launches, and a
+    """One kernel library: lazy build and load, checked launches, and a
     count of launches (one per call that launched a kernel)."""
 
     def __init__(self, name: str, source: str, functions: dict):
@@ -131,3 +140,19 @@ class CudaKernel:
                 f"{self.name}: launch of {fn} failed with CUDA error {err} "
                 f"({lib.error_string(err).decode()})")
         self.launches += 1
+
+    def grids(self, fn: str, max_launches: int, *args) -> list[tuple]:
+        """The grids that host-only export ``fn(*args, int64_t* grids)``
+        writes, ``(x, y, z)`` for each of up to ``max_launches`` launches of
+        one call; an all-zero grid is a launch the call skips and is
+        dropped.  Launches nothing and counts nothing, but needs the built
+        library."""
+        lib = self._load()
+        buf = (ctypes.c_int64 * (3 * max_launches))()
+        err = getattr(lib, fn)(*args, buf)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: {fn}{args} failed with CUDA error {err} "
+                f"({lib.error_string(err).decode()})")
+        grids = [tuple(buf[3 * i:3 * i + 3]) for i in range(max_launches)]
+        return [g for g in grids if any(g)]

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.cross_entropy import ref
+from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 
 # (device, logits, labels, nll, lse, R, V, stream)
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -26,9 +27,30 @@ _EXPORTS = {torch.float32: "cross_entropy_f32",
             torch.bfloat16: "cross_entropy_bf16"}
 _LABEL_DTYPES = (torch.int32, torch.int64)
 MAX_ROWS = 2 ** 31 - 1            # one block per row on the grid's x axis
+THREADS = 256
 
 KERNEL = CudaKernel("cross_entropy", "cross_entropy.cu",
-                    {fn: _ARGS for fn in _EXPORTS.values()})
+                    {**{fn: _ARGS for fn in _EXPORTS.values()},
+                     "cross_entropy_geometry": [ctypes.c_int64, GRIDS_ARG]})
+
+
+def geometry(R: int, V: int) -> list[LaunchGeometry]:
+    """The launch of ``nll_and_lse`` on ``[R, V]`` logits
+    (``csrc/cross_entropy.cu:launch``): block ``r`` walks row ``r`` and
+    writes ``nll[r]`` and ``lse[r]``.  ``R == 0`` launches nothing."""
+    if R == 0:
+        return []
+
+    def row(block):
+        return [(block[0], block[0] + 1)]
+    return [LaunchGeometry("cross_entropy_kernel", (R,), THREADS,
+                           {"nll": Output(R, row), "lse": Output(R, row)})]
+
+
+def cu_grids(R: int, V: int) -> list[tuple]:
+    """The grids ``csrc/cross_entropy.cu`` computes for the same
+    arguments."""
+    return KERNEL.grids("cross_entropy_geometry", 1, R)
 
 
 def _check(logits, labels):

@@ -147,13 +147,17 @@ cross_entropy_kernel(const T* __restrict__ logits,
   }
 }
 
+// The launch's grid: one block per row (none for R == 0).
+inline int64_t grid_blocks(int64_t R) { return R > 0 ? R : 0; }
+
 template <typename T>
 int launch(int device, const void* logits, const void* labels, void* nll,
            void* lse, int64_t R, int64_t V, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (R > 0) {
-    cross_entropy_kernel<T><<<static_cast<unsigned>(R), kThreads, 0,
+  const int64_t blocks = grid_blocks(R);
+  if (blocks > 0) {
+    cross_entropy_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(logits), static_cast<const int*>(labels),
         static_cast<float*>(nll), static_cast<float*>(lse), V);
@@ -177,6 +181,16 @@ int cross_entropy_bf16(int device, const void* logits, const void* labels,
                        void* stream) {
   return launch<__nv_bfloat16>(device, logits, labels, nll, lse, R, V,
                                stream);
+}
+
+// Host only: the grid launch<T> computes for R rows, as grid3 = (x, y, z)
+// (all 0 when nothing is launched).  Launches nothing.
+int cross_entropy_geometry(int64_t R, int64_t* grid3) {
+  const int64_t blocks = grid_blocks(R);
+  grid3[0] = blocks;
+  grid3[1] = blocks > 0 ? 1 : 0;
+  grid3[2] = blocks > 0 ? 1 : 0;
+  return 0;
 }
 
 const char* error_string(int code) {

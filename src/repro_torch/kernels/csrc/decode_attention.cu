@@ -226,20 +226,29 @@ decode_combine_kernel(T* __restrict__ out, const float* __restrict__ part,
   }
 }
 
+// The launches' grids: the chunk kernel over (b * Kv + kv head, chunk);
+// then, only when n_chunks > 1, the combine kernel over (b * Kv + kv head).
+inline dim3 chunk_grid(int B, int Kv, int n_chunks) {
+  return dim3(static_cast<unsigned>(B * Kv), static_cast<unsigned>(n_chunks));
+}
+inline dim3 combine_grid(int B, int Kv) {
+  return dim3(static_cast<unsigned>(B * Kv));
+}
+
 template <typename T, int HD, int G>
 cudaError_t launch_g(void* out, void* part, const void* q, const void* k,
                      const void* v, const int* pos, int B, int S, int Kv,
                      int chunk, int n_chunks, float scale,
                      cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(B * Kv),
-                  static_cast<unsigned>(n_chunks));
+  const dim3 grid = chunk_grid(B, Kv, n_chunks);
   decode_chunk_kernel<T, HD, G><<<grid, kThreads, 0, stream>>>(
       static_cast<T*>(out), static_cast<float*>(part),
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, S, Kv, chunk, n_chunks, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return err;
-  decode_combine_kernel<T, HD, G><<<B * Kv, kThreads, 0, stream>>>(
+  decode_combine_kernel<T, HD, G><<<combine_grid(B, Kv), kThreads, 0,
+                                    stream>>>(
       static_cast<T*>(out), static_cast<const float*>(part), pos, Kv, chunk,
       n_chunks);
   return cudaGetLastError();
@@ -310,6 +319,22 @@ int decode_attention_bf16(int device, void* out, void* part, const void* q,
                           int n_chunks, float scale, void* stream) {
   return launch<__nv_bfloat16>(device, out, part, q, k, v, pos, B, S, H, Kv,
                                hd, chunk, n_chunks, scale, stream);
+}
+
+// Host only: the grids of one call's launches, as grids = (x, y, z) of the
+// chunk kernel, then (x, y, z) of the combine kernel (all 0 when
+// n_chunks == 1: it is not launched).  Launches nothing.
+int decode_attention_geometry(int B, int Kv, int n_chunks, int64_t* grids) {
+  const dim3 a = chunk_grid(B, Kv, n_chunks);
+  const dim3 c = combine_grid(B, Kv);
+  const bool combine = n_chunks > 1;
+  grids[0] = a.x;
+  grids[1] = a.y;
+  grids[2] = a.z;
+  grids[3] = combine ? c.x : 0;
+  grids[4] = combine ? c.y : 0;
+  grids[5] = combine ? c.z : 0;
+  return 0;
 }
 
 const char* error_string(int code) {

@@ -117,14 +117,18 @@ ring_agg_kernel(float* __restrict__ out, const float* __restrict__ g,
   }
 }
 
+// The launch's grid: one block per kThreads packs of `elems` elements.
+inline int64_t grid_blocks(int64_t P, int elems) {
+  const int64_t per_block = static_cast<int64_t>(kThreads) * elems;
+  return (P + per_block - 1) / per_block;
+}
+
 template <typename T>
 int launch(int device, void* out, const void* g, const void* locs,
            const void* coeffs, int64_t P, int64_t U, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int64_t kPerBlock = static_cast<int64_t>(kThreads) *
-                                Row<T>::kElems;
-  const int64_t blocks = (P + kPerBlock - 1) / kPerBlock;
+  const int64_t blocks = grid_blocks(P, Row<T>::kElems);
   ring_agg_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), static_cast<const float*>(g),
@@ -147,6 +151,18 @@ int ring_agg_f32(int device, void* out, const void* g, const void* locs,
 int ring_agg_bf16(int device, void* out, const void* g, const void* locs,
                   const void* coeffs, int64_t P, int64_t U, void* stream) {
   return launch<__nv_bfloat16>(device, out, g, locs, coeffs, P, U, stream);
+}
+
+// Host only: the grid launch<T> computes for a [P] buffer with upload rows
+// of elem_bytes bytes (4: f32, 2: bf16), as grid3 = (x, y, z).  Launches
+// nothing.
+int ring_agg_geometry(int64_t P, int elem_bytes, int64_t* grid3) {
+  if (elem_bytes != 4 && elem_bytes != 2) return cudaErrorInvalidValue;
+  grid3[0] = grid_blocks(P, elem_bytes == 4 ? Row<float>::kElems
+                                            : Row<__nv_bfloat16>::kElems);
+  grid3[1] = 1;
+  grid3[2] = 1;
+  return 0;
 }
 
 const char* error_string(int code) {

@@ -203,6 +203,12 @@ swa_kernel(T* __restrict__ out, const T* __restrict__ q,
   }
 }
 
+// The launch's grid: one block per (64-row query tile, head, batch row).
+inline dim3 grid_of(int B, int S, int H) {
+  return dim3(static_cast<unsigned>((S + kBQ - 1) / kBQ),
+              static_cast<unsigned>(H), static_cast<unsigned>(B));
+}
+
 template <typename T, int HD>
 cudaError_t launch_hd(void* out, const void* q, const void* k, const void* v,
                       int B, int S, int H, int Kv, int window, float scale,
@@ -215,8 +221,7 @@ cudaError_t launch_hd(void* out, const void* q, const void* k, const void* v,
       swa_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(H), static_cast<unsigned>(B));
+  const dim3 grid = grid_of(B, S, H);
   swa_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), S, H, Kv, window,
@@ -264,6 +269,16 @@ int swa_attention_bf16(int device, void* out, const void* q, const void* k,
                        int window, float scale, void* stream) {
   return launch<__nv_bfloat16>(device, out, q, k, v, B, S, H, Kv, hd, window,
                                scale, stream);
+}
+
+// Host only: the grid launch<T> computes, as grid3 = (x, y, z).  Launches
+// nothing.
+int swa_attention_geometry(int B, int S, int H, int64_t* grid3) {
+  const dim3 g = grid_of(B, S, H);
+  grid3[0] = g.x;
+  grid3[1] = g.y;
+  grid3[2] = g.z;
+  return 0;
 }
 
 const char* error_string(int code) {

@@ -100,6 +100,24 @@ weighted_agg_kernel(T* __restrict__ out, const T* __restrict__ g,
   }
 }
 
+// The packs the kernel's vector loop takes: none unless all three pointers
+// are 16-byte aligned.
+inline int64_t packs(int64_t n, bool aligned, int pack) {
+  return aligned ? n / pack : 0;
+}
+
+// The launch's grid: one block of kThreads threads per kThreads packs or
+// tail elements, whichever loop is longer; at least 1, at most kMaxBlocks
+// (the grid-stride loops take the rest).
+inline int64_t grid_blocks(int64_t n, int64_t n_pack, int pack) {
+  const int64_t tail = n - n_pack * pack;
+  const int64_t work = n_pack > tail ? n_pack : tail;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  return blocks;
+}
+
 template <typename T>
 int launch(int device, void* out, const void* g, const void* l, int64_t n,
            float beta, float coef, void* stream) {
@@ -109,12 +127,8 @@ int launch(int device, void* out, const void* g, const void* l, int64_t n,
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(g) |
         reinterpret_cast<uintptr_t>(l)) & 15) == 0;
-  const int64_t n_pack = aligned ? n / kPack : 0;
-  const int64_t work = n_pack > n - n_pack * kPack ? n_pack
-                                                   : n - n_pack * kPack;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const int64_t n_pack = packs(n, aligned, kPack);
+  const int64_t blocks = grid_blocks(n, n_pack, kPack);
   weighted_agg_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(out), static_cast<const T*>(g),
@@ -135,6 +149,19 @@ int weighted_agg_f32(int device, void* out, const void* g, const void* l,
 int weighted_agg_bf16(int device, void* out, const void* g, const void* l,
                       int64_t n, float beta, float coef, void* stream) {
   return launch<__nv_bfloat16>(device, out, g, l, n, beta, coef, stream);
+}
+
+// Host only: the grid launch<T> computes for n elements of elem_bytes
+// bytes (4: f32, 2: bf16) with all three pointers 16-byte aligned or not,
+// as grid3 = (x, y, z).  Launches nothing.
+int weighted_agg_geometry(int64_t n, int elem_bytes, int aligned,
+                          int64_t* grid3) {
+  if (elem_bytes != 4 && elem_bytes != 2) return cudaErrorInvalidValue;
+  const int pack = 16 / elem_bytes;
+  grid3[0] = grid_blocks(n, packs(n, aligned != 0, pack), pack);
+  grid3[1] = 1;
+  grid3[2] = 1;
+  return 0;
 }
 
 const char* error_string(int code) {

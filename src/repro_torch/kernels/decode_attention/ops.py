@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.decode_attention import ref
+from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 
 HEAD_DIMS = (64, 128)          # the kernel's instantiations
 MAX_GROUP = 8                  # query heads per kv head, 1..8
@@ -32,8 +33,12 @@ _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _EXPORTS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
 
+THREADS = 128
+
 KERNEL = CudaKernel("decode_attention", "decode_attention.cu",
-                    {fn: _ARGS for fn in _EXPORTS.values()})
+                    {**{fn: _ARGS for fn in _EXPORTS.values()},
+                     "decode_attention_geometry": [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_int, GRIDS_ARG]})
 
 
 def split(B: int, S: int, Kv: int) -> tuple[int, int]:
@@ -43,6 +48,45 @@ def split(B: int, S: int, Kv: int) -> tuple[int, int]:
     n = max(1, min(want, S // MIN_CHUNK))
     chunk = -(-S // n)
     return chunk, -(-S // chunk)
+
+
+def geometry(B: int, S: int, H: int, Kv: int, hd: int
+             ) -> list[LaunchGeometry]:
+    """The launches of one ``decode_attention`` call
+    (``csrc/decode_attention.cu:launch_g``).  The chunk kernel's block
+    ``(b * Kv + kv head, c)`` writes the ``G`` query heads of its kv head:
+    into ``out`` when there is one chunk, else its partial states
+    ``(m, l, acc[hd])`` into ``part``; then the combine kernel's block
+    ``b * Kv + kv head`` writes those heads of ``out``.  A chunk past
+    ``pos[b]`` returns early, so these are the most a block stores."""
+    chunk, n_chunks = split(B, S, Kv)
+    G = H // Kv
+
+    def heads(block):
+        b, kvh = divmod(block[0], Kv)
+        start = (b * H + kvh * G) * hd
+        return [(start, start + G * hd)]
+    out = Output(B * H * hd, heads)
+    if n_chunks == 1:
+        return [LaunchGeometry("decode_chunk_kernel", (B * Kv, 1), THREADS,
+                               {"out": out})]
+
+    def states(block):
+        start = (block[0] * n_chunks + block[1]) * G * (hd + 2)
+        return [(start, start + G * (hd + 2))]
+    return [LaunchGeometry("decode_chunk_kernel", (B * Kv, n_chunks),
+                           THREADS,
+                           {"part": Output(B * H * n_chunks * (hd + 2),
+                                           states)}),
+            LaunchGeometry("decode_combine_kernel", (B * Kv,), THREADS,
+                           {"out": out})]
+
+
+def cu_grids(B: int, S: int, H: int, Kv: int, hd: int) -> list[tuple]:
+    """The grids ``csrc/decode_attention.cu`` computes for the same
+    arguments (its ``decode_attention_geometry`` export)."""
+    return KERNEL.grids("decode_attention_geometry", 2, B, Kv,
+                        split(B, S, Kv)[1])
 
 
 def _check(q, k_cache, v_cache, pos):

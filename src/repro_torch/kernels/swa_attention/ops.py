@@ -13,9 +13,12 @@ import math
 import torch
 
 from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 from repro_torch.kernels.swa_attention import ref
 
 HEAD_DIMS = (64, 128)          # the kernel's instantiations
+THREADS = 256
+BLOCK_Q = 64                   # query rows per block
 
 # (device, out, q, k, v, B, S, H, Kv, hd, window, scale, stream)
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -26,7 +29,31 @@ _EXPORTS = {torch.float32: "swa_attention_f32",
             torch.bfloat16: "swa_attention_bf16"}
 
 KERNEL = CudaKernel("swa_attention", "swa_attention.cu",
-                    {fn: _ARGS for fn in _EXPORTS.values()})
+                    {**{fn: _ARGS for fn in _EXPORTS.values()},
+                     "swa_attention_geometry": [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, GRIDS_ARG]})
+
+
+def geometry(B: int, S: int, H: int, Kv: int, hd: int
+             ) -> list[LaunchGeometry]:
+    """The launch of ``swa_attention`` (``csrc/swa_attention.cu:
+    launch_hd``): block ``(query tile, head, batch row)`` writes head ``h``
+    of the rows of its 64-row query tile (fewer in the last tile)."""
+    def rows(block):
+        qt, h, b = block
+        out = []
+        for i in range(qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, S)):
+            start = ((b * S + i) * H + h) * hd
+            out.append((start, start + hd))
+        return out
+    return [LaunchGeometry("swa_kernel", (-(-S // BLOCK_Q), H, B), THREADS,
+                           {"out": Output(B * S * H * hd, rows)})]
+
+
+def cu_grids(B: int, S: int, H: int, Kv: int, hd: int) -> list[tuple]:
+    """The grids ``csrc/swa_attention.cu`` computes for the same
+    arguments."""
+    return KERNEL.grids("swa_attention_geometry", 1, B, S, H)
 
 
 def _check(q, k, v, window):

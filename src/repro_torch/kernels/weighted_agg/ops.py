@@ -15,9 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 from repro_torch.kernels.weighted_agg import ref
 
 LANE = 128      # ring_agg's buffers are ParamLayout buffers: P % LANE == 0
+# launch constants of csrc/weighted_agg.cu and csrc/ring_agg.cu
+THREADS = 256
+MAX_BLOCKS = 132 * 8
 
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -25,7 +29,9 @@ _EXPORTS = {torch.float32: "weighted_agg_f32",
             torch.bfloat16: "weighted_agg_bf16"}
 
 KERNEL = CudaKernel("weighted_agg", "weighted_agg.cu",
-                    {fn: _ARGS for fn in _EXPORTS.values()})
+                    {**{fn: _ARGS for fn in _EXPORTS.values()},
+                     "weighted_agg_geometry": [ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_int, GRIDS_ARG]})
 
 # (device, out, g, locs, coeffs, P, U, stream)
 _RING_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -35,7 +41,61 @@ _RING_EXPORTS = {torch.float32: "ring_agg_f32",
                  torch.bfloat16: "ring_agg_bf16"}
 
 RING_KERNEL = CudaKernel("ring_agg", "ring_agg.cu",
-                         {fn: _RING_ARGS for fn in _RING_EXPORTS.values()})
+                         {**{fn: _RING_ARGS for fn in _RING_EXPORTS.values()},
+                          "ring_agg_geometry": [ctypes.c_int64, ctypes.c_int,
+                                                GRIDS_ARG]})
+
+
+def geometry(n: int, dtype, aligned: bool) -> list[LaunchGeometry]:
+    """The launch of ``weighted_agg`` on ``n`` elements of ``dtype``
+    (``csrc/weighted_agg.cu:launch``): a grid-stride loop over 16-byte
+    packs when ``out``, ``g`` and ``l`` are all 16-byte aligned, then over
+    the scalar tail; thread ``t`` of block ``b`` takes pack (or element)
+    ``b * THREADS + t`` and every ``blocks * THREADS``-th after it."""
+    pack = 16 // dtype.itemsize
+    n_pack = n // pack if aligned else 0
+    tail = n - n_pack * pack
+    blocks = min(max(-(-max(n_pack, tail) // THREADS), 1), MAX_BLOCKS)
+    stride = blocks * THREADS
+
+    def ranges(block):
+        first = block[0] * THREADS
+        out = [(i * pack, min(i + THREADS, n_pack) * pack)
+               for i in range(first, n_pack, stride)]
+        out += [(i, min(i + THREADS, n))
+                for i in range(n_pack * pack + first, n, stride)]
+        return out
+    return [LaunchGeometry("weighted_agg_kernel", (blocks,), THREADS,
+                           {"out": Output(n, ranges)})]
+
+
+def cu_grids(n: int, dtype, aligned: bool) -> list[tuple]:
+    """The grids ``csrc/weighted_agg.cu`` computes for the same arguments
+    (its ``weighted_agg_geometry`` export; needs the built library)."""
+    return KERNEL.grids("weighted_agg_geometry", 1, n, dtype.itemsize,
+                        int(aligned))
+
+
+def ring_geometry(P: int, U: int, dtype) -> list[LaunchGeometry]:
+    """The launch of ``ring_agg`` over a ``[P]`` buffer and U upload rows
+    of ``dtype`` (``csrc/ring_agg.cu:launch``): thread ``t`` of block ``b``
+    owns the 16-byte pack of upload elements ``(b * THREADS + t) * elems``
+    onward for the whole chain.  ``U == 0`` launches nothing."""
+    if U == 0:
+        return []
+    per_block = THREADS * (16 // dtype.itemsize)
+
+    def ranges(block):
+        return [(block[0] * per_block, min((block[0] + 1) * per_block, P))]
+    return [LaunchGeometry("ring_agg_kernel", (-(-P // per_block),), THREADS,
+                           {"out": Output(P, ranges)})]
+
+
+def ring_cu_grids(P: int, U: int, dtype) -> list[tuple]:
+    """The grids ``csrc/ring_agg.cu`` computes for the same arguments."""
+    if U == 0:
+        return []
+    return RING_KERNEL.grids("ring_agg_geometry", 1, P, dtype.itemsize)
 
 
 def weighted_agg(g, l, beta: float, weight: float):

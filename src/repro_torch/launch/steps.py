@@ -105,7 +105,8 @@ def make_mafl_step(cfg: ArchConfig):
     f32 as ``repro``'s traced f32 inputs are.  ``beta`` and ``weight`` are
     host numbers (reading a device scalar would wait for the card)."""
 
-    def mafl_step(global_params, local_params, beta, weight):
+    def mafl_step(global_params, local_params, beta: float,
+                  weight: float):
         b = np.float32(beta)
         coef = float((np.float32(1.0) - b) * np.float32(weight))
         b = float(b)

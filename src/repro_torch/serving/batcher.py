@@ -87,6 +87,7 @@ class BatchedServer:
                     row = self.cache["stack"][name]["mixer"][leaf][:, slot]
                     row[:, :P] = c[:, 0]
                     row[:, P:] = 0
+            # repro-check: waive[BND003] one sync per admit, as in repro
             first = int(torch.argmax(logits[0, -1]))
             req.out.append(first)
             self.slot_req[slot] = req
@@ -103,6 +104,7 @@ class BatchedServer:
         tokens = torch.from_numpy(self._last_tokens).to(self.device)
         next_tokens, self.cache = self._step(self.model, tokens, self.cache,
                                              pos)
+        # repro-check: waive[BND003] one sync per tick by design, as in repro
         next_np = next_tokens[:, 0].cpu().numpy()
         for slot, req in enumerate(self.slot_req):
             if req is None:

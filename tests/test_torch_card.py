@@ -516,3 +516,44 @@ def test_reduced_training_on_card_matches_cpu(cuda_device):
     for k, v in c.params.items():
         torch.testing.assert_close(g.params[k].cpu(), v, atol=1e-4,
                                    rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, U", [(2, 2), (512, 3), (4096, 7)])
+def test_racy_sum_one_row_tile_matches_plain_version(cuda_device, R, U):
+    """F1 with one row tile has one block per column: no race, and on
+    integer-valued f32 inputs the sum is exact in any order."""
+    from repro_torch.check.corpus import racy_kernel
+    x = torch.from_numpy(np.random.default_rng(R).integers(
+        -100, 100, (R, U)).astype(np.float32)).to(cuda_device)
+    before = racy_kernel.KERNEL.launches
+    got = racy_kernel.racy_sum(x, block_rows=R)
+    torch.cuda.synchronize()
+    assert racy_kernel.KERNEL.launches == before + 1
+    assert racy_kernel.KERNEL not in kernels.KERNELS
+    assert torch.equal(got, racy_kernel.plain_sum(x, block_rows=R))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_id", [
+    "weighted_agg.weighted_agg", "weighted_agg.ring_agg",
+    "cross_entropy.nll_and_lse", "decode_attention.decode_attention",
+    "swa_attention.swa_attention"])
+def test_geometry_exports_match_python_grids(cuda_device, kernel_id):
+    """Each ``.cu``'s ``<name>_geometry`` export gives the grids its
+    ``ops.geometry`` declares, at the registered case and at every
+    main-path shape."""
+    from repro_torch.check import grid_race
+    case = grid_race.KERNEL_CASES[kernel_id]
+    shapes = [("case", case.args)] + grid_race.main_path_shapes()[kernel_id]
+    for label, args in shapes:
+        assert case.grids(*args) == [g.dim3 for g in case.launches(*args)], \
+            label
+
+
+@pytest.mark.cuda
+def test_racy_sum_geometry_export_matches_python_grid(cuda_device):
+    from repro_torch.check.corpus import racy_kernel
+    for args in ((8, 2, 2), (2, 2, 2), (8192, 2, 2)):
+        assert racy_kernel.cu_grids(*args) == [
+            g.dim3 for g in racy_kernel.geometry(*args)]

@@ -1,5 +1,6 @@
 """The port stands alone: no ``jax`` and nothing of ``repro`` is imported by
-``repro_torch`` or ``chip_smoke.py``; entry points without ``device`` run on
+``repro_torch`` (its analyzers ``repro_torch.check`` included) or
+``chip_smoke.py``; entry points without ``device`` run on
 the card or raise; unported features raise naming their slice."""
 from __future__ import annotations
 
@@ -90,7 +91,10 @@ def _tiny_world():
     "repro_torch.serving", "repro_torch.kernels.decode_attention.ops",
     "repro_torch.kernels.swa_attention.ops", "repro_torch.launch.train",
     "repro_torch.checkpointing", "repro_torch.kernels.cross_entropy.ops",
-    "repro_torch.data"])
+    "repro_torch.data", "repro_torch.check", "repro_torch.check.runner",
+    "repro_torch.check.boundary", "repro_torch.check.grid_race",
+    "repro_torch.check.dtype_flow", "repro_torch.check.plan_shapes",
+    "repro_torch.check.corpus.racy_kernel"])
 def test_fleet_modules_import_alone_without_jax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
