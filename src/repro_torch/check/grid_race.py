@@ -34,6 +34,7 @@ card, and a tier-1 test pins every production kernel to ``parallel-safe``.
 from __future__ import annotations
 
 import ast
+import functools
 import math
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -167,14 +168,34 @@ class Case:
 
 
 _WA = "repro_torch/kernels/weighted_agg/ops.py"
+_SA = "repro_torch/kernels/swa_attention/ops.py"
+# one merge of the paper CNN: its leaves' sizes in order
+CNN_SIZES = tuple(math.prod(s) for s in CNN_SHAPES.values())
 
-# kernel_id -> Case.  Each case has >= 2 blocks on every grid axis: K2 two
-# blocks of packs and a scalar tail, K1 a partial last block, K4 two chunks
-# (so both launches run), K5 a ragged last query tile.
+
+@functools.lru_cache(maxsize=None)
+def smollm_leaf_shapes() -> dict:
+    """smollm-360m's 290 parameter leaves, name -> shape, in the order a
+    training merge takes them (built on the meta device)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    model = T.Transformer(get_config("smollm-360m"), torch.float32, "meta")
+    return {k: tuple(p.shape) for k, p in T.param_dict(model).items()}
+
+
+def smollm_leaf_sizes() -> tuple:
+    """The element counts of :func:`smollm_leaf_shapes`, in order."""
+    return tuple(math.prod(s) for s in smollm_leaf_shapes().values())
+
+
+# kernel_id -> Case.  Each case has >= 2 blocks on every grid axis: K2 a
+# CNN merge (ragged leaves, one of 98 blocks), K1 a partial last block, K4
+# two chunks (so both launches run), K5 a ragged last query tile (f32) or
+# row tile (bf16, G 3).
 KERNEL_CASES: dict[str, Case] = {
     "weighted_agg.weighted_agg": Case(
-        _WA, "weighted_agg", "weighted_agg", wa_ops.geometry,
-        wa_ops.cu_grids, (2051, torch.float32, True)),
+        _WA, "weighted_agg_tree", "weighted_agg", wa_ops.geometry,
+        wa_ops.cu_grids, (CNN_SIZES, torch.float32)),
     "weighted_agg.ring_agg": Case(
         _WA, "ring_agg", "ring_agg", wa_ops.ring_geometry,
         wa_ops.ring_cu_grids, (1152, 2, torch.float32)),
@@ -186,24 +207,27 @@ KERNEL_CASES: dict[str, Case] = {
         "decode_attention", da_ops.geometry, da_ops.cu_grids,
         (2, 256, 2, 1, 64)),
     "swa_attention.swa_attention": Case(
-        "repro_torch/kernels/swa_attention/ops.py", "swa_attention",
-        "swa_attention", sa_ops.geometry, sa_ops.cu_grids,
-        (2, 100, 2, 1, 64)),
+        _SA, "swa_attention", "swa_attention", sa_ops.geometry,
+        sa_ops.cu_grids, (2, 100, 2, 1, 64, torch.float32)),
+    "swa_attention.swa_attention_bf16": Case(
+        _SA, "swa_attention", "swa_attention", sa_ops.geometry,
+        sa_ops.cu_grids, (2, 100, 6, 2, 64, torch.bfloat16)),
 }
 
 
 def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
     """kernel_id -> [(label, geometry args)] at the shapes the main paths
-    launch: K2 at every paper-CNN leaf (f32 and bf16, aligned and not), K1
-    at the packed CNN (P 422,016, U 10), K3 at training's R 512 and
-    ``make_train_step``'s R 4,096 (V 49,152), K4 at the serve shape and
-    smollm-360m's decode_32k, K5 at 512- and 1024-token prefills."""
-    wa = [(f"n {n} {str(dt)[6:]} {'aligned' if al else 'unaligned'}",
-           (n, dt, al))
-          for n in (math.prod(s) for s in CNN_SHAPES.values())
-          for dt in (torch.float32, torch.bfloat16) for al in (True, False)]
+    launch: K2 at a paper-CNN merge (f32 and bf16) and a smollm-360m
+    training merge (290 f32 leaves, 3 launches), K1 at the packed CNN (P
+    422,016, U 10), K3 at training's R 512 and ``make_train_step``'s R
+    4,096 (V 49,152), K4 at the serve shape and smollm-360m's decode_32k,
+    K5 at 512- and 1024-token prefills in f32 and bf16."""
     return {
-        "weighted_agg.weighted_agg": wa,
+        "weighted_agg.weighted_agg": [
+            ("paper CNN f32", (CNN_SIZES, torch.float32)),
+            ("paper CNN bf16", (CNN_SIZES, torch.bfloat16)),
+            ("smollm-360m 290 leaves f32",
+             (smollm_leaf_sizes(), torch.float32))],
         "weighted_agg.ring_agg": [
             ("P 422016 U 10 f32", (422016, 10, torch.float32)),
             ("P 422016 U 10 bf16", (422016, 10, torch.bfloat16))],
@@ -214,8 +238,11 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("serve B 8 S 2048", (8, 2048, 15, 5, 64)),
             ("decode_32k B 128 S 32768", (128, 32768, 15, 5, 64))],
         "swa_attention.swa_attention": [
-            ("prefill S 512", (1, 512, 15, 5, 64)),
-            ("prefill S 1024", (1, 1024, 15, 5, 64))],
+            ("prefill S 512 f32", (1, 512, 15, 5, 64, torch.float32)),
+            ("prefill S 1024 f32", (1, 1024, 15, 5, 64, torch.float32))],
+        "swa_attention.swa_attention_bf16": [
+            ("prefill S 512 bf16", (1, 512, 15, 5, 64, torch.bfloat16)),
+            ("prefill S 1024 bf16", (1, 1024, 15, 5, 64, torch.bfloat16))],
     }
 
 

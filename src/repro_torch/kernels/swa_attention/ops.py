@@ -3,7 +3,8 @@
 
 It takes the model's ``[B, S, H, hd]`` / ``[B, S, Kv, hd]`` layout directly.
 On a CPU tensor it runs the plain version (``ref``); on a CUDA tensor it
-launches the kernel, one launch per call, or raises.
+launches the kernel, one launch per call, or raises: f32 on CUDA cores,
+bf16 on the tensor cores, each kv tile shared by the G query heads.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 from repro_torch.kernels.swa_attention import ref
 
 HEAD_DIMS = (64, 128)          # the kernel's instantiations
-THREADS = 256
-BLOCK_Q = 64                   # query rows per block
+THREADS = 256                  # f32: threads per block
+BLOCK_Q = 64                   # f32: query rows per block
+MMA_THREADS = 128              # bf16: 4 warps of mma.sync
+BLOCK_M = 64                   # bf16: (position, head) rows per block
 
 # (device, out, q, k, v, B, S, H, Kv, hd, window, scale, stream)
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -30,30 +33,56 @@ _EXPORTS = {torch.float32: "swa_attention_f32",
 
 KERNEL = CudaKernel("swa_attention", "swa_attention.cu",
                     {**{fn: _ARGS for fn in _EXPORTS.values()},
-                     "swa_attention_geometry": [ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_int, GRIDS_ARG]})
+                     "swa_attention_geometry": [ctypes.c_int] * 5
+                     + [GRIDS_ARG]})
 
 
-def geometry(B: int, S: int, H: int, Kv: int, hd: int
+def geometry(B: int, S: int, H: int, Kv: int, hd: int, dtype
              ) -> list[LaunchGeometry]:
-    """The launch of ``swa_attention`` (``csrc/swa_attention.cu:
-    launch_hd``): block ``(query tile, head, batch row)`` writes head ``h``
-    of the rows of its 64-row query tile (fewer in the last tile)."""
-    def rows(block):
-        qt, h, b = block
+    """The launch of ``swa_attention`` on ``dtype`` inputs
+    (``csrc/swa_attention.cu:grid_of``).  f32: block ``(query tile, head,
+    batch row)`` writes head ``h`` of the rows of its 64-row query tile
+    (fewer in the last tile).  bf16: the ``S * G`` (position, head) rows of
+    one kv head are cut into 64-row tiles (row ``r`` is position ``r //
+    G``, head ``kvh * G + r % G``); block ``(x, y, z)`` takes linear index
+    ``x + tiles * (y + Kv * z)``, whose remainders by Kv and then B name its
+    kv head and batch row and whose quotient ranks its tile from the last."""
+    size = B * S * H * hd
+    if dtype == torch.float32:
+        def rows(block):
+            qt, h, b = block
+            out = []
+            for i in range(qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, S)):
+                start = ((b * S + i) * H + h) * hd
+                out.append((start, start + hd))
+            return out
+        return [LaunchGeometry("swa_kernel", (-(-S // BLOCK_Q), H, B),
+                               THREADS, {"out": Output(size, rows)})]
+    G = H // Kv
+    tiles = -(-S * G // BLOCK_M)
+
+    def packed_rows(block):
+        lin = block[0] + tiles * (block[1] + Kv * block[2])
+        kvh, b, rank = lin % Kv, lin // Kv % B, lin // (Kv * B)
+        r0 = (tiles - 1 - rank) * BLOCK_M
         out = []
-        for i in range(qt * BLOCK_Q, min((qt + 1) * BLOCK_Q, S)):
-            start = ((b * S + i) * H + h) * hd
-            out.append((start, start + hd))
+        for r in range(r0, min(r0 + BLOCK_M, S * G)):
+            start = ((b * S + r // G) * H + kvh * G + r % G) * hd
+            if out and out[-1][1] == start:    # the next head of a position
+                out[-1] = (out[-1][0], start + hd)
+            else:
+                out.append((start, start + hd))
         return out
-    return [LaunchGeometry("swa_kernel", (-(-S // BLOCK_Q), H, B), THREADS,
-                           {"out": Output(B * S * H * hd, rows)})]
+    return [LaunchGeometry("swa_mma_kernel", (tiles, Kv, B), MMA_THREADS,
+                           {"out": Output(size, packed_rows)})]
 
 
-def cu_grids(B: int, S: int, H: int, Kv: int, hd: int) -> list[tuple]:
+def cu_grids(B: int, S: int, H: int, Kv: int, hd: int, dtype
+             ) -> list[tuple]:
     """The grids ``csrc/swa_attention.cu`` computes for the same
     arguments."""
-    return KERNEL.grids("swa_attention_geometry", 1, B, S, H)
+    return KERNEL.grids("swa_attention_geometry", 1, B, S, H, Kv,
+                        dtype.itemsize)
 
 
 def _check(q, k, v, window):

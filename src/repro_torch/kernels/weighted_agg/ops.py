@@ -1,15 +1,21 @@
 """Wrappers of the fused aggregation kernels (``csrc/weighted_agg.cu`` and
 ``csrc/ring_agg.cu``).
 
-``weighted_agg`` takes one leaf; ``weighted_agg_tree`` maps it over two
-param dicts with the same keys.  ``ring_agg`` streams a chain of U mixes
-over packed ``[P]`` buffers (the fleet engine's aggregation).  On a CPU
-tensor each wrapper runs its plain version (``ref``); on a CUDA tensor it
-launches its kernel — one launch per leaf or per chain — or raises.
+``weighted_agg_tree`` mixes every leaf of two param dicts with the same
+keys into one flat output buffer per dtype and returns views of it;
+``weighted_agg`` is a table of one leaf.  ``ring_agg`` streams a chain of U
+mixes over packed ``[P]`` buffers (the fleet engine's aggregation).  On a
+CPU tensor each wrapper runs its plain version (``ref``); on a CUDA tensor
+it launches its kernel — one launch per ``MAX_LEAVES`` leaves of a dtype,
+or per chain — or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from bisect import bisect_right
+from itertools import accumulate
 
 import numpy as np
 import torch
@@ -21,16 +27,19 @@ from repro_torch.kernels.weighted_agg import ref
 LANE = 128      # ring_agg's buffers are ParamLayout buffers: P % LANE == 0
 # launch constants of csrc/weighted_agg.cu and csrc/ring_agg.cu
 THREADS = 256
-MAX_BLOCKS = 132 * 8
+UNROLL = 4                      # weighted_agg: 16-byte packs per thread
+MAX_LEAVES = 112                # weighted_agg: leaves per launch (kMaxLeaves)
 
-_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+_INT64S = ctypes.POINTER(ctypes.c_int64)
+# (device, ptrs, sizes, count, beta, coef, stream)
+_ARGS = [ctypes.c_int, _INT64S, _INT64S, ctypes.c_int, ctypes.c_float,
+         ctypes.c_float, ctypes.c_void_p]
 _EXPORTS = {torch.float32: "weighted_agg_f32",
             torch.bfloat16: "weighted_agg_bf16"}
 
 KERNEL = CudaKernel("weighted_agg", "weighted_agg.cu",
                     {**{fn: _ARGS for fn in _EXPORTS.values()},
-                     "weighted_agg_geometry": [ctypes.c_int64, ctypes.c_int,
+                     "weighted_agg_geometry": [_INT64S, ctypes.c_int,
                                                ctypes.c_int, GRIDS_ARG]})
 
 # (device, out, g, locs, coeffs, P, U, stream)
@@ -46,34 +55,60 @@ RING_KERNEL = CudaKernel("ring_agg", "ring_agg.cu",
                                                 GRIDS_ARG]})
 
 
-def geometry(n: int, dtype, aligned: bool) -> list[LaunchGeometry]:
-    """The launch of ``weighted_agg`` on ``n`` elements of ``dtype``
-    (``csrc/weighted_agg.cu:launch``): a grid-stride loop over 16-byte
-    packs when ``out``, ``g`` and ``l`` are all 16-byte aligned, then over
-    the scalar tail; thread ``t`` of block ``b`` takes pack (or element)
-    ``b * THREADS + t`` and every ``blocks * THREADS``-th after it."""
+def flat_layout(sizes, dtype) -> tuple[list[int], int]:
+    """Offsets of leaves of ``sizes`` elements in one flat ``dtype`` buffer,
+    each start rounded up to 16 bytes, and the buffer's length."""
     pack = 16 // dtype.itemsize
-    n_pack = n // pack if aligned else 0
-    tail = n - n_pack * pack
-    blocks = min(max(-(-max(n_pack, tail) // THREADS), 1), MAX_BLOCKS)
-    stride = blocks * THREADS
-
-    def ranges(block):
-        first = block[0] * THREADS
-        out = [(i * pack, min(i + THREADS, n_pack) * pack)
-               for i in range(first, n_pack, stride)]
-        out += [(i, min(i + THREADS, n))
-                for i in range(n_pack * pack + first, n, stride)]
-        return out
-    return [LaunchGeometry("weighted_agg_kernel", (blocks,), THREADS,
-                           {"out": Output(n, ranges)})]
+    padded = [-(-n // pack) * pack for n in sizes]
+    offsets = list(accumulate(padded, initial=0))
+    return offsets[:-1], offsets[-1]
 
 
-def cu_grids(n: int, dtype, aligned: bool) -> list[tuple]:
+def launches(n_leaves: int) -> int:
+    """Kernel launches of a merge of ``n_leaves`` non-empty leaves of one
+    dtype: one per ``MAX_LEAVES``."""
+    return -(-n_leaves // MAX_LEAVES)
+
+
+def geometry(sizes, dtype) -> list[LaunchGeometry]:
+    """The launches of ``weighted_agg_tree`` over leaves of ``sizes``
+    elements of one ``dtype`` (``csrc/weighted_agg.cu:launch``): one per
+    ``MAX_LEAVES`` non-empty leaves in order; leaf ``i`` of a launch owns
+    ``ceil(n_i / E)`` blocks, ``E = THREADS * UNROLL`` 16-byte packs, and
+    block ``j`` of it stores elements ``[j E, min((j + 1) E, n_i))`` of the
+    leaf, the last block through the leaf's padding to 16 bytes.  Whether
+    a block loads its range in packs or element by element (its leaf's
+    pointers aligned or not) does not change the range."""
+    offsets, total = flat_layout(sizes, dtype)
+    pack = 16 // dtype.itemsize
+    per = THREADS * UNROLL * pack
+    live = [(n, off) for n, off in zip(sizes, offsets) if n]
+    out = []
+    for c in range(0, len(live), MAX_LEAVES):
+        chunk = live[c:c + MAX_LEAVES]
+        first = list(accumulate((-(-n // per) for n, _ in chunk),
+                                initial=0))
+
+        def ranges(block, chunk=chunk, first=first):
+            i = bisect_right(first, block[0]) - 1
+            n, off = chunk[i]
+            start = (block[0] - first[i]) * per
+            stop = start + per
+            if stop >= n:
+                stop = -(-n // pack) * pack
+            return [(off + start, off + stop)]
+        out.append(LaunchGeometry("weighted_agg_kernel", (first[-1],),
+                                  THREADS, {"out": Output(total, ranges)}))
+    return out
+
+
+def cu_grids(sizes, dtype) -> list[tuple]:
     """The grids ``csrc/weighted_agg.cu`` computes for the same arguments
     (its ``weighted_agg_geometry`` export; needs the built library)."""
-    return KERNEL.grids("weighted_agg_geometry", 1, n, dtype.itemsize,
-                        int(aligned))
+    live = [n for n in sizes if n]
+    return KERNEL.grids("weighted_agg_geometry", max(len(live), 1),
+                        (ctypes.c_int64 * len(live))(*live), len(live),
+                        dtype.itemsize)
 
 
 def ring_geometry(P: int, U: int, dtype) -> list[LaunchGeometry]:
@@ -99,35 +134,108 @@ def ring_cu_grids(P: int, U: int, dtype) -> list[tuple]:
 
 
 def weighted_agg(g, l, beta: float, weight: float):
-    """out = beta*g + ((1-beta)*weight)*l in f32, cast to ``g.dtype``."""
-    if g.shape != l.shape or g.dtype != l.dtype or g.device != l.device:
+    """out = beta*g + ((1-beta)*weight)*l in f32, cast to ``g.dtype``: a
+    merge of one leaf."""
+    return weighted_agg_tree({"": g}, {"": l}, beta, weight)[""]
+
+
+def _check_tree(global_params, local_params) -> tuple:
+    """The merge's signature, ``(shape, dtype)`` per leaf in key order, and
+    its device; raises on anything the kernel does not take."""
+    if global_params.keys() != local_params.keys():
         raise ValueError(
-            f"weighted_agg: g and l must match in shape, dtype and device; "
-            f"got {tuple(g.shape)} {g.dtype} {g.device} and "
-            f"{tuple(l.shape)} {l.dtype} {l.device}")
-    if g.dtype not in _EXPORTS:
-        raise TypeError(f"weighted_agg: unsupported dtype {g.dtype}; "
-                        f"expected one of {list(_EXPORTS)}")
-    if g.device.type == "cpu":
-        return ref.weighted_agg(g, l, beta, weight)
-    if g.device.type != "cuda":
-        raise ValueError(f"weighted_agg: unsupported device {g.device}")
-    if not (g.is_contiguous() and l.is_contiguous()):
+            f"weighted_agg: the two param dicts differ in keys: "
+            f"{sorted(global_params.keys() ^ local_params.keys())}")
+    gs, ls = global_params.values(), local_params.values()
+    sig = tuple((g.shape, g.dtype) for g in gs)
+    devices = {t.device for t in gs} | {t.device for t in ls}
+    if tuple((l.shape, l.dtype) for l in ls) != sig or len(devices) > 1:
+        for k, g in global_params.items():
+            l = local_params[k]
+            if (g.shape, g.dtype, g.device) != (l.shape, l.dtype, l.device):
+                raise ValueError(
+                    f"weighted_agg: g and l must match in shape, dtype and "
+                    f"device; leaf {k!r}: {tuple(g.shape)} {g.dtype} "
+                    f"{g.device} and {tuple(l.shape)} {l.dtype} {l.device}")
+        raise ValueError(f"weighted_agg: leaves on several devices "
+                         f"{sorted(map(str, devices))}")
+    for k, (_, dtype) in zip(global_params, sig):
+        if dtype not in _EXPORTS:
+            raise TypeError(f"weighted_agg: unsupported dtype {dtype} "
+                            f"(leaf {k!r}); expected one of {list(_EXPORTS)}")
+    device = devices.pop() if devices else torch.device("cpu")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"weighted_agg: unsupported device {device}")
+    if device.type == "cuda" and not all(
+            t.is_contiguous() for vs in (gs, ls) for t in vs):
         raise ValueError("weighted_agg: g and l must be contiguous")
-    b, coef = ref.agg_scalars(beta, weight)
-    out = torch.empty(g.shape, dtype=g.dtype, device=g.device)
-    if g.numel():
-        KERNEL.launch(_EXPORTS[g.dtype], g.device, out.data_ptr(),
-                      g.data_ptr(), l.data_ptr(), g.numel(), b, coef,
-                      torch.cuda.current_stream(g.device).cuda_stream)
-    return out
+    return sig, device
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(sig: tuple) -> list:
+    """Per dtype of a merge's ``(shape, dtype)`` signature: ``(dtype,
+    leaves, sizes, offsets, total, templates, at)``: the leaf indices in key
+    order, their elements, each leaf's offset in the flat buffer and the
+    buffer's length; meta tensors that cut the buffer into the non-empty
+    leaves' shapes and the paddings between them, and the position of each
+    leaf's view among those pieces (None for an empty leaf)."""
+    plans = []
+    for dtype in dict.fromkeys(dt for _, dt in sig):
+        leaves = [i for i, (_, dt) in enumerate(sig) if dt == dtype]
+        sizes = [math.prod(sig[i][0]) for i in leaves]
+        offsets, total = flat_layout(sizes, dtype)
+        templates, at = [], []
+        for i, n, off, end in zip(leaves, sizes, offsets,
+                                  offsets[1:] + [total]):
+            at.append(len(templates) if n else None)
+            if n:
+                templates.append(torch.empty(sig[i][0], device="meta"))
+            if end - off - n:
+                templates.append(torch.empty(end - off - n, device="meta"))
+        plans.append((dtype, leaves, sizes, offsets, total, templates,
+                      at))
+    return plans
 
 
 def weighted_agg_tree(global_params, local_params, beta: float,
                       weight: float):
-    """Drop-in for ``aggregation.mafl_update(..., use_kernel=True)``."""
-    return {k: weighted_agg(g, local_params[k], beta, weight)
-            for k, g in global_params.items()}
+    """Drop-in for ``aggregation.mafl_update(..., use_kernel=True)``: every
+    leaf mixed as ``weighted_agg`` mixes one.  The result holds, under the
+    same keys, contiguous views of one new flat buffer per dtype (each
+    leaf 16-byte aligned in it) of the inputs' shapes and dtypes; the
+    inputs are never written.  On the card that is one launch per
+    ``MAX_LEAVES`` non-empty leaves of a dtype, the leaves' pointers and
+    sizes passed by value: no copy to the card, no host sync."""
+    sig, device = _check_tree(global_params, local_params)
+    b, coef = ref.agg_scalars(beta, weight)
+    gs = list(global_params.values())
+    ls = list(local_params.values())
+    outs = [None] * len(gs)
+    for dtype, leaves, sizes, offsets, total, templates, at in _plan(sig):
+        flat = torch.empty(total, dtype=dtype, device=device)
+        # every leaf's view in one call (the paddings are pieces too)
+        parts = torch._C._nn.unflatten_dense_tensors(flat, templates)
+        for i, off, j in zip(leaves, offsets, at):
+            outs[i] = (parts[j] if j is not None
+                       else flat.narrow(0, off, 0).view(sig[i][0]))
+        if device.type == "cpu":
+            for i in leaves:
+                outs[i].copy_(ref.weighted_agg(gs[i], ls[i], beta, weight))
+            continue
+        base, size = flat.data_ptr(), dtype.itemsize
+        live = [(i, n, off) for i, n, off in zip(leaves, sizes, offsets)
+                if n]
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for c in range(0, len(live), MAX_LEAVES):
+            chunk = live[c:c + MAX_LEAVES]
+            ptrs = (ctypes.c_int64 * (3 * len(chunk)))(*(
+                p for i, _, off in chunk for p in (
+                    gs[i].data_ptr(), ls[i].data_ptr(), base + off * size)))
+            ns = (ctypes.c_int64 * len(chunk))(*(n for _, n, _ in chunk))
+            KERNEL.launch(_EXPORTS[dtype], device, ptrs, ns, len(chunk), b,
+                          coef, stream)
+    return dict(zip(global_params, outs))
 
 
 def _check_ring_inputs(g, locs, coeffs) -> None:

@@ -69,13 +69,67 @@ def test_kernel_path_runs_or_raises_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_slice_on_card_uses_the_kernel(cuda_device):
-    """quick-k5 on the card: 8 launches (one per CNN leaf) per merge."""
+    """quick-k5 on the card: one launch per merge (the CNN's 8 leaves in
+    one table)."""
     from repro_torch.core.scenarios import run_scenario
     kernels.reset_launches()
     res = run_scenario("quick-k5", rounds=4, use_kernel=True,
                        device=cuda_device)
-    assert ops.KERNEL.launches == 8 * len(res.rounds) == 32
+    assert ops.KERNEL.launches == len(res.rounds) == 4
     assert all(v.is_cuda for v in res.final_params.values())
+
+
+def _tree(shapes, dtype_of, off_of, gen, device):
+    return [{k: torch.randn(int(np.prod(s)) + off_of(k), generator=gen,
+                            device=device).to(dtype_of(k))[off_of(k):]
+             .view(s) for k, s in shapes.items()} for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_set", ["cnn", "mixed", "misaligned",
+                                      "smollm-360m"])
+def test_tree_matches_plain_version_on_card(cuda_device, leaf_set):
+    """Whole merges, bitwise against the plain version leaf by leaf: the
+    CNN's leaves; mixed f32 / bf16 leaves with empty and one-element
+    leaves; every leaf a misaligned view; smollm-360m's 290 leaves.
+    Launches equal the chunks (112 non-empty leaves of a dtype each); the
+    result is contiguous views of the input shapes and dtypes and the
+    inputs are unchanged."""
+    from repro_torch.check import grid_race
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    f32 = (lambda k: torch.float32)
+    shapes = {**CNN_SHAPES, "empty": (0,), "one": (1,), "ragged": (12345,)}
+    names = list(shapes)
+    g, l = {
+        "cnn": lambda: _tree(CNN_SHAPES, f32, lambda k: 0, gen, cuda_device),
+        "mixed": lambda: _tree(
+            shapes, lambda k: (torch.float32, torch.bfloat16)[
+                names.index(k) % 2], lambda k: 0, gen, cuda_device),
+        "misaligned": lambda: _tree(shapes, f32, lambda k: 1, gen,
+                                    cuda_device),
+        "smollm-360m": lambda: _tree(grid_race.smollm_leaf_shapes(), f32,
+                                     lambda k: 0, gen, cuda_device),
+    }[leaf_set]()
+    small = leaf_set != "smollm-360m"
+    before = {k: (g[k].clone(), l[k].clone()) for k in g} if small else {}
+    want_launches = sum(
+        ops.launches(sum(1 for v in g.values() if v.dtype == dt
+                         and v.numel()))
+        for dt in {v.dtype for v in g.values()})
+    for beta, weight in SCALARS[:2 if small else 1]:
+        kernels.reset_launches()
+        out = ops.weighted_agg_tree(g, l, beta, weight)
+        torch.cuda.synchronize()
+        assert ops.KERNEL.launches == want_launches
+        assert list(out) == list(g)
+        for k, v in out.items():
+            assert v.shape == g[k].shape and v.dtype == g[k].dtype
+            assert v.is_contiguous() and v.data_ptr() % 16 == 0
+            assert torch.equal(_int_view(v), _int_view(
+                ref.weighted_agg(g[k], l[k], beta, weight))), k
+    for k, (gb, lb) in before.items():
+        assert torch.equal(_int_view(g[k]), _int_view(gb))
+        assert torch.equal(_int_view(l[k]), _int_view(lb))
 
 
 # K1 ring_agg: chain lengths the fleet engine gives it and beyond one
@@ -270,6 +324,33 @@ def test_swa_attention_matches_plain_version_on_card(cuda_device, tdt, G):
             want = sref.swa_attention(q, k, v, window)
             torch.cuda.synchronize()
             assert _attn_max_err(out, want) <= ATTN_TOL[tdt], (B, S, window)
+            calls += 1
+    assert kernels.launch_counts()["swa_attention"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 5])
+def test_swa_attention_bf16_tensor_cores_on_card(cuda_device, G, hd):
+    """K5's bf16 kernel (tensor cores, the G heads of a kv head in one
+    block) within 3e-2 of its plain version at S 33, 200 and 1024 and
+    windows S, 64, 45 and 1."""
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import ref as sref
+    gen = torch.Generator(device=cuda_device).manual_seed(10 * G + hd)
+    kernels.reset_launches()
+    calls = 0
+    for B, S, Kv in [(1, 33, 1), (2, 200, 2), (1, 1024, 5)]:
+        q = torch.randn(B, S, G * Kv, hd, generator=gen,
+                        device=cuda_device).to(torch.bfloat16)
+        k, v = (torch.randn(B, S, Kv, hd, generator=gen, device=cuda_device)
+                .to(torch.bfloat16) for _ in range(2))
+        for window in (S, 64, 45, 1):
+            out = sops.swa_attention(q, k, v, window)
+            want = sref.swa_attention(q, k, v, window)
+            torch.cuda.synchronize()
+            assert _attn_max_err(out, want) <= ATTN_TOL[torch.bfloat16], (
+                B, S, window)
             calls += 1
     assert kernels.launch_counts()["swa_attention"] == calls
 
@@ -476,8 +557,8 @@ def test_train_step_never_waits_for_the_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert kernels.launch_counts() == {
-        "weighted_agg": len(params), "ring_agg": 0, "decode_attention": 0,
-        "swa_attention": 0, "cross_entropy": 1}
+        "weighted_agg": ops.launches(len(params)), "ring_agg": 0,
+        "decode_attention": 0, "swa_attention": 0, "cross_entropy": 1}
     assert bool(torch.isfinite(metrics["loss"]))
     assert all(bool(torch.isfinite(v).all()) for v in merged.values())
 
@@ -487,7 +568,7 @@ def test_reduced_training_on_card_matches_cpu(cuda_device):
     """``launch/train.py``'s loop on smollm-360m reduced, on the card and
     on the CPU from one init: the same vehicles, losses and final model
     within the f32 band of ``chip_smoke.py``'s card-vs-CPU check, K3 once
-    per local step and held-out eval, K2 once per leaf per merge."""
+    per local step and held-out eval, K2 once per 112 leaves per merge."""
     import copy
 
     from repro_torch.configs import get_config
@@ -506,7 +587,8 @@ def test_reduced_training_on_card_matches_cpu(cuda_device):
         counts = kernels.launch_counts()
         if dev.type == "cuda":
             assert counts["cross_entropy"] == 5 * 2 + 1
-            assert counts["weighted_agg"] == len(T.param_dict(model)) * 5
+            assert counts["weighted_agg"] == ops.launches(
+                len(T.param_dict(model))) * 5
         else:
             assert not any(counts.values())
     g, c = runs["cuda"], runs["cpu"]
@@ -538,7 +620,7 @@ def test_racy_sum_one_row_tile_matches_plain_version(cuda_device, R, U):
 @pytest.mark.parametrize("kernel_id", [
     "weighted_agg.weighted_agg", "weighted_agg.ring_agg",
     "cross_entropy.nll_and_lse", "decode_attention.decode_attention",
-    "swa_attention.swa_attention"])
+    "swa_attention.swa_attention", "swa_attention.swa_attention_bf16"])
 def test_geometry_exports_match_python_grids(cuda_device, kernel_id):
     """Each ``.cu``'s ``<name>_geometry`` export gives the grids its
     ``ops.geometry`` declares, at the registered case and at every

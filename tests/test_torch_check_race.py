@@ -18,6 +18,7 @@ from repro.check.pallas_race import get_report as jget_report
 from repro_torch.check import grid_race
 from repro_torch.check.corpus import racy_kernel
 from repro_torch.kernels.geometry import LaunchGeometry, Output
+from repro_torch.kernels.weighted_agg import ops as wa_ops
 
 F1_CASE = grid_race.Case(
     "repro_torch/check/corpus/racy_kernel.py", "racy_sum", "racy_sum",
@@ -97,6 +98,63 @@ def test_case_outputs_are_written_whole(kernel_id):
     for geo in grid_race.KERNEL_CASES[kernel_id].launches():
         for name in geo.outputs:
             assert geo.written(name).all(), (geo.kernel, name)
+
+
+def _declared_once(launches) -> int:
+    """Asserts that the launches of one call declare every element of each
+    output to exactly one block (their sorted ranges tile it); returns the
+    outputs' total size."""
+    total = 0
+    for name in launches[0].outputs:
+        size = launches[0].outputs[name].size
+        spans = sorted((a, b) for geo in launches for blk in geo.blocks()
+                       for a, b in geo.outputs[name].ranges(blk) if b > a)
+        assert spans[0][0] == 0 and spans[-1][1] == size, name
+        assert all(p[1] == q[0] for p, q in zip(spans, spans[1:])), name
+        total += size
+    return total
+
+
+@pytest.mark.parametrize("label, kernel_id, args", [
+    ("K2 paper CNN f32", "weighted_agg.weighted_agg",
+     (grid_race.CNN_SIZES, torch.float32)),
+    ("K2 paper CNN bf16", "weighted_agg.weighted_agg",
+     (grid_race.CNN_SIZES, torch.bfloat16)),
+    ("K2 ragged and empty leaves", "weighted_agg.weighted_agg",
+     ((1, 0, 77, 4097, 0, 12345, 8), torch.bfloat16)),
+    ("K2 smollm-360m 290 leaves", "weighted_agg.weighted_agg",
+     (grid_race.smollm_leaf_sizes(), torch.float32)),
+    ("K5 bf16 S 1024 G 3", "swa_attention.swa_attention_bf16",
+     (1, 1024, 15, 5, 64, torch.bfloat16)),
+    ("K5 bf16 S 1024 G 1", "swa_attention.swa_attention_bf16",
+     (1, 1024, 5, 5, 64, torch.bfloat16)),
+    ("K5 bf16 S 100 G 3", "swa_attention.swa_attention_bf16",
+     (2, 100, 6, 2, 128, torch.bfloat16)),
+    ("K5 bf16 S 100 G 1", "swa_attention.swa_attention_bf16",
+     (2, 100, 2, 2, 64, torch.bfloat16)),
+])
+def test_every_output_element_declared_by_exactly_one_block(label,
+                                                            kernel_id, args):
+    case = grid_race.KERNEL_CASES[kernel_id]
+    launches = case.launches(*args)
+    rep = grid_race.analyze_launches(kernel_id, case.fn_name, launches)
+    assert rep.classification == "parallel-safe", (label, rep)
+    size = _declared_once(launches)
+    if kernel_id == "weighted_agg.weighted_agg":
+        sizes, dt = args
+        assert len(launches) == wa_ops.launches(sum(1 for n in sizes if n))
+        assert size == wa_ops.flat_layout(sizes, dt)[1]
+    else:
+        B, S, H, Kv, hd, _ = args
+        assert size == B * S * H * hd
+        assert launches[0].grid == (-(-S * (H // Kv) // 64), Kv, B)
+
+
+def test_smollm_leaf_list_is_the_training_merge():
+    sizes = grid_race.smollm_leaf_sizes()
+    assert len(sizes) == 290 and sum(sizes) == 361_821_120
+    assert [g.grid for g in wa_ops.geometry(sizes, torch.float32)] == [
+        (40347,), (29424,), (18614,)]
 
 
 @pytest.mark.parametrize("kernel_id", list(REPRO_IDS))

@@ -72,6 +72,41 @@ def test_port_checkpoint_loads_in_repro_and_back(tmp_path):
         assert json.load(f) == {"k": 1}
 
 
+def test_merged_view_leaves_round_trip(tmp_path):
+    """A merge through ``weighted_agg_tree`` returns views of one flat
+    buffer per dtype; a checkpoint of those views holds each leaf's own
+    elements only, loads back bit for bit in the port and in ``repro``,
+    and digests as the same values in separate tensors do."""
+    from repro_torch.kernels.weighted_agg import ops as agg_ops
+    rng = np.random.default_rng(3)
+    shapes = {"a": ((3, 5), np.float32), "b": ((77,), np.float32),
+              "c": ((2, 3, 64), np.float32), "d": ((129,), np.float32)}
+    g = {k: torch.from_numpy(rng.normal(size=s).astype(dt))
+         for k, (s, dt) in shapes.items()}
+    l = {k: torch.from_numpy(rng.normal(size=s).astype(dt))
+         for k, (s, dt) in shapes.items()}
+    g["e"] = torch.randn(33).to(torch.bfloat16)
+    l["e"] = torch.randn(33).to(torch.bfloat16)
+    merged = agg_ops.weighted_agg_tree(g, l, 0.5, 0.8719)
+    assert merged["a"].untyped_storage().data_ptr() == \
+        merged["d"].untyped_storage().data_ptr()
+    copies = {k: v.clone() for k, v in merged.items()}
+    assert tck.tree_digest(merged) == tck.tree_digest(copies)
+    path = tck.save_checkpoint(str(tmp_path), 1, merged)
+    with np.load(path) as data:
+        assert {k: data[k].size for k in data.files} == {
+            "a": 15, "b": 77, "c": 384, "d": 129, "e::bf16": 33}
+    again = tck.load_checkpoint(path, copies)
+    assert tck.tree_digest(again) == tck.tree_digest(copies)
+    jtree = {k: np.asarray(v.float().numpy()) for k, v in copies.items()}
+    jtree["e"] = np.zeros(33, ml_dtypes.bfloat16)
+    restored = jck.load_checkpoint(path, jtree)
+    for k in "abcd":
+        np.testing.assert_array_equal(restored[k], copies[k].numpy())
+    np.testing.assert_array_equal(_bits(np.asarray(restored["e"])),
+                                  _bits(copies["e"]))
+
+
 def test_repro_checkpoint_loads_in_the_port(tmp_path):
     ttree, jtree = _mixed_trees(2)
     path = jck.save_checkpoint(str(tmp_path), 3, jtree)

@@ -106,6 +106,109 @@ def test_tree_over_cnn_leaves_and_no_launch_on_cpu():
                           0.9, 1.0, jnp.float32)
 
 
+def _reduced_smollm_leaf_shape():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    model = T.Transformer(get_config("smollm-360m").reduced(), torch.float32,
+                          "meta")
+    return tuple(T.param_dict(model)["stack.0.sub0.mlp.w_gate"].shape)
+
+
+# one merge's leaf set: 1, a ragged leaf under a lane, one lane, a ragged
+# leaf over a block, a paper-CNN leaf and a reduced-smollm leaf
+TREE_SHAPES = {"one": (1,), "ragged": (77,), "lane": (LANE,),
+               "n12345": (12345,), "conv2_w": CNN_SHAPES["conv2_w"],
+               "w_gate": _reduced_smollm_leaf_shape()}
+
+
+@pytest.mark.parametrize("jdt, tdt", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("beta, weight", SCALARS[:2])
+def test_tree_matches_repro_pallas_tree(jdt, tdt, beta, weight):
+    """The whole merge against ``repro``'s ``weighted_agg_tree`` (Pallas,
+    interpret mode) leaf by leaf, and bitwise against its jnp oracle."""
+    rng = np.random.default_rng(7)
+    jg, jl, tg, tl = {}, {}, {}, {}
+    for k, shape in TREE_SHAPES.items():
+        for jd, td in ((jg, tg), (jl, tl)):
+            x = jnp.asarray(rng.normal(size=shape).astype(np.float32), jdt)
+            jd[k] = x
+            td[k] = torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
+    out = ops.weighted_agg_tree(tg, tl, beta, weight)
+    pallas = jops.weighted_agg_tree(jg, jl, beta, weight, interpret=True)
+    assert list(out) == list(TREE_SHAPES)
+    for k in TREE_SHAPES:
+        assert out[k].dtype == tdt and out[k].shape == TREE_SHAPES[k]
+        got = out[k].float().numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jref.weighted_agg(jg[k], jl[k], beta, weight)
+                            .astype(jnp.float32)))
+        _assert_fma_close(got, np.asarray(pallas[k].astype(jnp.float32)),
+                          jg[k].astype(jnp.float32),
+                          jl[k].astype(jnp.float32), beta, weight, jdt)
+
+
+def test_flat_layout_starts_every_leaf_16_byte_aligned():
+    assert ops.flat_layout([1, 77, 0, 128, 5], torch.float32) == (
+        [0, 4, 84, 84, 212], 220)
+    assert ops.flat_layout([1, 77, 0, 128, 5], torch.bfloat16) == (
+        [0, 8, 88, 88, 216], 224)
+    assert ops.launches(0) == 0 and ops.launches(1) == 1
+    assert ops.launches(ops.MAX_LEAVES) == 1
+    assert ops.launches(290) == 3
+
+
+def test_tree_returns_contiguous_views_of_one_buffer_per_dtype():
+    """Same keys, shapes and dtypes; each leaf a contiguous view starting
+    16 bytes aligned in its dtype's one flat buffer, no two overlapping;
+    the inputs are left as they were."""
+    shapes = {"a": ((3, 5), torch.float32), "b": ((77,), torch.bfloat16),
+              "c": ((0,), torch.float32), "d": ((), torch.float32),
+              "e": ((2, 64), torch.bfloat16), "f": ((129,), torch.float32)}
+    gen = torch.Generator().manual_seed(0)
+    g = {k: torch.randn(s, generator=gen).to(dt)
+         for k, (s, dt) in shapes.items()}
+    l = {k: torch.randn(s, generator=gen).to(dt)
+         for k, (s, dt) in shapes.items()}
+    before = {k: (v.clone(), l[k].clone()) for k, v in g.items()}
+    out = ops.weighted_agg_tree(g, l, 0.5, 0.8719)
+    assert list(out) == list(shapes)
+    for dt in (torch.float32, torch.bfloat16):
+        keys = [k for k in shapes if shapes[k][1] == dt]
+        base = out[keys[0]].untyped_storage().data_ptr()
+        spans = []
+        for k in keys:
+            v = out[k]
+            assert v.shape == shapes[k][0] and v.dtype == dt
+            assert v.is_contiguous()
+            assert v.untyped_storage().data_ptr() == base
+            assert (v.storage_offset() * v.element_size()) % 16 == 0
+            spans.append((v.storage_offset(), v.storage_offset() + v.numel()))
+        spans.sort()
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    for k, (gb, lb) in before.items():
+        assert torch.equal(g[k], gb) and torch.equal(l[k], lb)
+        assert torch.equal(out[k], ref.weighted_agg(gb, lb, 0.5, 0.8719))
+
+
+@pytest.mark.parametrize("case", ["dtype", "device", "keys"])
+def test_tree_rejects_mixed_inputs(case):
+    """A leaf whose g and l differ in dtype, leaves on two devices, and
+    dicts with different keys raise before any work."""
+    g = {"a": torch.zeros(4), "b": torch.zeros(4)}
+    l = {"a": torch.zeros(4), "b": torch.zeros(4)}
+    if case == "dtype":
+        l["b"] = l["b"].to(torch.bfloat16)
+    elif case == "device":
+        g["b"] = torch.zeros(4, device="meta")
+        l["b"] = torch.zeros(4, device="meta")
+    else:
+        del l["b"]
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        ops.weighted_agg_tree(g, l, 0.5, 1.0)
+    assert ops.KERNEL.launches == 0
+
+
 @pytest.mark.parametrize("case", ["shape", "dtype", "float64", "meta"])
 def test_wrapper_rejects_bad_inputs(case):
     g = torch.zeros(256)
