@@ -15,10 +15,13 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    shape alone and as whole merges: the CNN's leaves, a mixed f32/bf16
    tree with misaligned and empty leaves, smollm-360m's 290 leaves, with
    one launch per 112 leaves of a dtype; ``ring_agg`` at U in {0, 1, 2, 7,
-   9, 10, 30, 60}, f32 and bf16 uploads, P = 422,016 and 128*300, with
-   -0.0 and a (1, 0) step), and time kernel, plain version and one library
-   call against the card's bound (a CNN merge and a smollm-360m merge for
-   ``weighted_agg``, against ``torch._foreach_lerp``).
+   9, 10, 30, 60}, f32 and bf16 uploads, P = 422,016, 128*300, 128*1031
+   (a pack count the 132-multiple grid does not divide) and 128 (blocks
+   with no pack), with -0.0 and a (1, 0) step), and time kernel, plain
+   version and one library call against the card's bound (a CNN merge and
+   a smollm-360m merge for ``weighted_agg``, against
+   ``torch._foreach_lerp``; ``ring_agg`` also by the wrapper's host time
+   per call).
 3. host-engine path: ``run_scenario`` on paper-k10 (serial and batched, 40
    rounds) and fleet-k100 (batched, 120 rounds) with ``use_kernel=True``;
    every merge is ``weighted_agg`` (one launch per merge: the CNN's 8
@@ -31,8 +34,9 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    Launch counts are zeroed before and read after each timed run of 3-4.
 5. card against host: paper-k10 for 8 rounds on the card and on the CPU
    from one numpy-made init, on the serial and on the fleet engine.
-6. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4}, hd in
-   {64, 128}, pos = 0, S - 1 and a mixed per-row vector, and
+6. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
+   hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
+   edges), S - 1 and a mixed per-row vector, and
    ``swa_attention`` (K5) at window = S, windows under S, a window that is
    not a multiple of the 64-row tile and S not a multiple of it, G in
    {1, 3} (f32) and {1, 3, 5} at hd 64 and 128 (bf16, the tensor-core
@@ -74,7 +78,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     launch geometry (``ops.geometry``) against its ``.cu``'s
     ``<name>_geometry`` export at its registered case and at every
     main-path shape; each kernel launched at its case shape into
-    NaN-filled, guarded outputs writes exactly its declared ranges.  F1
+    NaN-filled, guarded outputs writes exactly its declared ranges (K4 in
+    f32 and bf16 at pos = 0, S - 1 and a mixed vector).  F1
     (``check/corpus/racy_sum.cu``, built with the others): equal to its
     plain version at one row tile (grid (1, U), integer-valued inputs);
     its lost updates at the analyzer's grid (4, 2) and at grid (4096, 2)
@@ -110,9 +115,12 @@ PAPER_ROUNDS, FLEET_ROUNDS, HOST_ROUNDS = 40, 120, 8
 JIT_RUNS = (("fleet-k1000", 30), ("fleet-k10000", 60),
             ("platoon-burst-k500", 40))
 EVAL_EVERY = 10
-# ring_agg: chain lengths checked bitwise, and the timed chain
+# ring_agg: chain lengths and buffer sizes checked bitwise (the paper CNN's
+# P, a P ragged against any power-of-two tile, a pack count the grid of 132
+# multiples does not divide, and fewer packs than blocks), and the timed
+# chain
 RING_U = (0, 1, 2, 7, 9, 10, 30, 60)
-RING_P = (422016, 128 * 300)
+RING_P = (422016, 128 * 300, 128 * 1031, 128)
 RING_TIMED_U = 10
 L2_BYTES = 50 * 2 ** 20
 DEVICE = "cuda"
@@ -147,8 +155,11 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters=100, warmup=10):
-    """Device time of one call of ``fn`` from CUDA events over ``iters``
-    back-to-back calls (inputs stay in L2 between calls)."""
+    """Wall time of one call of ``fn`` from CUDA events over ``iters``
+    back-to-back calls: the device's time where the host issues faster
+    than the device runs, the host's issue time where it does not.  Every
+    kernel timing passes a ``rotating`` call, so the inputs are not in L2
+    between calls."""
     import torch
     for _ in range(warmup):
         fn()
@@ -248,6 +259,21 @@ def profile_run(name, engine, rounds, wall_ms):
 # it).  So every profiler reading is queued here and taken after all
 # host-clock and CUDA-event timings of the run.
 PROFILED = []
+
+
+def host_ms_per_call(fn, n=2000):
+    """Host time of one call of ``fn`` (ms): ``n`` back-to-back calls on
+    the host clock, no synchronisation inside the loop, so where the
+    device keeps up this is what one call costs the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def launch_us(dev, n=20000):
@@ -468,6 +494,7 @@ def phase_ring_kernel(dev):
     the paper CNN's P in f32 and bf16."""
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels.build import current_stream
     from repro_torch.kernels.weighted_agg import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -529,19 +556,32 @@ def phase_ring_kernel(dev):
             for name in order:
                 samples[name].append(time_ms(runs[name]))
         ms = {k: float(np.median(v)) for k, v in samples.items()}
+        host = host_ms_per_call(runs["kernel"])
+        # where the wrapper's host time goes; the rest is the pointers, the
+        # ctypes call, the CUDA launch and the count
+        g0, l0, c0 = sets[0]
+        split = {"checks": host_ms_per_call(
+                     lambda: ops._check_ring_inputs(g0, l0, c0)),
+                 "output": host_ms_per_call(lambda: torch.empty_like(g0)),
+                 "stream": host_ms_per_call(lambda: current_stream(dev))}
+        split["rest"] = host - sum(split.values())
         bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         bound_ops = 3 * U * P / FP32_FLOP_PER_S * 1e3
         tag = "f32" if dtype == torch.float32 else "bf16"
         lib = (f"addmv {ms['library']:.6f} ms" if "library" in ms
-               else "addmv not timed (f32 only)")
+               else "no library call (none mixes a bf16 matrix with an f32 "
+               "vector into f32)")
         log(f"kernels: ring_agg U={U} P={P} {tag} uploads "
             f"({n_sets} input sets, {bytes_moved} bytes per chain): kernel "
-            f"{ms['kernel']:.6f} ms, plain {ms['plain']:.6f} ms, {lib}")
+            f"{ms['kernel']:.6f} ms (host {host:.6f} ms per call), plain "
+            f"{ms['plain']:.6f} ms, {lib}")
+        log(f"kernels:   host per call split (ms): {split}")
         log(f"kernels:   bound {max(bound_bytes, bound_ops):.6f} ms "
             f"(bytes {bound_bytes:.6f}, operations {bound_ops:.6f}); "
             f"samples {samples}")
         timings[tag] = {
-            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "ms": ms["kernel"], "host_ms": host, "host_split_ms": split,
+            "plain_ms": ms["plain"],
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations",
@@ -768,6 +808,8 @@ def phase_host(engine):
 # the dense softmax), bf16 within 3e-2 (the plain version rounds scores and
 # weights to bf16; the band of repro's own bf16 kernel test)
 ATTN_TOL = {"f32": 2e-5, "bf16": 3e-2}
+# K4's query heads per kv head held to the plain version (MAX_GROUP is 8)
+DECODE_GROUPS = (1, 3, 4, 5, 8)
 BF16_FLOP_PER_S = 989e12
 # the serve path: smollm-360m behind 8 slots of 2048 positions, 16
 # requests of 64-1024 prompt tokens and 64 new tokens each
@@ -853,7 +895,7 @@ def phase_decode_kernel(dev):
     err = {"f32": 0.0, "bf16": 0.0}
     cases = 0
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for G in (1, 3, 4):
+        for G in DECODE_GROUPS:
             for hd in (64, 128):
                 for B, S, Kv in ((SERVE_SLOTS, SERVE_MAX_SEQ, 5),
                                  (2, 1000, 2)):
@@ -861,7 +903,8 @@ def phase_decode_kernel(dev):
                                           dtype, gen, dev)
                     mixed = torch.randint(0, S, (B,), generator=gen,
                                           device=dev, dtype=torch.int32)
-                    for pname, pos in (("0", 0), ("S-1", S - 1),
+                    for pname, pos in (("0", 0), ("63", 63), ("64", 64),
+                                       ("65", 65), ("S-1", S - 1),
                                        ("vector", mixed)):
                         e = attn_check(
                             "decode_attention",
@@ -874,8 +917,9 @@ def phase_decode_kernel(dev):
     check(launched == cases, f"decode_attention launched {launched} times "
           f"for {cases} calls")
     log(f"kernels: decode_attention within tolerance of its plain version "
-        f"in {cases} cases (G in (1, 3, 4), hd in (64, 128), pos = 0, "
-        f"S - 1 and a per-row vector, B/S/Kv = 8/2048/5 and 2/1000/2); "
+        f"in {cases} cases (G in {DECODE_GROUPS}, hd in (64, 128), pos = "
+        f"0, 63, 64, 65, S - 1 and a per-row vector, B/S/Kv = 8/2048/5 and "
+        f"2/1000/2); "
         f"max_abs_err f32 {err['f32']} (tol {ATTN_TOL['f32']}), bf16 "
         f"{err['bf16']} (tol {ATTN_TOL['bf16']}); {launched} launches")
 
@@ -894,9 +938,13 @@ def phase_decode_kernel(dev):
         sets = [attn_inputs((B, H, hd), (B, S, Kv, hd), dtype, gen, dev)
                 for _ in range(n_sets)]
 
-        # ``pos`` bound now: the profiler reading runs after the loop
-        def kernel(q, k, v, pos=pos):
-            return ops.decode_attention(q, k, v, pos)
+        # a device vector, as the serve path passes it (an int would cost
+        # a fill launch per call); bound now: the profiler reading runs
+        # after the loop
+        posv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+
+        def kernel(q, k, v, posv=posv):
+            return ops.decode_attention(q, k, v, posv)
 
         def plain(q, k, v):
             return ref.decode_attention(q, k, v, pos)
@@ -912,11 +960,14 @@ def phase_decode_kernel(dev):
                    label)
         big = bytes_moved > 1e9
         iters, warmup, reps = (5, 2, 4) if big else (100, 10, 6)
-        chunk, n_chunks = ops.split(B, S, Kv)
+        n_chunks = ops.split(B, S, Kv)
+        starts, stops = ops.chunk_bounds(pos, S, n_chunks)
         geometries[label] = attn_timings(
             f"decode_attention {label} G={G} hd={hd} pos=S-1",
-            runs, f"{n_sets} input sets; {n_chunks} chunks of {chunk}, "
-            f"{B * Kv * n_chunks} blocks", bytes_moved, flops, peak,
+            runs, f"{n_sets} input sets; {B * Kv * n_chunks} blocks, "
+            f"{n_chunks} chunks a row, {int((stops > starts).sum())} live, "
+            f"shares of {int(stops[0] - starts[0])} positions",
+            bytes_moved, flops, peak,
             reps, iters, warmup)
         device_time_later(f"decode_attention {label}", geometries[label],
                           rotating(kernel, sets),
@@ -1646,18 +1697,31 @@ def nan_launches(dev):
 
     kid = "decode_attention.decode_attention"
     B, S, H, Kv, hd = KERNEL_CASES[kid].args
-    q, k, v = randn(B, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
-    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)  # all live
-    chunk, n_chunks = da.split(B, S, Kv)
-    out_buf, out = guarded(B * H * hd, dev)
-    part_buf, part = guarded(B * H * n_chunks * (hd + 2), dev)
-    da.KERNEL.launch("decode_attention_f32", dev, out.data_ptr(),
-                     part.data_ptr(), q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), pos.data_ptr(), B, S, H, Kv, hd, chunk,
-                     n_chunks, 1.0 / math.sqrt(hd), stream)
+    n_chunks = da.split(B, S, Kv)
     chunk_geo, combine_geo = KERNEL_CASES[kid].launches()
-    written[kid] = (check_written(kid, chunk_geo, "part", part_buf)
-                    + check_written(kid, combine_geo, "out", out_buf))
+    written[kid] = {}
+    # every block writes its whole slot whatever its share: an empty share
+    # writes the neutral state
+    for fn, dt in (("decode_attention_f32", torch.float32),
+                   ("decode_attention_bf16", torch.bfloat16)):
+        q, k, v = (x.to(dt) for x in (randn(B, H, hd), randn(B, S, Kv, hd),
+                                      randn(B, S, Kv, hd)))
+        for pname, pos in (("0", torch.zeros(B, dtype=torch.int32,
+                                             device=dev)),
+                           ("S-1", torch.full((B,), S - 1, dtype=torch.int32,
+                                              device=dev)),
+                           ("mixed", torch.tensor([70, S - 2][:B] + [5] * (
+                               B - 2), dtype=torch.int32, device=dev))):
+            out_buf, out = guarded(B * H * hd, dev, dt)
+            part_buf, part = guarded(da.part_size(B, H, hd, n_chunks), dev)
+            da.KERNEL.launch(fn, dev, out.data_ptr(), part.data_ptr(),
+                             q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             pos.data_ptr(), B, S, H, Kv, hd, n_chunks,
+                             1.0 / math.sqrt(hd), stream)
+            label = f"{kid} {fn} pos={pname}"
+            written[kid][f"{fn} pos={pname}"] = (
+                check_written(label, chunk_geo, "part", part_buf)
+                + check_written(label, combine_geo, "out", out_buf))
 
     for kid, fn in (("swa_attention.swa_attention", "swa_attention_f32"),
                     ("swa_attention.swa_attention_bf16",

@@ -18,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, current_stream
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 
 SOURCE = Path(__file__).resolve().with_name("racy_sum.cu")
@@ -76,7 +76,7 @@ def racy_sum(x, *, block_rows: int = 2):
     out = torch.zeros(U, dtype=torch.float32, device=x.device)
     KERNEL.launch("racy_sum_f32", x.device, out.data_ptr(), x.data_ptr(), R,
                   U, block_rows,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  current_stream(x.device))
     return out
 
 

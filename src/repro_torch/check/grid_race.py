@@ -189,9 +189,9 @@ def smollm_leaf_sizes() -> tuple:
 
 
 # kernel_id -> Case.  Each case has >= 2 blocks on every grid axis: K2 a
-# CNN merge (ragged leaves, one of 98 blocks), K1 a partial last block, K4
-# two chunks (so both launches run), K5 a ragged last query tile (f32) or
-# row tile (bf16, G 3).
+# CNN merge (ragged leaves, one of 98 blocks), K1 runs of 2 and 3 packs
+# (288 over 132 blocks), K4 four chunks (so both launches run), K5 a
+# ragged last query tile (f32) or row tile (bf16, G 3).
 KERNEL_CASES: dict[str, Case] = {
     "weighted_agg.weighted_agg": Case(
         _WA, "weighted_agg_tree", "weighted_agg", wa_ops.geometry,

@@ -96,6 +96,22 @@ def build_all() -> dict[str, Path]:
     return build(sorted(p.name for p in CSRC.glob("*.cu")))
 
 
+# PyTorch's raw current-stream query (what its generated code calls): one
+# C call, where ``torch.cuda.current_stream`` also builds a Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle (a ``cudaStream_t`` as an int) of PyTorch's current
+    stream on ``device``, which a kernel launches on."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 class CudaKernel:
     """One kernel library: lazy build and load, checked launches, and a
     count of launches (one per call that launched a kernel)."""
@@ -107,24 +123,29 @@ class CudaKernel:
         self.functions = functions
         self.launches = 0
         self._lib = None
+        self._fns = None               # export name -> bound ctypes function
         self._checked = set()          # device indices found to be Hopper
 
     def _load(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(build([self.source])[self.source]))
+            fns = {}
             for fn, argtypes in self.functions.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                fns[fn] = f
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self._lib, self._fns = lib, fns
         return self._lib
 
     def launch(self, fn: str, device: torch.device, *args) -> None:
         """Call export ``fn(device_index, *args)`` on ``device``; raises on
         a card other than Hopper and on any CUDA error of the launch."""
-        index = (device.index if device.index is not None
-                 else torch.cuda.current_device())
+        index = device.index
+        if index is None:
+            index = torch.cuda.current_device()
         if index not in self._checked:
             cap = torch.cuda.get_device_capability(index)
             if cap != CAPABILITY:
@@ -133,12 +154,13 @@ class CudaKernel:
                     f"a compute capability {CAPABILITY} card, not {cap} "
                     f"({torch.cuda.get_device_name(index)})")
             self._checked.add(index)
-        lib = self._load()
-        err = getattr(lib, fn)(index, *args)
+        if self._fns is None:
+            self._load()
+        err = self._fns[fn](index, *args)
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: launch of {fn} failed with CUDA error {err} "
-                f"({lib.error_string(err).decode()})")
+                f"({self._lib.error_string(err).decode()})")
         self.launches += 1
 
     def grids(self, fn: str, max_launches: int, *args) -> list[tuple]:
@@ -149,7 +171,7 @@ class CudaKernel:
         library."""
         lib = self._load()
         buf = (ctypes.c_int64 * (3 * max_launches))()
-        err = getattr(lib, fn)(*args, buf)
+        err = self._fns[fn](*args, buf)
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: {fn}{args} failed with CUDA error {err} "

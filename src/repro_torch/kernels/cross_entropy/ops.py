@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, current_stream
 from repro_torch.kernels.cross_entropy import ref
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 
@@ -92,7 +92,7 @@ def nll_and_lse(logits, labels):
     lse = torch.empty_like(nll)
     KERNEL.launch(_EXPORTS[logits.dtype], logits.device, logits.data_ptr(),
                   labels.data_ptr(), nll.data_ptr(), lse.data_ptr(), R, V,
-                  torch.cuda.current_stream(logits.device).cuda_stream)
+                  current_stream(logits.device))
     return nll, lse
 
 

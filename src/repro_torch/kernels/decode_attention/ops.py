@@ -11,29 +11,35 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, current_stream
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 
 HEAD_DIMS = (64, 128)          # the kernel's instantiations
 MAX_GROUP = 8                  # query heads per kv head, 1..8
-# the sequence split: enough (b, kv head, chunk) blocks for a few waves of
-# the card's 132 SMs, chunks of at least MIN_CHUNK positions
-TARGET_BLOCKS = 4 * 132
-MIN_CHUNK = 128
+# the sequence split (csrc/decode_attention.cu:share_of): the live prefix
+# of a row is cut into shares of whole KV_TILE-position tiles, one per
+# (b, kv head, chunk) block; n_chunks makes the grid WAVE_BLOCKS blocks or
+# more (several even waves of the H100's 132 SMs), at most one chunk a tile
+SMS = 132
+WAVE_BLOCKS = 16 * SMS
+KV_TILE = 64
+MAX_CHUNKS = 256               # chunks one combine block takes (kMaxChunks)
 
-# (device, out, part, q, k, v, pos, B, S, H, Kv, hd, chunk, n_chunks,
-#  scale, stream)
+# (device, out, part, q, k, v, pos, B, S, H, Kv, hd, n_chunks, scale,
+#  stream)
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+         ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _EXPORTS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
 
 THREADS = 128
+COMBINE_THREADS = 256
 
 KERNEL = CudaKernel("decode_attention", "decode_attention.cu",
                     {**{fn: _ARGS for fn in _EXPORTS.values()},
@@ -41,13 +47,34 @@ KERNEL = CudaKernel("decode_attention", "decode_attention.cu",
                                                    ctypes.c_int, GRIDS_ARG]})
 
 
-def split(B: int, S: int, Kv: int) -> tuple[int, int]:
-    """``(chunk, n_chunks)``: how many positions one block takes.  Fixed by
-    the shapes alone, so the host never reads ``pos``."""
-    want = max(1, -(-TARGET_BLOCKS // (B * Kv)))
-    n = max(1, min(want, S // MIN_CHUNK))
-    chunk = -(-S // n)
-    return chunk, -(-S // chunk)
+def split(B: int, S: int, Kv: int) -> int:
+    """``n_chunks``: the blocks per (b, kv head).  Fixed by the shapes
+    alone, so the host never reads ``pos``; each block takes its share of
+    the live prefix on the card (:func:`chunk_bounds`)."""
+    want = -(-WAVE_BLOCKS // (B * Kv))
+    return max(1, min(want, -(-S // KV_TILE), MAX_CHUNKS))
+
+
+def chunk_bounds(pos, S: int, n_chunks: int):
+    """The shares the chunk blocks take, as the kernel computes them
+    (``share_of``): for ``pos`` (an int or an int array) the arrays
+    ``(starts, stops)`` of shape ``pos.shape + (n_chunks,)``.  Chunk c of
+    a row covers positions ``[starts[c], stops[c])``: shares of
+    ``roundup(ceil(live / n_chunks), KV_TILE)`` positions, ``live =
+    min(pos + 1, S)``, the last live share cut at ``live`` and the rest
+    empty (``starts == stops == live``).  A mirror for the tests; the card
+    computes its own."""
+    live = np.minimum(np.asarray(pos, np.int64) + 1, S)[..., None]
+    per = -(-live // n_chunks)                  # ceil(live / n_chunks)
+    per = -(-per // KV_TILE) * KV_TILE          # whole tiles
+    c = np.arange(n_chunks)
+    return np.minimum(c * per, live), np.minimum((c + 1) * per, live)
+
+
+def part_size(B: int, H: int, hd: int, n_chunks: int) -> int:
+    """f32 elements of the chunks' partial states: ``(m, l, 0, 0,
+    acc[hd])`` per (b, query head, chunk), ``acc`` 16-byte aligned."""
+    return B * H * n_chunks * (hd + 4)
 
 
 def geometry(B: int, S: int, H: int, Kv: int, hd: int
@@ -56,10 +83,11 @@ def geometry(B: int, S: int, H: int, Kv: int, hd: int
     (``csrc/decode_attention.cu:launch_g``).  The chunk kernel's block
     ``(b * Kv + kv head, c)`` writes the ``G`` query heads of its kv head:
     into ``out`` when there is one chunk, else its partial states
-    ``(m, l, acc[hd])`` into ``part``; then the combine kernel's block
-    ``b * Kv + kv head`` writes those heads of ``out``.  A chunk past
-    ``pos[b]`` returns early, so these are the most a block stores."""
-    chunk, n_chunks = split(B, S, Kv)
+    ``(m, l, 0, 0, acc[hd])`` into ``part``, the neutral state when its
+    share is empty; then the combine kernel's block ``b * Kv + kv head``
+    writes those heads of ``out``.  Every block writes its whole range at
+    every ``pos``."""
+    n_chunks = split(B, S, Kv)
     G = H // Kv
 
     def heads(block):
@@ -72,21 +100,21 @@ def geometry(B: int, S: int, H: int, Kv: int, hd: int
                                {"out": out})]
 
     def states(block):
-        start = (block[0] * n_chunks + block[1]) * G * (hd + 2)
-        return [(start, start + G * (hd + 2))]
+        start = (block[0] * n_chunks + block[1]) * G * (hd + 4)
+        return [(start, start + G * (hd + 4))]
     return [LaunchGeometry("decode_chunk_kernel", (B * Kv, n_chunks),
                            THREADS,
-                           {"part": Output(B * H * n_chunks * (hd + 2),
+                           {"part": Output(part_size(B, H, hd, n_chunks),
                                            states)}),
-            LaunchGeometry("decode_combine_kernel", (B * Kv,), THREADS,
-                           {"out": out})]
+            LaunchGeometry("decode_combine_kernel", (B * Kv,),
+                           COMBINE_THREADS, {"out": out})]
 
 
 def cu_grids(B: int, S: int, H: int, Kv: int, hd: int) -> list[tuple]:
     """The grids ``csrc/decode_attention.cu`` computes for the same
     arguments (its ``decode_attention_geometry`` export)."""
     return KERNEL.grids("decode_attention_geometry", 2, B, Kv,
-                        split(B, S, Kv)[1])
+                        split(B, S, Kv))
 
 
 def _check(q, k_cache, v_cache, pos):
@@ -152,12 +180,12 @@ def decode_attention(q, k_cache, v_cache, pos):
                          "16-byte aligned")
     posv = positions(pos, B, q.device)
     out = torch.empty_like(q)
-    chunk, n_chunks = split(B, S, Kv)
-    part = (torch.empty(B * H * n_chunks * (hd + 2), dtype=torch.float32,
+    n_chunks = split(B, S, Kv)
+    part = (torch.empty(part_size(B, H, hd, n_chunks), dtype=torch.float32,
                         device=q.device) if n_chunks > 1 else None)
     KERNEL.launch(_EXPORTS[q.dtype], q.device, out.data_ptr(),
                   None if part is None else part.data_ptr(), q.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), posv.data_ptr(),
-                  B, S, H, Kv, hd, chunk, n_chunks, 1.0 / math.sqrt(hd),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  B, S, H, Kv, hd, n_chunks, 1.0 / math.sqrt(hd),
+                  current_stream(q.device))
     return out

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, current_stream
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 from repro_torch.kernels.swa_attention import ref
 
@@ -127,5 +127,5 @@ def swa_attention(q, k, v, window: int):
     KERNEL.launch(_EXPORTS[q.dtype], q.device, out.data_ptr(), q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), B, S, H, k.shape[2], hd,
                   min(int(window), S), 1.0 / math.sqrt(hd),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  current_stream(q.device))
     return out

@@ -20,7 +20,7 @@ from itertools import accumulate
 import numpy as np
 import torch
 
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, current_stream
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 from repro_torch.kernels.weighted_agg import ref
 
@@ -29,6 +29,8 @@ LANE = 128      # ring_agg's buffers are ParamLayout buffers: P % LANE == 0
 THREADS = 256
 UNROLL = 4                      # weighted_agg: 16-byte packs per thread
 MAX_LEAVES = 112                # weighted_agg: leaves per launch (kMaxLeaves)
+SMS = 132                       # ring_agg: the grid is a multiple (kSMs)
+RING_PACKS = 2                  # ring_agg: 16-byte packs per thread (kPacks)
 
 _INT64S = ctypes.POINTER(ctypes.c_int64)
 # (device, ptrs, sizes, count, beta, coef, stream)
@@ -113,16 +115,25 @@ def cu_grids(sizes, dtype) -> list[tuple]:
 
 def ring_geometry(P: int, U: int, dtype) -> list[LaunchGeometry]:
     """The launch of ``ring_agg`` over a ``[P]`` buffer and U upload rows
-    of ``dtype`` (``csrc/ring_agg.cu:launch``): thread ``t`` of block ``b``
-    owns the 16-byte pack of upload elements ``(b * THREADS + t) * elems``
-    onward for the whole chain.  ``U == 0`` launches nothing."""
+    of ``dtype`` (``csrc/ring_agg.cu:launch``): the fewest multiples of
+    ``SMS`` blocks that hold the ``P / elems`` 16-byte upload packs
+    (``elems = 16 / itemsize``) at ``THREADS * RING_PACKS`` a block
+    (``grid_blocks``); block ``i`` owns one contiguous run of packs, the
+    runs in block order and differing by at most one pack (``run_of``),
+    for the whole chain, and stores exactly those elements of ``out``.
+    ``U == 0`` launches nothing."""
     if U == 0:
         return []
-    per_block = THREADS * (16 // dtype.itemsize)
+    elems = 16 // dtype.itemsize
+    packs = P // elems
+    blocks = SMS * max(1, -(-packs // (SMS * THREADS * RING_PACKS)))
+    per, extra = divmod(packs, blocks)
 
     def ranges(block):
-        return [(block[0] * per_block, min((block[0] + 1) * per_block, P))]
-    return [LaunchGeometry("ring_agg_kernel", (-(-P // per_block),), THREADS,
+        lo = block[0] * per + min(block[0], extra)
+        hi = lo + per + (block[0] < extra)
+        return [(lo * elems, hi * elems)]
+    return [LaunchGeometry("ring_agg_kernel", (blocks,), THREADS,
                            {"out": Output(P, ranges)})]
 
 
@@ -226,7 +237,7 @@ def weighted_agg_tree(global_params, local_params, beta: float,
         base, size = flat.data_ptr(), dtype.itemsize
         live = [(i, n, off) for i, n, off in zip(leaves, sizes, offsets)
                 if n]
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = current_stream(device)
         for c in range(0, len(live), MAX_LEAVES):
             chunk = live[c:c + MAX_LEAVES]
             ptrs = (ctypes.c_int64 * (3 * len(chunk)))(*(
@@ -238,33 +249,41 @@ def weighted_agg_tree(global_params, local_params, beta: float,
     return dict(zip(global_params, outs))
 
 
-def _check_ring_inputs(g, locs, coeffs) -> None:
-    if g.dtype != torch.float32 or g.dim() != 1 or not g.is_contiguous():
+def _check_ring_inputs(g, locs, coeffs) -> tuple:
+    """``(device, upload dtype, U, P)`` of a chain; raises on anything the
+    kernel does not take.  Each tensor attribute is read once: this runs
+    on every chain of the fleet engine."""
+    g_shape, g_dtype = g.shape, g.dtype
+    g_contiguous = g.is_contiguous()
+    if g_dtype != torch.float32 or len(g_shape) != 1 or not g_contiguous:
         raise ValueError(
             f"ring_agg: g must be a contiguous f32 [P] buffer; got "
-            f"{tuple(g.shape)} {g.dtype} contiguous={g.is_contiguous()}")
-    P = g.shape[0]
+            f"{tuple(g_shape)} {g_dtype} contiguous={g_contiguous}")
+    P = g_shape[0]
     if P % LANE:
         raise ValueError(f"ring_agg: P={P} is not a multiple of {LANE} "
                          "(a ParamLayout buffer)")
-    if locs.dim() != 2 or locs.shape[1] != P:
+    l_shape, l_dtype = locs.shape, locs.dtype
+    if len(l_shape) != 2 or l_shape[1] != P:
         raise ValueError(f"ring_agg: locs must be [U, {P}]; got "
-                         f"{tuple(locs.shape)}")
-    if locs.dtype not in _RING_EXPORTS:
-        raise TypeError(f"ring_agg: locs dtype {locs.dtype}; expected one "
+                         f"{tuple(l_shape)}")
+    if l_dtype not in _RING_EXPORTS:
+        raise TypeError(f"ring_agg: locs dtype {l_dtype}; expected one "
                         f"of {list(_RING_EXPORTS)}")
     if not locs.is_contiguous():
         raise ValueError("ring_agg: locs must be contiguous rows")
-    U = locs.shape[0]
-    if (coeffs.dtype != torch.float32 or tuple(coeffs.shape) != (U, 2)
-            or not coeffs.is_contiguous()):
+    U = l_shape[0]
+    c_shape, c_dtype = coeffs.shape, coeffs.dtype
+    c_contiguous = coeffs.is_contiguous()
+    if c_dtype != torch.float32 or c_shape != (U, 2) or not c_contiguous:
         raise ValueError(
             f"ring_agg: coeffs must be a contiguous f32 [{U}, 2] tensor; "
-            f"got {tuple(coeffs.shape)} {coeffs.dtype} "
-            f"contiguous={coeffs.is_contiguous()}")
-    if not g.device == locs.device == coeffs.device:
-        raise ValueError(f"ring_agg: g, locs and coeffs on {g.device}, "
-                         f"{locs.device}, {coeffs.device}")
+            f"got {tuple(c_shape)} {c_dtype} contiguous={c_contiguous}")
+    device, l_device, c_device = g.device, locs.device, coeffs.device
+    if not device == l_device == c_device:
+        raise ValueError(f"ring_agg: g, locs and coeffs on {device}, "
+                         f"{l_device}, {c_device}")
+    return device, l_dtype, U, P
 
 
 def ring_agg(g, locs, coeffs):
@@ -276,24 +295,23 @@ def ring_agg(g, locs, coeffs):
     ``[U, P]`` f32 or bf16; ``coeffs``: contiguous f32 ``[U, 2]`` of
     ``(c, d)`` pairs on the same device (the host never reads them).
     ``U == 0`` returns a copy of ``g`` and launches nothing."""
-    _check_ring_inputs(g, locs, coeffs)
-    U, P = locs.shape
+    device, dtype, U, P = _check_ring_inputs(g, locs, coeffs)
     if U == 0:
         return g.to(torch.float32, copy=True)
-    if g.device.type == "cpu":
+    if device.type == "cpu":
         return ref.ring_agg(g, locs, coeffs)
-    if g.device.type != "cuda":
-        raise ValueError(f"ring_agg: unsupported device {g.device}")
+    if device.type != "cuda":
+        raise ValueError(f"ring_agg: unsupported device {device}")
     out = torch.empty_like(g)
     # 16-byte packs of g, locs rows and out; 8-byte (c, d) pairs.  Rows are
     # P apart with P % 128 == 0, so an aligned base aligns every row.
-    if ((g.data_ptr() | locs.data_ptr() | out.data_ptr()) & 15
-            or coeffs.data_ptr() & 7):
+    pg, pl, po, pc = (g.data_ptr(), locs.data_ptr(), out.data_ptr(),
+                      coeffs.data_ptr())
+    if (pg | pl | po) & 15 or pc & 7:
         raise ValueError("ring_agg: g and locs must start 16-byte aligned "
                          "and coeffs 8-byte aligned")
-    RING_KERNEL.launch(_RING_EXPORTS[locs.dtype], g.device, out.data_ptr(),
-                       g.data_ptr(), locs.data_ptr(), coeffs.data_ptr(), P,
-                       U, torch.cuda.current_stream(g.device).cuda_stream)
+    RING_KERNEL.launch(_RING_EXPORTS[dtype], device, po, pg, pl, pc, P,
+                       U, current_stream(device))
     return out
 
 

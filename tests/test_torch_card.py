@@ -133,10 +133,11 @@ def test_tree_matches_plain_version_on_card(cuda_device, leaf_set):
 
 
 # K1 ring_agg: chain lengths the fleet engine gives it and beyond one
-# shared-memory coefficient tile; the paper CNN's P and a P ragged against
-# any power-of-two tile
+# shared-memory coefficient tile; the paper CNN's P, a P ragged against
+# any power-of-two tile, a pack count the grid (a multiple of 132 blocks)
+# does not divide, and fewer packs than blocks
 RING_U = [0, 1, 2, 7, 9, 10, 30, 60, 1500]
-RING_P = [422016, 128 * 300]
+RING_P = [422016, 128 * 300, 128 * 1031, 128]
 
 
 def _ring_inputs(P, U, tdt, gen, device, neg_zero):
@@ -276,30 +277,68 @@ def _attn_max_err(out, want):
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("G", [1, 3, 4, 5, 8])
 def test_decode_attention_matches_plain_version_on_card(cuda_device, tdt,
                                                         hd, G):
-    """K4 at pos = 0, S - 1 and a mixed per-row vector, with the sequence
-    split into chunks (small batch) and whole (large batch)."""
+    """K4 at pos = 0, the kv tile's edges 63, 64, 65, S - 1 and a mixed
+    per-row vector, with the live prefix split over many chunks (small
+    batch), a few (the serve shape) and one (large batch)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
     gen = torch.Generator(device=cuda_device).manual_seed(G * hd)
     kernels.reset_launches()
     calls = 0
-    for B, S, Kv in [(2, 1000, 2), (64, 300, 5)]:
+    for B, S, Kv in [(2, 1000, 2), (8, 2048, 5), (512, 300, 5)]:
         q = torch.randn(B, G * Kv, hd, generator=gen,
                         device=cuda_device).to(tdt)
         k, v = (torch.randn(B, S, Kv, hd, generator=gen,
                             device=cuda_device).to(tdt) for _ in range(2))
         mixed = torch.randint(0, S, (B,), generator=gen, device=cuda_device,
                               dtype=torch.int32)
-        for pos in (0, S - 1, mixed):
+        for pos in (0, 63, 64, 65, S - 1, mixed):
             out = dops.decode_attention(q, k, v, pos)
             want = dref.decode_attention(q, k, v, pos)
             torch.cuda.synchronize()
             assert _attn_max_err(out, want) <= ATTN_TOL[tdt], (B, S, pos)
             calls += 1
     assert kernels.launch_counts()["decode_attention"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_attention_writes_its_declared_ranges_on_card(cuda_device,
+                                                             tdt):
+    """K4's chunk and combine launches into NaN-filled outputs write
+    exactly what ``ops.geometry`` declares, whatever ``pos`` is: a block
+    whose share is empty writes the neutral state."""
+    import math
+    from repro_torch.kernels.decode_attention import ops as dops
+    B, S, H, Kv, hd = 3, 640, 6, 2, 64
+    n = dops.split(B, S, Kv)
+    chunk_geo, combine_geo = dops.geometry(B, S, H, Kv, hd)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(B, H, hd, generator=gen, device=cuda_device).to(tdt)
+    k, v = (torch.randn(B, S, Kv, hd, generator=gen,
+                        device=cuda_device).to(tdt) for _ in range(2))
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for pos in ([0, 0, 0], [S - 1] * 3, [64, 5, S - 2]):
+        posv = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+        out = torch.full((B * H * hd,), float("nan"), device=cuda_device,
+                         dtype=tdt)
+        part = torch.full((dops.part_size(B, H, hd, n),), float("nan"),
+                          device=cuda_device)
+        fn = "decode_attention_f32" if tdt == torch.float32 \
+            else "decode_attention_bf16"
+        dops.KERNEL.launch(fn, cuda_device, out.data_ptr(), part.data_ptr(),
+                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           posv.data_ptr(), B, S, H, Kv, hd, n,
+                           1.0 / math.sqrt(hd), stream)
+        torch.cuda.synchronize()
+        assert np.array_equal(~torch.isnan(part).cpu().numpy(),
+                              chunk_geo.written("part")), pos
+        assert np.array_equal(~torch.isnan(out).cpu().numpy(),
+                              combine_geo.written("out")), pos
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from repro.check.pallas_race import analyze_callable as janalyze
 from repro.check.pallas_race import get_report as jget_report
 from repro_torch.check import grid_race
 from repro_torch.check.corpus import racy_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.geometry import LaunchGeometry, Output
 from repro_torch.kernels.weighted_agg import ops as wa_ops
 
@@ -105,9 +106,12 @@ def _declared_once(launches) -> int:
     output to exactly one block (their sorted ranges tile it); returns the
     outputs' total size."""
     total = 0
-    for name in launches[0].outputs:
-        size = launches[0].outputs[name].size
-        spans = sorted((a, b) for geo in launches for blk in geo.blocks()
+    outputs = {name: out for geo in launches
+               for name, out in geo.outputs.items()}
+    for name, out in outputs.items():
+        size = out.size
+        spans = sorted((a, b) for geo in launches if name in geo.outputs
+                       for blk in geo.blocks()
                        for a, b in geo.outputs[name].ranges(blk) if b > a)
         assert spans[0][0] == 0 and spans[-1][1] == size, name
         assert all(p[1] == q[0] for p, q in zip(spans, spans[1:])), name
@@ -132,6 +136,22 @@ def _declared_once(launches) -> int:
      (2, 100, 6, 2, 128, torch.bfloat16)),
     ("K5 bf16 S 100 G 1", "swa_attention.swa_attention_bf16",
      (2, 100, 2, 2, 64, torch.bfloat16)),
+    ("K1 paper CNN f32", "weighted_agg.ring_agg",
+     (422016, 10, torch.float32)),
+    ("K1 paper CNN bf16", "weighted_agg.ring_agg",
+     (422016, 10, torch.bfloat16)),
+    ("K1 packs the grid does not divide", "weighted_agg.ring_agg",
+     (128 * 1031, 3, torch.float32)),
+    ("K1 fewer packs than blocks", "weighted_agg.ring_agg",
+     (128, 1, torch.bfloat16)),
+    ("K4 serve B 8 S 2048", "decode_attention.decode_attention",
+     (8, 2048, 15, 5, 64)),
+    ("K4 decode_32k", "decode_attention.decode_attention",
+     (128, 32768, 15, 5, 64)),
+    ("K4 one chunk", "decode_attention.decode_attention",
+     (1024, 4096, 15, 5, 64)),
+    ("K4 G 8 hd 128", "decode_attention.decode_attention",
+     (2, 100, 16, 2, 128)),
 ])
 def test_every_output_element_declared_by_exactly_one_block(label,
                                                             kernel_id, args):
@@ -144,6 +164,21 @@ def test_every_output_element_declared_by_exactly_one_block(label,
         sizes, dt = args
         assert len(launches) == wa_ops.launches(sum(1 for n in sizes if n))
         assert size == wa_ops.flat_layout(sizes, dt)[1]
+    elif kernel_id == "weighted_agg.ring_agg":
+        P, _, _ = args
+        (geo,) = launches
+        assert size == P and geo.grid[0] % wa_ops.SMS == 0
+    elif kernel_id == "decode_attention.decode_attention":
+        # one partial-state slot per chunk block, one head range per
+        # combine block (or per chunk block when there is one chunk)
+        B, S, H, Kv, hd = args
+        n = da_ops.split(B, S, Kv)
+        if n == 1:
+            assert [g.grid for g in launches] == [(B * Kv, 1)]
+            assert size == B * H * hd
+        else:
+            assert [g.grid for g in launches] == [(B * Kv, n), (B * Kv,)]
+            assert size == B * H * hd + da_ops.part_size(B, H, hd, n)
     else:
         B, S, H, Kv, hd, _ = args
         assert size == B * S * H * hd

@@ -9,6 +9,8 @@ of ``repro``'s own bf16 kernel test: scores and weights round to bf16 at
 places the two frameworks choose differently."""
 from __future__ import annotations
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,15 +132,107 @@ def test_per_row_positions_match_repro_attention_decode(G):
 
 
 def test_split_covers_the_sequence():
-    """The kernel's sequence split: chunks tile [0, S) and the grid fills
-    the card at small batch without chunks under MIN_CHUNK positions."""
+    """The kernel's sequence split: n_chunks blocks per (b, kv head), from
+    the shapes alone, enough for WAVE_BLOCKS blocks at small batch, at
+    most one chunk a kv tile and MAX_CHUNKS in all."""
     for B, S, Kv in [(8, 2048, 5), (4, 1024, 5), (128, 32768, 5),
-                     (1, 100, 1), (2, 64, 2)]:
-        chunk, n = ops.split(B, S, Kv)
-        assert (n - 1) * chunk < S <= n * chunk
-        assert n == 1 or chunk >= ops.MIN_CHUNK
-    assert ops.split(8, 2048, 5)[1] > 1
-    assert ops.split(128, 32768, 5) == (32768, 1)
+                     (1, 100, 1), (2, 64, 2), (8, 32768, 5),
+                     (1, 1 << 20, 1)]:
+        n = ops.split(B, S, Kv)
+        assert 1 <= n <= min(-(-S // ops.KV_TILE), ops.MAX_CHUNKS)
+        assert (n == -(-S // ops.KV_TILE) or n == ops.MAX_CHUNKS
+                or B * Kv * n >= ops.WAVE_BLOCKS)
+    assert ops.split(8, 2048, 5) == 32             # serve: one tile a chunk
+    assert ops.split(128, 32768, 5) == 4           # decode_32k: 2,560 blocks
+    assert ops.split(1024, 32768, 5) == 1
+
+
+def _covered(starts, stops, live):
+    """Asserts that the shares of one row tile [0, live) in order, whole
+    kv tiles but the last live one, and that the rest are empty at live."""
+    per = stops[0] - starts[0]
+    assert per > 0 and (per % ops.KV_TILE == 0 or per == live)
+    at = 0
+    for a, z in zip(starts, stops):
+        if at == live:
+            assert a == z == live
+            continue
+        assert a == at and a % ops.KV_TILE == 0 and a < z <= live
+        assert z - a == per or z == live
+        at = z
+    assert at == live
+
+
+@pytest.mark.parametrize("S, n_chunks", [(2048, 32), (2048, 5), (130, 3),
+                                         (32768, 4), (64, 1)])
+def test_chunk_bounds_cover_the_live_prefix(S, n_chunks):
+    """Each row's shares cover [0, pos] exactly once in tile-aligned
+    pieces of roundup(ceil(live / n_chunks), 64) positions."""
+    rng = np.random.default_rng(S + n_chunks)
+    edge = np.array([0, 1, 63, 64, 65, S - 1])
+    for pos in (edge, rng.integers(0, S, 16)):
+        starts, stops = ops.chunk_bounds(pos, S, n_chunks)
+        assert starts.shape == stops.shape == (len(pos), n_chunks)
+        for p, a, z in zip(pos, starts, stops):
+            live = min(int(p) + 1, S)
+            _covered(a, z, live)
+            per = -(-live // n_chunks)
+            assert z[0] - a[0] == min(-(-per // 64) * 64, live)
+    a, z = ops.chunk_bounds(S - 1, S, n_chunks)     # a scalar pos
+    _covered(a, z, S)
+
+
+def _split_combine(q, k, v, pos, n_chunks):
+    """K4's algorithm in plain torch: the partial state (m, l, acc) of each
+    share of ``ops.chunk_bounds`` in log2 units, the weights rounded to the
+    inputs' dtype before P @ V as the kernel rounds them, empty shares
+    neutral (-1e30, 0, 0); then the combine."""
+    B, H, hd = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qg = q.float().reshape(B, Kv, G, hd)
+    starts, stops = ops.chunk_bounds(np.broadcast_to(pos, (B,)), S,
+                                     n_chunks)
+    scale = math.log2(math.e) / math.sqrt(hd)
+    out = torch.empty(B, Kv, G, hd)
+    for b in range(B):
+        ms, ls, accs = [], [], []
+        for a, z in zip(starts[b], stops[b]):
+            if a == z:
+                ms.append(torch.full((Kv, G), -1e30))
+                ls.append(torch.zeros(Kv, G))
+                accs.append(torch.zeros(Kv, G, hd))
+                continue
+            s = torch.einsum("kgh,tkh->kgt", qg[b], k[b, a:z].float()) * scale
+            m = s.amax(-1)
+            w = torch.exp2(s - m[..., None])
+            ms.append(m)
+            ls.append(w.sum(-1))
+            accs.append(torch.einsum("kgt,tkh->kgh", w.to(q.dtype).float(),
+                                     v[b, a:z].float()))
+        m = torch.stack(ms)
+        wt = torch.exp2(m - m.amax(0))
+        l = (wt * torch.stack(ls)).sum(0)
+        acc = (wt[..., None] * torch.stack(accs)).sum(0)
+        out[b] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 63, 64, 65, 127])
+def test_split_and_combine_matches_repro_interpret_kernel(dt, pos):
+    """The kernel's split of the live prefix and its combine, in plain
+    torch, against repro's Pallas kernel in interpret mode, at the kv
+    tile's edges and for one, two and five chunks."""
+    B, S, H, Kv, hd = 2, 128, 6, 2, 64
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, H, Kv, hd, pos), dt)
+    want = _np(jops.decode_attention(jq, jk, jv, pos, block_s=64,
+                                     interpret=True))
+    assert ops.split(B, S, Kv) == 2
+    for n_chunks in (1, 2, 5):
+        got = _split_combine(tq, tk, tv, pos, n_chunks)
+        assert got.dtype == TDT[dt] and got.shape == (B, H, hd)
+        np.testing.assert_allclose(_np(got), want, atol=TOL[dt], rtol=0)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "group", "pos"])

@@ -251,3 +251,31 @@ def test_library_path_keyed_by_source_and_flags(monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("weighted_agg.cu") != a
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("P", [128, 1152, 128 * 300, 128 * 1031, 422016,
+                               128 * 132 * 512 + 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ring_geometry_partitions_the_buffer(P, dtype):
+    """K1's balanced grid: a multiple of the 132 SMs, each block one run of
+    16-byte packs in block order, the runs differing by at most one pack
+    and together covering [0, P) once, including pack counts the block
+    count does not divide and fewer packs than blocks."""
+    (geo,) = ops.ring_geometry(P, 3, dtype)
+    blocks = geo.grid[0]
+    elems = 16 // dtype.itemsize
+    packs = P // elems
+    assert blocks % ops.SMS == 0
+    assert packs <= blocks * ops.THREADS * ops.RING_PACKS
+    assert blocks == ops.SMS or packs > (blocks - ops.SMS) * ops.THREADS \
+        * ops.RING_PACKS
+    runs = [geo.outputs["out"].ranges((b,)) for b in range(blocks)]
+    at = 0
+    sizes = set()
+    for (lo, hi), in runs:
+        assert lo == at and lo % elems == 0 and hi >= lo
+        sizes.add((hi - lo) // elems)
+        at = hi
+    assert at == P and max(sizes) - min(sizes) <= 1
+    assert ops.ring_geometry(P, 0, dtype) == []
