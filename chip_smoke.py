@@ -34,7 +34,22 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    Launch counts are zeroed before and read after each timed run of 3-4.
 5. card against host: paper-k10 for 8 rounds on the card and on the CPU
    from one numpy-made init, on the serial and on the fleet engine.
-6. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
+6. corridor path: ``weighted_agg`` on the EMA reconcile's ``[R, P]``
+   stack (R = 2, 4, 8, P = 422,016) bitwise its plain version, one launch
+   each; ``run_scenario(engine="corridor")`` on corridor-quick-r2-k8 (8
+   rounds), highway-k40-handover (80), corridor-r4-k400,
+   corridor-r8-k4000 and corridor-rush-hour-r8-k4000 (40 each): every
+   merge a ``ring_agg`` chain on one RSU's cohort row, one launch per
+   chunk of the plan, and no ``weighted_agg`` under FedAvg; each world's
+   set-up (world building, plan) timed alone; corridor-r4-k400 with the
+   EMA reconcile (tau 0.3): one ``weighted_agg`` launch per reconcile;
+   the serial handover loop (``engine="serial"``) on corridor-quick-r2-k8
+   (8 rounds) and highway-k40-handover (80): one ``weighted_agg`` launch
+   per arrival.  After phase 5: corridor-quick-r2-k8 for 8 rounds on the
+   card and on the CPU from one numpy-made init, on both engines: the
+   same (round, vehicle, rsu) trace, times, params and accuracy within
+   phase 5's bands.
+7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
    ``swa_attention`` (K5) at window = S, windows under S, a window that is
@@ -44,34 +59,34 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    then kernel, plain version and ``scaled_dot_product_attention`` timed
    at the serve path's shapes and at smollm-360m's decode_32k and 512- /
    1024-token prefill geometries.
-7. serve path: full-width smollm-360m (32 layers, f32, the port's torch
+8. serve path: full-width smollm-360m (32 layers, f32, the port's torch
    init) behind a ``BatchedServer`` of 8 slots and max_seq 2048 serves 16
    requests (numpy prompts of 64-1024 tokens, 64 new tokens each);
    ``decode_attention`` launches 32 per tick and ``swa_attention`` 32 per
    admitted request; a second run under torch.profiler gives the device
    busy share.
-8. serve, card against host: the same config cut to 4 layers, one CPU
+9. serve, card against host: the same config cut to 4 layers, one CPU
    init, two of the prompts: prefill and 16 teacher-forced decode steps on
    both, logits within atol 1e-3 / rtol 1e-3.
-9. cross-entropy kernel: ``cross_entropy`` (K3) at R in {1, 7, 512, 4096}
+10. cross-entropy kernel: ``cross_entropy`` (K3) at R in {1, 7, 512, 4096}
    and V in {512, 1111, 49152, 131072}, f32 and bf16, labels at 0, V - 1
    and random, plus rows of +-1e4 logits: (nll, lse) within 1e-4 (f32) /
    3e-2 (bf16) / 1e-3 (+-1e4 rows) of the plain version, and the
    backward's d logits within 1e-6 of plain autograd; then kernel, plain
    version and ``F.cross_entropy`` timed at the training path's shapes.
-10. training path: ``launch/train.py``'s MAFL loop on full-width
+11. training path: ``launch/train.py``'s MAFL loop on full-width
     smollm-360m (the port's torch init, f32) with ``--use-kernel`` and the
     defaults (batch 8, seq-len 64, 4 local steps, lr 0.05) for 10 rounds;
     ``cross_entropy`` launches once per local step and held-out eval,
     ``weighted_agg`` 3 times per merge (290 leaves, 112 a launch); every
     printed loss finite; a second run under torch.profiler gives the busy
     share.
-11. train step: ``make_train_step`` at full width, B 8, S 512 (4096 rows
+12. train step: ``make_train_step`` at full width, B 8, S 512 (4096 rows
     into K3): one warm-up and 5 timed steps.
-12. training, card against host: the same config cut to 4 layers, one CPU
+13. training, card against host: the same config cut to 4 layers, one CPU
     init, 2 rounds of 2 local steps on both: the same vehicles, losses
     within rtol 1e-4, final params within atol 1e-4 / rtol 1e-3.
-13. check (after phase 12, before the profiler readings): the analyzer entry
+14. check (after phase 13, before the profiler readings): the analyzer entry
     point ``python -m repro_torch.check src/repro_torch --strict
     --format=json`` in this process, every probe included: exit 0, no live
     finding, every production kernel parallel-safe.  Each kernel's Python
@@ -801,6 +816,195 @@ def phase_host(engine):
         f"event times max |diff| {float(np.abs(tg - tc).max())}); final "
         f"params max |diff| {worst} (atol {HOST_ATOL}, rtol {HOST_RTOL}); "
         f"accuracy max |diff| {acc_diff}")
+
+
+# the corridor engine's worlds at their registered rounds, eval every 10
+CORRIDOR_RUNS = (("corridor-quick-r2-k8", 8), ("highway-k40-handover", 80),
+                 ("corridor-r4-k400", 40), ("corridor-r8-k4000", 40),
+                 ("corridor-rush-hour-r8-k4000", 40))
+# the EMA cloud tier, through weighted_agg on the [R, P] stack
+CORRIDOR_EMA = ("corridor-r4-k400", 40,
+                dict(reconcile_mode="ema", reconcile_tau=0.3))
+
+
+def corridor_plan(name, rounds, **overrides):
+    """The port's own corridor plan of one run, and its K1 launch count:
+    one per chunk of the per-RSU chains of every segment."""
+    import dataclasses
+    from repro_torch.core.jit_engine import eval_rounds_of
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.corridor import engine, plan_corridor
+    sc = dataclasses.replace(get_scenario(name), rounds=rounds, **overrides)
+    plan = plan_corridor(sc.channel(), sc.n_rsus, 0, rounds,
+                         entry=sc.corridor_entry)
+    return sc, plan, engine.chain_launches(
+        plan, eval_rounds_of(rounds, EVAL_EVERY), sc.reconcile_every)
+
+
+def run_corridor(name, rounds, engine="corridor", **overrides):
+    """One corridor-world run on the card with the kernel path on;
+    returns (result, ms/round, launch counts)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.scenarios import run_scenario
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_scenario(name, engine=engine, use_kernel=True, device=DEVICE,
+                       rounds=rounds, eval_every=EVAL_EVERY, **overrides)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    tag = f"{name}/{engine}{' ' + str(overrides) if overrides else ''}"
+    check(len(res.rounds) == rounds,
+          f"{tag}: {len(res.rounds)} of {rounds} rounds")
+    for k, v in res.final_params.items():
+        check(v.device.type == DEVICE and bool(torch.isfinite(v).all()),
+              f"{tag}: final {k} not finite on the card")
+    accs = [a for _, a in res.acc_history]
+    check(all(np.isfinite(accs)) and 0.0 <= accs[-1] <= 1.0,
+          f"{tag}: accuracy history {accs}")
+    ms_round = dt / rounds * 1e3
+    by_rsu = np.bincount([r.rsu for r in res.rounds])
+    log(f"corridor: {tag} rounds={rounds}: {ms_round:.3f} ms/round "
+        f"({dt:.3f} s), final accuracy {res.final_accuracy():.5f}, uploads "
+        f"per RSU {by_rsu.tolist()}, ring_agg launches "
+        f"{counts['ring_agg']}, weighted_agg launches "
+        f"{counts['weighted_agg']}")
+    return res, ms_round, counts
+
+
+def phase_corridor(dev):
+    """The corridor path: K2 on the [R, P] stack against its plain
+    version; the device engine on every corridor world (K1 = the plan's
+    chunks, K2 = 0 under FedAvg), the EMA reconcile (K2 = one launch per
+    reconcile) and the serial handover loop (K2 = one launch per arrival)
+    on the card.  Returns (K1 launches, K2 launches, ms/round of
+    corridor-r8-k4000)."""
+    import torch
+    from repro_torch.core.scenarios import build_world, get_scenario
+    from repro_torch.corridor import plan_corridor
+    from repro_torch.kernels.weighted_agg import ops, ref
+    from repro_torch.models.cnn import CNN_SHAPES
+
+    # K2 at the EMA reconcile's shape: the whole [R, P] stack as one leaf
+    # against the broadcast mean, bitwise
+    P = 422016
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for R in (2, 4, 8):
+        G = torch.randn(R, P, generator=gen, device=dev)
+        C = G.mean(dim=0).expand_as(G).contiguous()
+        n = check_merge(f"corridor stack [{R}, {P}]", ops, ref, {"G": G},
+                        {"G": C}, float(np.float32(1.0) - np.float32(0.3)),
+                        1.0, {"G": (G.clone(), C.clone())})
+        check(n == 1, f"weighted_agg on the [{R}, P] stack: {n} launches")
+    log(f"corridor: weighted_agg on the [R, {P}] stack (R = 2, 4, 8) "
+        f"bitwise its plain version, one launch each")
+
+    k1 = k2 = 0
+    ms = {}
+    for name, rounds in CORRIDOR_RUNS:
+        t0 = time.perf_counter()                 # warm-up, untimed
+        run_corridor(name, rounds)
+        log(f"corridor: {name} warm-up {time.perf_counter() - t0:.3f} s")
+        _, _, want = corridor_plan(name, rounds)
+        res, ms[name], counts = run_corridor(name, rounds)
+        check(counts["ring_agg"] == want,
+              f"{name}/corridor: {counts['ring_agg']} ring_agg launches for "
+              f"the plan's {want} chunks")
+        check(counts["weighted_agg"] == 0,
+              f"{name}/corridor: {counts['weighted_agg']} weighted_agg "
+              f"launches under FedAvg")
+        k1 += counts["ring_agg"]
+        # the run's host set-up, timed alone: world building and the plan
+        sc = get_scenario(name)
+        t0 = time.perf_counter()
+        _, _, _, p = build_world(sc)
+        t1 = time.perf_counter()
+        plan_corridor(p, sc.n_rsus, 0, rounds, entry=sc.corridor_entry)
+        t2 = time.perf_counter()
+        log(f"corridor:   {name}: ring_agg launches = the plan's {want} "
+            f"chunks; set-up timed alone: build_world {t1 - t0:.3f} s, "
+            f"plan_corridor {t2 - t1:.3f} s")
+
+    name, rounds, ema = CORRIDOR_EMA
+    sc, _, want = corridor_plan(name, rounds, **ema)
+    run_corridor(name, rounds, **ema)            # warm-up, untimed
+    _, ms_ema, counts = run_corridor(name, rounds, **ema)
+    merges = rounds // sc.reconcile_every
+    check(counts["ring_agg"] == want and counts["weighted_agg"] == merges,
+          f"{name} EMA: ring_agg {counts['ring_agg']} (plan {want}), "
+          f"weighted_agg {counts['weighted_agg']} (reconciles {merges})")
+    k1 += counts["ring_agg"]
+    k2 += counts["weighted_agg"]
+    log(f"corridor: {name} EMA tau 0.3: weighted_agg launches "
+        f"{counts['weighted_agg']} = one per reconcile ({merges}); "
+        f"{ms_ema:.3f} ms/round")
+
+    # the serial handover loop: every mafl merge is one weighted_agg launch
+    per_merge = ops.launches(len(CNN_SHAPES))
+    for name, rounds in (("corridor-quick-r2-k8", 8),
+                         ("highway-k40-handover", 80)):
+        run_corridor(name, rounds, engine="serial")   # warm-up, untimed
+        _, _, counts = run_corridor(name, rounds, engine="serial")
+        check(counts["weighted_agg"] == per_merge * rounds
+              and counts["ring_agg"] == 0,
+              f"{name}/serial: weighted_agg {counts['weighted_agg']} for "
+              f"{rounds} arrivals, ring_agg {counts['ring_agg']}")
+        k2 += counts["weighted_agg"]
+    log(f"corridor: serial handover loop: weighted_agg launches one per "
+        f"arrival ({per_merge} per merge)")
+    return k1, k2, ms["corridor-r8-k4000"]
+
+
+def phase_corridor_vs_cpu():
+    """corridor-quick-r2-k8 for 8 rounds on the card and on the CPU from
+    one numpy-made init, on the device engine and on the serial loop."""
+    import dataclasses
+    from repro_torch.convert import params_from_jax, params_to_numpy
+    from repro_torch.core.scenarios import build_world, get_scenario
+    from repro_torch.corridor import (run_corridor_simulation,
+                                      run_handover_simulation)
+
+    sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"), rounds=8)
+    veh, te_i, te_l, p = build_world(sc)
+    init = numpy_init()
+    for engine, run in (("corridor", run_corridor_simulation),
+                        ("serial", run_handover_simulation)):
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            out[dev] = run(sc, veh, te_i, te_l, p, eval_every=4,
+                           use_kernel=True,
+                           init_params=params_from_jax(init, dev),
+                           device=dev)
+        gpu, cpu = out[DEVICE], out["cpu"]
+        trace = [(r.round, r.vehicle, r.rsu) for r in cpu.rounds]
+        check([(r.round, r.vehicle, r.rsu) for r in gpu.rounds] == trace,
+              f"corridor {engine}: card and CPU (round, vehicle, rsu) "
+              f"traces differ")
+        tg = np.array([r.time for r in gpu.rounds])
+        tc = np.array([r.time for r in cpu.rounds])
+        check(np.allclose(tg, tc, **JIT_TIME_TOL),
+              f"corridor {engine}: card and CPU event times differ: {tg} vs "
+              f"{tc}")
+        pg, pc = (params_to_numpy(gpu.final_params),
+                  params_to_numpy(cpu.final_params))
+        worst = max(float(np.abs(pg[k] - pc[k]).max()) for k in pg)
+        for k in pg:
+            check(np.allclose(pg[k], pc[k], atol=HOST_ATOL, rtol=HOST_RTOL),
+                  f"corridor {engine}: card vs CPU final {k}: max |diff| "
+                  f"{float(np.abs(pg[k] - pc[k]).max())}")
+        acc_diff = max(abs(a - b) for (_, a), (_, b)
+                       in zip(gpu.acc_history, cpu.acc_history))
+        check(acc_diff <= ACC_TOL,
+              f"corridor {engine}: card vs CPU accuracy differs by "
+              f"{acc_diff}")
+        log(f"corridor: {engine}: card and CPU traces identical ((round, "
+            f"vehicle, rsu), uploads on RSUs "
+            f"{sorted({r for _, _, r in trace})}; event times max |diff| "
+            f"{float(np.abs(tg - tc).max())}); final params max |diff| "
+            f"{worst} (atol {HOST_ATOL}, rtol {HOST_RTOL}); accuracy max "
+            f"|diff| {acc_diff}")
 
 
 # K4 decode_attention / K5 swa_attention: f32 inputs from N(0, 1) within
@@ -1889,20 +2093,29 @@ def main() -> int:
     k3 = phase_ce_kernel(dev)
     f1_before = racy_kernel.KERNEL.launches
     host_merges = phase_main()
-    k1["launches"] = phase_fleet()
+    fleet_chains = phase_fleet()
+    corridor_chains, corridor_merges, corridor_ms = phase_corridor(dev)
+    # K1 runs on two main paths: the fleet engine's chains and the
+    # corridor's per-RSU chains
+    k1["launches"] = fleet_chains + corridor_chains
+    k1["launches_by_path"] = {"fleet engine": fleet_chains,
+                              "corridor": corridor_chains}
     k4["launches"], k5["launches"] = phase_serve(dev)
     k3["launches"], train_merges = phase_train(dev)
     # F1 is a fixture: no main path launches it
     f1_main = racy_kernel.KERNEL.launches - f1_before
     check(f1_main == 0,
           f"racy_sum launched {f1_main} times on the main paths")
-    # K2 runs on two main paths: the host engines' merges and training's
-    k2["launches"] = host_merges + train_merges
+    # K2 runs on three main paths: the host engines' merges, the
+    # corridor's (EMA reconciles, serial handover merges) and training's
+    k2["launches"] = host_merges + corridor_merges + train_merges
     k2["launches_by_path"] = {"host engines": host_merges,
+                              "corridor": corridor_merges,
                               "training": train_merges}
     phase_train_step(dev)
     phase_host("serial")
     phase_host("jit")
+    phase_corridor_vs_cpu()
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
     # after every host-clock timing of the main paths (its host-side probe
@@ -1910,6 +2123,7 @@ def main() -> int:
     f1 = phase_check(dev)
     f1["launches"] = f1_main
     f1["launches_by_path"]["main paths"] = f1_main
+    profile_run("corridor-r8-k4000", "corridor", 40, corridor_ms * 40)
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last
         measure()

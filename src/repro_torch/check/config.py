@@ -12,6 +12,7 @@ from __future__ import annotations
 # modules a test holds to a clean lint after waivers.
 ENGINE_MODULES = (
     "repro_torch/core/jit_engine.py",
+    "repro_torch/corridor/engine.py",
     "repro_torch/core/flat.py",
     "repro_torch/kernels/weighted_agg/ops.py",
     "repro_torch/kernels/cross_entropy/ops.py",
@@ -29,7 +30,11 @@ ENGINE_MODULES = (
 DEVICE_LOOP_FUNCTIONS = {
     "repro_torch/core/jit_engine.py": (
         "_SlotQueue.pop", "_SlotQueue.upload_delay", "_event_segment",
-        "_chain_segment", "_run_program"),
+        "_chain_segment", "_run_program", "_train_wave"),
+    "repro_torch/corridor/engine.py": (
+        "_CorridorQueue.pop", "_CorridorQueue.upload_delay",
+        "_CorridorQueue.wrap", "_CorridorQueue.serving", "_chain_segment",
+        "_reconcile", "_run_program"),
     "repro_torch/models/transformer.py": ("decode_step",),
     "repro_torch/models/attention.py": ("attention_decode",),
     "repro_torch/launch/steps.py": (
@@ -40,10 +45,12 @@ DEVICE_LOOP_FUNCTIONS = {
 }
 
 # Planner modules: pure f64 host numpy, no engine/kernel imports, no torch
-# (PLN001/PLN002).  None of the port's own is ported yet (corridor/plan.py
-# waits for item 7, selection/ for item 8); the bad-planner fixture is
+# (PLN001/PLN002).  selection/ joins with item 8; the bad-planner fixture is
 # linted as one.
-PLANNER_MODULES = ("repro_torch/check/corpus/bad_planner.py",)
+PLANNER_MODULES = (
+    "repro_torch/corridor/plan.py",
+    "repro_torch/check/corpus/bad_planner.py",
+)
 
 # Planner functions living inside engine modules: the f64 dry runs.  The
 # PLN rules apply to these function bodies only, not their whole module.

@@ -217,8 +217,9 @@ KERNEL_CASES: dict[str, Case] = {
 
 def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
     """kernel_id -> [(label, geometry args)] at the shapes the main paths
-    launch: K2 at a paper-CNN merge (f32 and bf16) and a smollm-360m
-    training merge (290 f32 leaves, 3 launches), K1 at the packed CNN (P
+    launch: K2 at a paper-CNN merge (f32 and bf16), a smollm-360m
+    training merge (290 f32 leaves, 3 launches) and the corridor's EMA
+    reconcile (one [R, P] leaf, R 4 and 8), K1 at the packed CNN (P
     422,016, U 10), K3 at training's R 512 and ``make_train_step``'s R
     4,096 (V 49,152), K4 at the serve shape and smollm-360m's decode_32k,
     K5 at 512- and 1024-token prefills in f32 and bf16."""
@@ -227,7 +228,9 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("paper CNN f32", (CNN_SIZES, torch.float32)),
             ("paper CNN bf16", (CNN_SIZES, torch.bfloat16)),
             ("smollm-360m 290 leaves f32",
-             (smollm_leaf_sizes(), torch.float32))],
+             (smollm_leaf_sizes(), torch.float32)),
+            ("corridor [4, P] stack f32", ((4 * 422016,), torch.float32)),
+            ("corridor [8, P] stack f32", ((8 * 422016,), torch.float32))],
         "weighted_agg.ring_agg": [
             ("P 422016 U 10 f32", (422016, 10, torch.float32)),
             ("P 422016 U 10 bf16", (422016, 10, torch.bfloat16))],

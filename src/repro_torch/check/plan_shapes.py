@@ -7,11 +7,12 @@ never batch them.  This probe runs the planner twice with different seeds
 on a small fleet and diffs the ndarray fields' ``(shape, dtype)``
 signatures.
 
-Exempt by design, as in ``repro``: ``waves`` is a host-side tuple whose
-length legitimately varies by seed (the engine walks it on the host), and
-``n_slots`` is a Python int sizing the gain table.  The corridor, sweep,
-selection and fault parts of ``repro``'s probe wait for the port's items 7,
-11, 8 and 9.
+The same holds for ``plan_corridor`` and for the padded tables of
+``CorridorPlan.tables()``.  Exempt by design, as in ``repro``: ``waves`` is
+a host-side tuple whose length legitimately varies by seed (the engine
+walks it on the host), and ``n_slots`` is a Python int sizing the gain
+table.  The sweep, selection and fault parts of ``repro``'s probe wait for
+the port's items 11, 8 and 9.
 """
 from __future__ import annotations
 
@@ -56,15 +57,28 @@ def _diff(name: str, sigs: dict, findings: list, path: str) -> None:
                     f"(seed {base_seed}: {a}, seed {seed}: {b})"))
 
 
+def _tables_signature(tabs: dict) -> dict:
+    return {f"tables[{k}]": (np.asarray(v).shape, str(np.asarray(v).dtype))
+            for k, v in tabs.items()}
+
+
 def probe_plan_shapes() -> list[Finding]:
-    """Run ``plan_fleet`` across the probe seeds; findings on any layout
-    drift."""
+    """Run ``plan_fleet`` and ``plan_corridor`` across the probe seeds;
+    findings on any layout drift."""
     from repro_torch.channel import ChannelParams
     from repro_torch.core.jit_engine import plan_fleet
+    from repro_torch.corridor.plan import plan_corridor
 
     findings: list[Finding] = []
     p = dataclasses.replace(ChannelParams(), K=5)
     sigs = {s: _signature(plan_fleet(p, seed=s, rounds=12))
             for s in _PROBE_SEEDS}
     _diff("plan_fleet", sigs, findings, "<probe:plan_fleet>")
+
+    plans = {s: plan_corridor(p, n_rsus=2, seed=s, rounds=12)
+             for s in _PROBE_SEEDS}
+    sigs = {s: _signature(plan) for s, plan in plans.items()}
+    _diff("plan_corridor", sigs, findings, "<probe:plan_corridor>")
+    sigs = {s: _tables_signature(plan.tables()) for s, plan in plans.items()}
+    _diff("CorridorPlan.tables", sigs, findings, "<probe:plan_corridor>")
     return findings

@@ -262,6 +262,27 @@ def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
     return g, cols
 
 
+def _train_wave(layout: ParamLayout, rows: dict, locals_buf,
+                pay_rounds: np.ndarray, T_dev, imgs, labs, lr: float):
+    """Train the wave of rounds ``T_dev`` (a device index tensor) from
+    their payload rows ``rows[pay_rounds]`` and write the uploads into
+    ``locals_buf`` rows ``T_dev``: through a broadcast of one params dict
+    when the wave shares its payload (every initial-download wave), else
+    through a vmap of stacked params."""
+    if (pay_rounds == pay_rounds[0]).all():
+        pay = layout.unpack(rows[int(pay_rounds[0])])
+        train = client_mod._local_scan_shared
+    else:
+        pay = layout.unpack(torch.stack([rows[int(pr)]
+                                         for pr in pay_rounds]))
+        train = client_mod._local_scan_vmap
+    loc, _ = train(pay, imgs.index_select(0, T_dev),
+                   labs.index_select(0, T_dev), lr)
+    # in place: rows T are written once, before any chain reads them
+    locals_buf.index_copy_(0, T_dev,
+                           layout.pack(loc, dtype=locals_buf.dtype))
+
+
 def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
                  w0, imgs, labs, lr: float, *, scheme: str,
                  interpretation: str, beta: float, fedasync_mix: float,
@@ -285,20 +306,8 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
     for T, s, e in plan.waves:
         T = np.asarray(T, np.int64)
         if len(T):
-            pay_rounds = d[T] + 1
-            T_dev = torch.from_numpy(T).to(device)
-            if (pay_rounds == pay_rounds[0]).all():
-                pay = layout.unpack(snaps[int(pay_rounds[0])])
-                train = client_mod._local_scan_shared
-            else:
-                pay = layout.unpack(torch.stack(
-                    [snaps[int(pr)] for pr in pay_rounds]))
-                train = client_mod._local_scan_vmap
-            loc, _ = train(pay, imgs.index_select(0, T_dev),
-                           labs.index_select(0, T_dev), lr)
-            # in place: rows T are written once, before any chain reads them
-            locals_buf.index_copy_(0, T_dev,
-                                   layout.pack(loc, dtype=store_dtype))
+            _train_wave(layout, snaps, locals_buf, d[T] + 1,
+                        torch.from_numpy(T).to(device), imgs, labs, lr)
         g, cols = _event_segment(
             queue, g, locals_buf, snaps, s, e, needed, store, scheme=scheme,
             interpretation=interpretation, beta=beta,
@@ -339,28 +348,36 @@ def _stage_run(vehicles_data, *, rounds, l_iters, lr, params, seed,
         raise ValueError("rounds must be >= 1")
     plan = plan_fleet(p, seed, rounds, selection, faults=faults,
                       l_iters=l_iters)
+    w0, imgs, labs, gains = _stage_arrays(
+        vehicles_data, p, plan, l_iters=l_iters, lr=lr, seed=seed,
+        init_params=init_params, batch_size=batch_size, device=device)
+    x0 = torch.from_numpy(Mobility(p).x0.astype(np.float32)).to(device)
+    queue = _SlotQueue(p, plan, gains, x0, device)
+    return p, plan, queue, w0, imgs, labs
+
+
+def _stage_arrays(vehicles_data, p: ChannelParams, plan, *, l_iters, lr,
+                  seed, init_params, batch_size, device):
+    """The initial params, one minibatch stack per round of ``plan`` and
+    the slot-gain table, on ``device`` (shared with the corridor engine).
+    The minibatches are drawn from the same per-vehicle RNG streams in the
+    same per-cycle order as the host engines, then copied to the device
+    once."""
     w0 = (init_params if init_params is not None
           else init_cnn(torch.Generator().manual_seed(seed), device=device))
-
-    # one minibatch stack per consumed round, drawn from the same
-    # per-vehicle RNG streams in the same per-cycle order as the host
-    # engines, then copied to the device once
     fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
     clients = [Vehicle(d, lr=lr, batch_size=fleet_batch, seed=seed,
                        device=device) for d in vehicles_data]
     im_list, lab_list = [], []
-    for r in range(rounds):
-        im, lab = clients[plan.veh[r]].sample_batches(l_iters)
+    for v in plan.veh:
+        im, lab = clients[v].sample_batches(l_iters)
         im_list.append(im)
         lab_list.append(lab)
     imgs = torch.from_numpy(np.stack(im_list)).to(device)
     labs = torch.from_numpy(np.stack(lab_list).astype(np.int64)).to(device)
-
     gains = torch.from_numpy(slot_gain_table(p, seed, plan.n_slots)
                              .astype(np.float32)).to(device)
-    x0 = torch.from_numpy(Mobility(p).x0.astype(np.float32)).to(device)
-    queue = _SlotQueue(p, plan, gains, x0, device)
-    return p, plan, queue, w0, imgs, labs
+    return w0, imgs, labs, gains
 
 
 def run_simulation_jit(

@@ -278,12 +278,16 @@ class _Timeline:
     queue.  Times depend only on (params, seed) — never on training — so a
     payload-free instance replays the identical schedule (DESIGN.md §3).
 
+    ``distance_fn(vehicle, t) -> meters`` defaults to the single-RSU
+    :class:`Mobility`; the corridor planner and the serial handover loop
+    substitute the corridor geometry and keep every other scheduling rule.
+
     Channel gains are sampled per discrete slot and kept only for the live
     event window (``SlotGainCache``)."""
 
-    def __init__(self, p: ChannelParams, seed: int):
+    def __init__(self, p: ChannelParams, seed: int, distance_fn=None):
         self.p = p
-        self.distance = Mobility(p).distance
+        self.distance = distance_fn or Mobility(p).distance
         self.gains = SlotGainCache(RayleighAR1(p, seed=seed))
         self.queue = EventQueue()
         self._cycle = [0] * p.K

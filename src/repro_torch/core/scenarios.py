@@ -3,13 +3,15 @@
 The full registry of ``repro.core.scenarios``, as data, so every named world
 builds identically in both packages.  ``run_scenario`` runs the single-RSU
 worlds on the host engines (``serial`` and ``batched``) and on the device
-fleet engine (``jit``, with the bf16 ring where the world asks for it); the
-corridor, sweep, selection and fault worlds raise with the name of the slice
-of the port they wait for.
+fleet engine (``jit``, with the bf16 ring where the world asks for it), and
+the multi-RSU corridor worlds on the device corridor engine (``corridor``)
+and the serial handover loop (``serial``); the sweep, selection and fault
+worlds raise with the name of the slice of the port they wait for.
 
     from repro_torch.core.scenarios import run_scenario
     result = run_scenario("paper-k10", use_kernel=True)     # on the card
     result = run_scenario("fleet-k10000")       # fleet engine, bf16 ring
+    result = run_scenario("corridor-r8-k4000")  # corridor engine
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ from repro_torch.channel import ChannelParams
 from repro_torch.core.mafl import (ENGINES, SimResult, run_simulation,
                                    unported)
 from repro_torch.device import resolve_device
+
+# engines that run multi-RSU corridor worlds: the device corridor engine
+# and the serial handover loop
+CORRIDOR_ENGINES = ("corridor", "serial")
 
 
 @dataclass(frozen=True)
@@ -287,43 +293,70 @@ def build_world(sc: Scenario, seed: int = 0):
 def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                  engine: Optional[str] = None, eval_every: int = 10,
                  progress=None, use_kernel: bool = False, mesh=None,
-                 flat: Optional[bool] = None, metrics=None, device=None,
-                 **overrides) -> SimResult:
+                 record_cohorts: bool = False, flat: Optional[bool] = None,
+                 metrics=None, device=None, **overrides) -> SimResult:
     """Build the named world and run it on ``device`` (``None`` -> the
     card); ``overrides`` replace Scenario fields (e.g. ``rounds=20``).
 
-    Single-RSU worlds only.  ``engine=None`` auto-selects as ``repro``
-    does: ``"jit"`` when the world's ring is not f32 (the bf16 ring exists
-    only on the fleet engine's flat path), else ``"batched"``.  ``flat``
-    reaches the fleet engine (``None`` = its default, flat on)."""
+    ``engine=None`` auto-selects as ``repro`` does: ``"corridor"`` for
+    multi-RSU worlds; for single-RSU ones ``"jit"`` when the world's ring is
+    not f32 (the bf16 ring exists only on the device engines' flat path),
+    else ``"batched"``.  An engine that cannot run the world's topology
+    raises.  ``record_cohorts`` reaches the corridor engine only; ``flat``
+    reaches the device engines (``None`` = their default, flat on)."""
     device = resolve_device(device)
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if overrides:
         sc = dataclasses.replace(sc, **overrides)
-    if sc.n_rsus > 1 or engine == "corridor":
-        raise unported(f"multi-RSU corridor world {sc.name!r}",
-                        "corridor (item 7)")
     if engine == "vmap":
         raise unported("engine='vmap'", "sweep (item 11)")
     if mesh is not None:
-        raise unported("mesh sharding of the wave training",
-                        "distribution (item 13)")
+        raise unported("mesh sharding", "distribution (item 13)")
     if sc.selection is not None:
         raise unported(f"selection policy {sc.selection!r}",
                         "selection (item 8)")
     if sc.faults is not None:
         raise unported(f"fault profile {sc.faults!r}", "faults (item 9)")
-    if sc.ring_dtype != "f32" and (engine not in (None, "jit")
+    if sc.ring_dtype != "f32" and (engine not in (None, "jit", "corridor")
                                    or flat is False):
         raise ValueError(
-            f"ring_dtype={sc.ring_dtype!r} needs the flat fast path of the "
-            "fleet engine (engine='jit'); the host engines and the pytree "
-            "layout keep full precision")
-    eng = engine or ("jit" if sc.ring_dtype != "f32" else "batched")
-    if eng not in ENGINES:
-        raise ValueError(
-            f"unknown engine {eng!r}; expected one of {ENGINES}")
+            f"ring_dtype={sc.ring_dtype!r} needs the flat fast path of a "
+            "device engine (engine='jit' or the corridor engine); the "
+            "host engines and the pytree layout keep full precision")
+    if sc.n_rsus > 1:
+        eng = engine or "corridor"
+        if eng not in CORRIDOR_ENGINES:
+            raise ValueError(
+                f"engine {eng!r} cannot run multi-RSU scenario "
+                f"{sc.name!r} (n_rsus={sc.n_rsus}); corridor scenarios "
+                f"accept {CORRIDOR_ENGINES}")
+    else:
+        eng = engine or ("jit" if sc.ring_dtype != "f32" else "batched")
+        if eng in CORRIDOR_ENGINES and eng not in ENGINES:
+            raise ValueError(
+                f"engine {eng!r} needs a multi-RSU corridor scenario; "
+                f"{sc.name!r} has a single RSU — use one of {ENGINES}")
+        if eng not in ENGINES:
+            raise ValueError(
+                f"unknown engine {eng!r}; expected one of {ENGINES} "
+                f"(single-RSU) or {CORRIDOR_ENGINES} (multi-RSU)")
     veh, te_i, te_l, p = build_world(sc, seed=seed)
+    if sc.n_rsus > 1:
+        from repro_torch.corridor import (run_corridor_simulation,
+                                          run_handover_simulation)
+        if eng == "serial":
+            if record_cohorts:
+                raise ValueError(
+                    "record_cohorts requires engine='corridor'; the serial "
+                    "reference keeps no cohort snapshots")
+            return run_handover_simulation(
+                sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
+                use_kernel=use_kernel, progress=progress, metrics=metrics,
+                device=device)
+        return run_corridor_simulation(
+            sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
+            use_kernel=use_kernel, record_cohorts=record_cohorts,
+            progress=progress, flat=flat, metrics=metrics, device=device)
     kw = {} if flat is None else {"flat": flat}
     return run_simulation(
         veh, te_i, te_l, scheme=sc.scheme,

@@ -1,0 +1,187 @@
+"""Host dry-run planner of the corridor engine: ``repro.corridor.plan``
+without selection and faults.
+
+The event timeline depends only on the channel, mobility and data-size
+processes, never on training.  With the corridor's serving-cell geometry in
+place of the single-RSU distance, one payload-free f64 replay of the serial
+handover loop's scheduling rules gives the pop order, each pop's serving
+RSU, the wave partition, the gain-table height and the initial slot of
+every vehicle in the ``[R, K]`` queue.  numpy f64 only: the device engine
+re-derives the times in f32 and checks its trace against this plan.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.channel import ChannelParams, CorridorMobility, training_delay
+
+
+@dataclass
+class CorridorPlan:
+    """Everything the corridor program needs that training cannot change.
+    All times are host-reference f64."""
+    n_rsus: int
+    veh: np.ndarray             # i32[M] vehicle popped at round r
+    cycle: np.ndarray           # i32[M] that vehicle's upload cycle
+    dl_round: np.ndarray        # i32[M] round after which it downloaded (-1 = initial)
+    up_rsu: np.ndarray          # i32[M] serving RSU at arrival (= handover target,
+                                #        = the RSU its re-download reads from)
+    times: np.ndarray           # f64[M] host-reference pop times
+    train_delay: np.ndarray     # f64[M]
+    upload_delay: np.ndarray    # f64[M]
+    download_time: np.ndarray   # f64[M]
+    waves: tuple                # ((train_rounds, seg_start, seg_end), ...)
+    n_slots: int                # gain-table height
+    q0: dict                    # initial per-vehicle slot arrays (by vehicle)
+    row0: np.ndarray            # i32[K] initial RSU row of each vehicle's slot
+    sel: object = None          # selection plan: always None until item 8
+    sel_bandit: object = None   # bandit accumulators: always None until item 8
+    flt: object = None          # fault plan: always None until item 9
+
+    def tables(self) -> dict:
+        """Fixed-shape padded plan tables whose shapes depend only on
+        ``(M, K)``, never on the seed: the wave partition re-encoded as
+        per-round ``train_round``/``seg_end`` columns, ``n_slots`` as a
+        value."""
+        M = len(self.veh)
+        train_round = np.full(M, -1, np.int32)
+        seg_end = np.zeros(M, np.int32)
+        for T, s, e in self.waves:
+            for t in T:
+                train_round[t] = s
+            seg_end[s:e] = e
+        return {
+            "veh": np.asarray(self.veh, np.int32),
+            "cycle": np.asarray(self.cycle, np.int32),
+            "dl_round": np.asarray(self.dl_round, np.int32),
+            "up_rsu": np.asarray(self.up_rsu, np.int32),
+            "times": np.asarray(self.times, np.float64),
+            "train_delay": np.asarray(self.train_delay, np.float64),
+            "upload_delay": np.asarray(self.upload_delay, np.float64),
+            "download_time": np.asarray(self.download_time, np.float64),
+            "train_round": train_round,
+            "seg_end": seg_end,
+            "n_slots": np.asarray(self.n_slots, np.int32),
+            "row0": np.asarray(self.row0, np.int32),
+            "q0_time": np.asarray(self.q0["time"], np.float64),
+            "q0_download_time": np.asarray(self.q0["download_time"],
+                                           np.float64),
+            "q0_upload_delay": np.asarray(self.q0["upload_delay"],
+                                          np.float64),
+            "q0_train_delay": np.asarray(self.q0["train_delay"],
+                                         np.float64),
+        }
+
+
+def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
+                  entry: str = "uniform", selection=None,
+                  reconcile_every: int = 0, faults=None,
+                  l_iters: int = 1) -> CorridorPlan:
+    """Dry-run ``rounds`` arrivals through the corridor timeline (no
+    payloads, no training) and derive everything static.  ``selection``
+    and ``faults`` raise until the port's items 8 and 9;
+    ``reconcile_every`` and ``l_iters`` only matter to them."""
+    from repro_torch.core.mafl import _Timeline, unported
+
+    if selection is not None:
+        raise unported("vehicle selection", "selection (item 8)")
+    if faults not in (None, "off"):
+        raise unported("fault injection", "faults (item 9)")
+    corridor = CorridorMobility(p, n_rsus, entry=entry)
+    tl = _Timeline(p, seed, distance_fn=corridor.distance)
+    for k in range(p.K):
+        tl.schedule(k, 0.0)
+
+    ev0 = tl.queue.as_struct_arrays()
+    assert len(np.unique(ev0["vehicle"])) == p.K, \
+        "slot queue invariant: one in-flight upload per vehicle"
+    q0 = {
+        "time": np.full(p.K, np.inf),
+        "download_time": np.zeros(p.K),
+        "upload_delay": np.zeros(p.K),
+        "train_delay": np.array(
+            [training_delay(p, i) for i in range(1, p.K + 1)]),
+    }
+    q0["time"][ev0["vehicle"]] = ev0["time"]
+    q0["download_time"][ev0["vehicle"]] = ev0["download_time"]
+    q0["upload_delay"][ev0["vehicle"]] = ev0["upload_delay"]
+    # a slot lives in the row of the RSU serving the vehicle at *arrival*
+    # time, known at schedule time because positions are pure in t
+    live = np.isfinite(q0["time"])
+    row0 = np.zeros(p.K, np.int32)
+    row0[live] = np.asarray(
+        corridor.serving_rsu(np.flatnonzero(live), q0["time"][live]),
+        np.int32)
+
+    M = rounds
+    veh = np.empty(M, np.int32)
+    cyc = np.empty(M, np.int32)
+    dlr = np.empty(M, np.int32)
+    ups = np.empty(M, np.int32)
+    times = np.empty(M)
+    c_l = np.empty(M)
+    c_u = np.empty(M)
+    dlt = np.empty(M)
+    last_pop = np.full(p.K, -1, np.int32)
+    for r in range(M):
+        ev = tl.queue.pop()
+        veh[r], cyc[r] = ev.vehicle, ev.cycle
+        dlr[r] = last_pop[ev.vehicle]
+        ups[r] = corridor.serving_rsu(ev.vehicle, ev.time)
+        times[r], c_l[r], c_u[r] = ev.time, ev.train_delay, ev.upload_delay
+        dlt[r] = ev.download_time
+        last_pop[ev.vehicle] = r
+        tl.schedule(ev.vehicle, ev.time)
+        tl.prune()
+
+    # Wave partition, the fleet planner's rule: a wave trains every
+    # not-yet-trained consumed upload whose payload round has completed,
+    # then the segment consumes pops up to the first event scheduled during
+    # it.  Handover adds nothing: the payload of round r's event is one
+    # ring row (the cohort its re-download read).
+    waves = []
+    trained = np.zeros(M, bool)
+    s = 0
+    while s < M:
+        T = np.where(~trained & (dlr < s))[0]
+        trained[T] = True
+        untrained = np.where(~trained)[0]
+        e = int(untrained[0]) if len(untrained) else M
+        waves.append((tuple(int(x) for x in T), s, e))
+        s = e
+
+    return CorridorPlan(n_rsus=n_rsus, veh=veh, cycle=cyc, dl_round=dlr,
+                        up_rsu=ups, times=times, train_delay=c_l,
+                        upload_delay=c_u, download_time=dlt,
+                        waves=tuple(waves), n_slots=tl.gains.last_slot + 3,
+                        q0=q0, row0=row0)
+
+
+def rsu_chain_groups(plan: CorridorPlan, s: int, e: int,
+                     needed) -> list:
+    """Per-RSU upload chains of segment ``[s, e)``.
+
+    Within a segment the uploads landing on RSU ``j`` form one sequential
+    mix chain on cohort row ``j``, so a segment aggregates as one
+    ``ring_agg`` chain per active RSU, split at the rounds in ``needed``
+    whose ring row a later wave reads (``ring[r+1]`` is the post-upload
+    row of ``up_rsu[r]``).  Returns ``[(j, [chunk, ...]), ...]``; each chunk
+    is a list of rounds, and every chunk boundary except possibly the last
+    materialises a ring row."""
+    groups = []
+    for j in range(plan.n_rsus):
+        rounds_j = [r for r in range(s, e) if int(plan.up_rsu[r]) == j]
+        if not rounds_j:
+            continue
+        chunks, cur = [], []
+        for r in rounds_j:
+            cur.append(r)
+            if r + 1 in needed:
+                chunks.append(cur)
+                cur = []
+        if cur:
+            chunks.append(cur)
+        groups.append((j, chunks))
+    return groups

@@ -261,6 +261,116 @@ def test_event_loop_never_waits_for_the_card(cuda_device, monkeypatch):
     assert sum(segments) == len(res.rounds) == 8 and len(segments) > 1
 
 
+def _corridor_chains(name, rounds, eval_every):
+    from repro_torch.core.jit_engine import eval_rounds_of
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.corridor import engine, plan_corridor
+    sc = get_scenario(name)
+    plan = plan_corridor(sc.channel(), sc.n_rsus, 0, rounds,
+                         entry=sc.corridor_entry)
+    return engine.chain_launches(plan, eval_rounds_of(rounds, eval_every),
+                                 sc.reconcile_every)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw, merges", [
+    ({}, 0), ({"ring_dtype": "bf16"}, 0),
+    ({"reconcile_mode": "ema", "reconcile_tau": 0.3}, 2),
+], ids=["fedavg", "bf16", "ema"])
+def test_corridor_on_card_launches_the_plan(cuda_device, kw, merges):
+    """corridor-quick-r2-k8: every merge a ring_agg chain, one per chunk
+    of the plan; weighted_agg only for the EMA reconcile, once per
+    reconcile (rounds 4 and 8)."""
+    from repro_torch.core.scenarios import run_scenario
+    kernels.reset_launches()
+    res = run_scenario("corridor-quick-r2-k8", rounds=8, eval_every=3,
+                       use_kernel=True, device=cuda_device, **kw)
+    assert len(res.rounds) == 8 and res.scheme == "mafl+corridor"
+    assert kernels.launch_counts() == {
+        "weighted_agg": merges,
+        "ring_agg": _corridor_chains("corridor-quick-r2-k8", 8, 3),
+        "decode_attention": 0, "swa_attention": 0, "cross_entropy": 0}
+    assert all(v.is_cuda and bool(torch.isfinite(v).all())
+               for v in res.final_params.values())
+
+
+@pytest.mark.cuda
+def test_corridor_event_loop_never_waits_for_the_card(cuda_device,
+                                                      monkeypatch):
+    """The corridor's segments (pops, chain coefficients, ring_agg chains,
+    in-place row writes) and its EMA reconciles run with CUDA
+    synchronisation made an error."""
+    from repro_torch.corridor import engine
+
+    def strict(real, log):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log.append(out)
+            return out
+        return call
+
+    segments, reconciles = [], []
+    # build and load both kernels outside the checked region
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    ops.weighted_agg(torch.zeros(4, device=cuda_device),
+                     torch.zeros(4, device=cuda_device), 0.5, 1.0)
+    monkeypatch.setattr(engine, "_chain_segment",
+                        strict(engine._chain_segment, segments))
+    monkeypatch.setattr(engine, "_reconcile",
+                        strict(engine._reconcile, reconciles))
+    from repro_torch.core.scenarios import run_scenario
+    res = run_scenario("corridor-quick-r2-k8", rounds=8, eval_every=3,
+                       use_kernel=True, reconcile_mode="ema",
+                       reconcile_tau=0.3, device=cuda_device)
+    assert sum(cols[0].numel() for cols in segments) == len(res.rounds) == 8
+    assert len(segments) > 2 and len(reconciles) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine_name", ["corridor", "serial"])
+def test_corridor_on_card_matches_cpu(cuda_device, engine_name):
+    """corridor-quick-r2-k8, 8 rounds, one numpy init, card against CPU
+    within chip_smoke.py's bands: the same (round, vehicle, rsu) trace,
+    times to the f32 band, params to atol 1e-4 / rtol 1e-3, accuracy
+    0.02."""
+    import dataclasses
+    from repro_torch.convert import params_from_jax, params_to_numpy
+    from repro_torch.core.scenarios import build_world, get_scenario
+    from repro_torch.corridor import (run_corridor_simulation,
+                                      run_handover_simulation)
+    from repro_torch.models.cnn import CNN_SHAPES
+
+    rng = np.random.default_rng(0)
+    init = {k: (np.zeros(s, np.float32) if k.endswith("_b") else
+                (rng.normal(size=s) / np.sqrt(np.prod(s[:-1])))
+                .astype(np.float32)) for k, s in CNN_SHAPES.items()}
+    sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"), rounds=8)
+    veh, ti, tl, p = build_world(sc)
+    run = (run_corridor_simulation if engine_name == "corridor"
+           else run_handover_simulation)
+    gpu, cpu = (run(sc, veh, ti, tl, p, eval_every=4, use_kernel=True,
+                    init_params=params_from_jax(init, dev), device=dev)
+                for dev in (cuda_device, "cpu"))
+    assert ([(r.round, r.vehicle, r.rsu) for r in gpu.rounds]
+            == [(r.round, r.vehicle, r.rsu) for r in cpu.rounds])
+    np.testing.assert_allclose([r.time for r in gpu.rounds],
+                               [r.time for r in cpu.rounds],
+                               rtol=2e-5, atol=1e-3)
+    pg, pc = params_to_numpy(gpu.final_params), params_to_numpy(
+        cpu.final_params)
+    for k in pg:
+        np.testing.assert_allclose(pg[k], pc[k], atol=1e-4, rtol=1e-3,
+                                   err_msg=k)
+    for (_, a), (_, b) in zip(gpu.acc_history, cpu.acc_history):
+        assert abs(a - b) <= 0.02
+
+
 # K4 decode_attention and K5 swa_attention against their plain versions:
 # f32 inputs from N(0, 1) within 2e-5 (the online softmax sums in another
 # order than the dense plain version), bf16 within 3e-2 (the plain version

@@ -21,6 +21,8 @@ REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "src/repro_torch/check/corpus"
 JFIXTURES = REPO / "src/repro/check/fixtures"
 JIT_ENGINE = "src/repro_torch/core/jit_engine.py"
+CORRIDOR_ENGINE = "src/repro_torch/corridor/engine.py"
+CORRIDOR_PLAN = "src/repro_torch/corridor/plan.py"
 
 
 def _rule_lines(fs):
@@ -81,6 +83,37 @@ def test_injection_into_slot_queue_pop_is_caught(inject, rule):
     fs = check_source(JIT_ENGINE, src.replace(anchor, body, 1))
     line = src[:src.index(anchor)].count("\n") + 6
     assert [(f.rule, f.line) for f in fs] == [(rule, line)]
+
+
+@pytest.mark.parametrize("inject, rule", [
+    ("bad = flat.item()", "BND003"),
+    ("bad = t.double()", "BND004"),
+    ("bad = int(j)", "BND003"),
+    ("bad = np.asarray(cl)", "BND001"),
+])
+def test_injection_into_corridor_pop_is_caught(inject, rule):
+    src = (REPO / CORRIDOR_ENGINE).read_text()
+    anchor = "        dl_t = self.qdl.index_select(0, i)\n"
+    assert anchor in src
+    fs = check_source(CORRIDOR_ENGINE,
+                      src.replace(anchor, anchor + f"        {inject}\n", 1))
+    line = src[:src.index(anchor)].count("\n") + 2
+    assert [(f.rule, f.line) for f in fs] == [(rule, line)]
+
+
+def test_corridor_planner_is_linted_as_a_planner():
+    """corridor/plan.py is clean as a planner; a torch import, an engine
+    import or an f32 drop in it is PLN001/PLN002."""
+    assert config.matches(CORRIDOR_PLAN, config.PLANNER_MODULES)
+    src = (REPO / CORRIDOR_PLAN).read_text()
+    assert check_source(CORRIDOR_PLAN, src) == []
+    anchor = "    corridor = CorridorMobility(p, n_rsus, entry=entry)\n"
+    assert anchor in src
+    bad = (anchor + "    import torch\n"
+           "    from repro_torch.corridor import engine\n"
+           "    drop = np.float32(p.v)\n")
+    fs = check_source(CORRIDOR_PLAN, src.replace(anchor, bad, 1))
+    assert sorted(f.rule for f in fs) == ["PLN001", "PLN001", "PLN002"]
 
 
 def test_python_typed_flags_and_shape_reads_are_not_tainted():

@@ -33,6 +33,24 @@ def test_plan_fleet_signature_equals_repro(seed):
     assert mine == ref
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plan_corridor_signature_equals_repro(seed):
+    """The corridor probe's two signatures, plan fields and padded
+    tables, field for field against ``repro.check``'s."""
+    import repro.core  # noqa: F401  (repro.corridor imports through it)
+    from repro.check.plan_shapes import _tables_signature as jtables
+    from repro.corridor.plan import plan_corridor as jplan_corridor
+    from repro_torch.corridor.plan import plan_corridor
+
+    mine = plan_corridor(dataclasses.replace(ChannelParams(), K=5),
+                         n_rsus=2, seed=seed, rounds=12)
+    ref = jplan_corridor(dataclasses.replace(JChannelParams(), K=5),
+                         n_rsus=2, seed=seed, rounds=12)
+    assert plan_shapes._signature(mine) == jsignature(ref)
+    assert (plan_shapes._tables_signature(mine.tables())
+            == jtables(ref.tables()))
+
+
 def test_plan_shapes_flags_a_seed_dependent_field():
     sigs = {0: {"veh": ((12,), "int32")}, 1: {"veh": ((11,), "int32")}}
     out = []

@@ -5,6 +5,7 @@ the card or raise; unported features raise naming their slice."""
 from __future__ import annotations
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -18,7 +19,9 @@ from repro_torch.channel import ChannelParams
 from repro_torch.configs import get_config
 from repro_torch.core.client import Vehicle, VehicleData
 from repro_torch.core.mafl import evaluate, run_simulation
-from repro_torch.core.scenarios import run_scenario
+from repro_torch.core.scenarios import get_scenario, run_scenario
+from repro_torch.corridor import (run_corridor_simulation,
+                                  run_handover_simulation)
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve, train
@@ -94,7 +97,8 @@ def _tiny_world():
     "repro_torch.data", "repro_torch.check", "repro_torch.check.runner",
     "repro_torch.check.boundary", "repro_torch.check.grid_race",
     "repro_torch.check.dtype_flow", "repro_torch.check.plan_shapes",
-    "repro_torch.check.corpus.racy_kernel"])
+    "repro_torch.check.corpus.racy_kernel", "repro_torch.corridor",
+    "repro_torch.corridor.plan", "repro_torch.core.hierarchical"])
 def test_fleet_modules_import_alone_without_jax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -109,7 +113,8 @@ def test_fleet_modules_import_alone_without_jax(module):
 @pytest.mark.parametrize("entry", [
     "resolve_device", "run_scenario", "run_simulation", "evaluate",
     "Vehicle", "RSUServer", "run_simulation_jit", "init_params",
-    "init_cache", "serve", "train"])
+    "init_cache", "serve", "train", "run_corridor_simulation",
+    "run_handover_simulation"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the card: without one the call raises instead
     of running on the host."""
@@ -117,6 +122,8 @@ def test_entry_points_default_to_the_card(entry):
         pytest.skip("a CUDA device is present: device=None is valid here")
     data = _tiny_world()
     params = init_cnn(torch.Generator().manual_seed(0), device="cpu")
+    corridor = dataclasses.replace(get_scenario("corridor-quick-r2-k8"),
+                                   K=1, rounds=1)
     calls = {
         "resolve_device": lambda: resolve_device(None),
         "run_scenario": lambda: run_scenario("quick-k5", rounds=1),
@@ -135,13 +142,18 @@ def test_entry_points_default_to_the_card(entry):
             get_config("smollm-360m").reduced(), 1, 8),
         "serve": lambda: serve.main(["--reduced"]),
         "train": lambda: train.main(["--reduced", "--rounds", "1"]),
+        "run_corridor_simulation": lambda: run_corridor_simulation(
+            corridor, [data], data.images, data.labels),
+        "run_handover_simulation": lambda: run_handover_simulation(
+            corridor, [data], data.images, data.labels, corridor.channel()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [
-    (dict(scenario="corridor-quick-r2-k8"), "corridor"),
+    (dict(scenario="corridor-r4-k400-bandit"), "selection"),
+    (dict(scenario="corridor-rush-hour-deadzone-r8-k4000"), "faults"),
     (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
     (dict(scenario="fleet-k1000-topk", engine="jit"), "selection"),
     (dict(scenario="quick-k5", engine="jit", mesh=object()),
