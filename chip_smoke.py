@@ -49,6 +49,21 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    card and on the CPU from one numpy-made init, on both engines: the
    same (round, vehicle, rsu) trace, times, params and accuracy within
    phase 5's bands.
+6b. selection path (after phase 6): fleet-k1000-topk and
+   fleet-k1000-budget on ``engine="jit"`` (30 rounds each): ``ring_agg``
+   launches = the selection plan's chains, ``weighted_agg`` none, every
+   popped vehicle admitted when it downloaded, ``extras["selection"]`` =
+   a host re-plan's summary, fleet-k1000-topk profiled; fleet-k1000-topk
+   on ``batched``: one ``weighted_agg`` launch per merge;
+   corridor-r4-k400-bandit on ``engine="corridor"`` (40 rounds):
+   ``ring_agg`` = ``chain_launches`` of its plan, the bandit guard
+   passing; on the serial handover loop: one ``weighted_agg`` launch per
+   arrival; selection with the EMA reconcile raises ``ValueError``.
+   After the corridor's card-vs-CPU check: paper-k10 with weighted-topk k
+   5 (8 rounds, serial and jit) and corridor-quick-r2-k8 with eps-bandit
+   k 2, eps 0.4 (12 rounds, both corridor engines) on the card and on the
+   CPU from one numpy-made init: equal ``extras["selection"]``, the same
+   traces, times and params within phase 5's bands.
 7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
@@ -686,6 +701,7 @@ def expected_chains(name, rounds):
     from repro_torch.core.scenarios import get_scenario
     sc = get_scenario(name)
     plan = jit_engine.plan_fleet(sc.channel(), 0, rounds,
+                                 selection=sc.selection_spec(),
                                  l_iters=sc.l_iters)
     need = jit_engine.needed_rounds(
         plan, jit_engine.eval_rounds_of(rounds, EVAL_EVERY))
@@ -694,7 +710,8 @@ def expected_chains(name, rounds):
 
 
 def run_fleet(name, rounds):
-    """One fleet-engine run; returns (ms/round, ring_agg launches)."""
+    """One fleet-engine run; returns (result, ms/round, ring_agg
+    launches)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import jit_engine
@@ -726,9 +743,10 @@ def run_fleet(name, rounds):
     # the run's host set-up, timed alone: world building (one data shard
     # per vehicle) and the f64 plan
     t0 = time.perf_counter()
-    _, _, _, p = build_world(get_scenario(name))
+    sc = get_scenario(name)
+    _, _, _, p = build_world(sc)
     t1 = time.perf_counter()
-    jit_engine.plan_fleet(p, 0, rounds)
+    jit_engine.plan_fleet(p, 0, rounds, selection=sc.selection_spec())
     t2 = time.perf_counter()
     log(f"fleet: {name} engine=jit rounds={rounds}: {ms_round:.3f} "
         f"ms/round ({dt:.3f} s), final accuracy {res.final_accuracy():.5f}, "
@@ -737,7 +755,7 @@ def run_fleet(name, rounds):
     log(f"fleet:   set-up timed alone: build_world {t1 - t0:.3f} s, "
         f"plan_fleet {t2 - t1:.3f} s; the rest of the run (staging, device "
         f"loop, evals) {dt - (t2 - t0):.3f} s")
-    return ms_round, counts["ring_agg"]
+    return res, ms_round, counts["ring_agg"]
 
 
 def phase_fleet():
@@ -748,7 +766,7 @@ def phase_fleet():
         run_scenario(name, engine="jit", use_kernel=True, device=DEVICE,
                      rounds=rounds, eval_every=EVAL_EVERY)
         log(f"fleet: {name} warm-up {time.perf_counter() - t0:.3f} s")
-        ms[name], n = run_fleet(name, rounds)
+        _, ms[name], n = run_fleet(name, rounds)
         total += n
     profile_run("fleet-k10000", "jit", 60, ms["fleet-k10000"] * 60)
     return total
@@ -769,8 +787,9 @@ def numpy_init(seed=0):
     return tree
 
 
-def phase_host(engine):
-    """paper-k10 for 8 rounds on the card and on the CPU, same init."""
+def phase_host(engine, selection=None):
+    """paper-k10 for 8 rounds on the card and on the CPU, same init (with
+    a ``SelectionSpec``: the same ``extras["selection"]`` too)."""
     from repro_torch.convert import params_from_jax, params_to_numpy
     from repro_torch.core.mafl import run_simulation
     from repro_torch.core.scenarios import build_world, get_scenario
@@ -779,19 +798,27 @@ def phase_host(engine):
     veh, te_i, te_l, p = build_world(sc)
     init = numpy_init()
     out = {}
+    label = engine if selection is None else f"{engine} {selection.policy}"
     for dev in (DEVICE, "cpu"):
         t0 = time.perf_counter()
         out[dev] = run_simulation(
             veh, te_i, te_l, scheme=sc.scheme, rounds=HOST_ROUNDS,
             l_iters=sc.l_iters, lr=sc.lr, params=p, eval_every=2,
             use_kernel=True, init_params=params_from_jax(init, dev),
-            engine=engine, device=dev)
-        log(f"host: paper-k10 {engine} {HOST_ROUNDS} rounds on {dev}: "
+            engine=engine, selection=selection, device=dev)
+        log(f"host: paper-k10 {label} {HOST_ROUNDS} rounds on {dev}: "
             f"{time.perf_counter() - t0:.3f} s")
     gpu, cpu = out[DEVICE], out["cpu"]
+    if selection is not None:
+        admit0 = cpu.extras["selection"]["admit0"]
+        check(gpu.extras["selection"] == cpu.extras["selection"],
+              f"{label}: card and CPU selection summaries differ")
+        check(not all(admit0) and {r.vehicle for r in cpu.rounds}
+              <= {v for v, a in enumerate(admit0) if a},
+              f"{label}: a parked vehicle arrived ({admit0})")
     check([(r.round, r.vehicle) for r in gpu.rounds]
           == [(r.round, r.vehicle) for r in cpu.rounds],
-          f"{engine}: card and CPU (round, vehicle) traces differ")
+          f"{label}: card and CPU (round, vehicle) traces differ")
     tg = np.array([r.time for r in gpu.rounds])
     tc = np.array([r.time for r in cpu.rounds])
     if engine == "jit":
@@ -807,12 +834,12 @@ def phase_host(engine):
         err = float(np.abs(pg[k] - pc[k]).max())
         worst = max(worst, err)
         check(np.allclose(pg[k], pc[k], atol=HOST_ATOL, rtol=HOST_RTOL),
-              f"{engine}: card vs CPU final {k}: max |diff| {err}")
+              f"{label}: card vs CPU final {k}: max |diff| {err}")
     acc_diff = max(abs(a - b) for (_, a), (_, b)
                    in zip(gpu.acc_history, cpu.acc_history))
     check(acc_diff <= ACC_TOL,
-          f"{engine}: card vs CPU accuracy differs by {acc_diff}")
-    log(f"host: {engine}: card and CPU traces identical ((round, vehicle); "
+          f"{label}: card vs CPU accuracy differs by {acc_diff}")
+    log(f"host: {label}: card and CPU traces identical ((round, vehicle); "
         f"event times max |diff| {float(np.abs(tg - tc).max())}); final "
         f"params max |diff| {worst} (atol {HOST_ATOL}, rtol {HOST_RTOL}); "
         f"accuracy max |diff| {acc_diff}")
@@ -836,7 +863,9 @@ def corridor_plan(name, rounds, **overrides):
     from repro_torch.corridor import engine, plan_corridor
     sc = dataclasses.replace(get_scenario(name), rounds=rounds, **overrides)
     plan = plan_corridor(sc.channel(), sc.n_rsus, 0, rounds,
-                         entry=sc.corridor_entry)
+                         entry=sc.corridor_entry,
+                         selection=sc.selection_spec(),
+                         reconcile_every=sc.reconcile_every)
     return sc, plan, engine.chain_launches(
         plan, eval_rounds_of(rounds, EVAL_EVERY), sc.reconcile_every)
 
@@ -957,16 +986,19 @@ def phase_corridor(dev):
     return k1, k2, ms["corridor-r8-k4000"]
 
 
-def phase_corridor_vs_cpu():
-    """corridor-quick-r2-k8 for 8 rounds on the card and on the CPU from
-    one numpy-made init, on the device engine and on the serial loop."""
+def phase_corridor_vs_cpu(rounds=8, **selection):
+    """corridor-quick-r2-k8 for ``rounds`` rounds on the card and on the
+    CPU from one numpy-made init, on the device engine and on the serial
+    loop; ``selection`` holds Scenario selection fields (then the two
+    ``extras["selection"]`` must be equal too)."""
     import dataclasses
     from repro_torch.convert import params_from_jax, params_to_numpy
     from repro_torch.core.scenarios import build_world, get_scenario
     from repro_torch.corridor import (run_corridor_simulation,
                                       run_handover_simulation)
 
-    sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"), rounds=8)
+    sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"),
+                             rounds=rounds, **selection)
     veh, te_i, te_l, p = build_world(sc)
     init = numpy_init()
     for engine, run in (("corridor", run_corridor_simulation),
@@ -978,33 +1010,172 @@ def phase_corridor_vs_cpu():
                            init_params=params_from_jax(init, dev),
                            device=dev)
         gpu, cpu = out[DEVICE], out["cpu"]
+        label = f"{engine} {sc.selection}" if selection else engine
+        if selection:
+            summary = cpu.extras["selection"]
+            check(gpu.extras["selection"] == summary,
+                  f"corridor {label}: card and CPU selection summaries "
+                  f"differ")
+            log(f"corridor: {label}: card and CPU selection summaries "
+                f"equal: re-scored at "
+                f"{[b for b, _, _ in summary['decisions']]}, re-admitted "
+                f"{[n for _, n, _ in summary['decisions']]}")
         trace = [(r.round, r.vehicle, r.rsu) for r in cpu.rounds]
         check([(r.round, r.vehicle, r.rsu) for r in gpu.rounds] == trace,
-              f"corridor {engine}: card and CPU (round, vehicle, rsu) "
+              f"corridor {label}: card and CPU (round, vehicle, rsu) "
               f"traces differ")
         tg = np.array([r.time for r in gpu.rounds])
         tc = np.array([r.time for r in cpu.rounds])
         check(np.allclose(tg, tc, **JIT_TIME_TOL),
-              f"corridor {engine}: card and CPU event times differ: {tg} vs "
+              f"corridor {label}: card and CPU event times differ: {tg} vs "
               f"{tc}")
         pg, pc = (params_to_numpy(gpu.final_params),
                   params_to_numpy(cpu.final_params))
         worst = max(float(np.abs(pg[k] - pc[k]).max()) for k in pg)
         for k in pg:
             check(np.allclose(pg[k], pc[k], atol=HOST_ATOL, rtol=HOST_RTOL),
-                  f"corridor {engine}: card vs CPU final {k}: max |diff| "
+                  f"corridor {label}: card vs CPU final {k}: max |diff| "
                   f"{float(np.abs(pg[k] - pc[k]).max())}")
         acc_diff = max(abs(a - b) for (_, a), (_, b)
                        in zip(gpu.acc_history, cpu.acc_history))
         check(acc_diff <= ACC_TOL,
-              f"corridor {engine}: card vs CPU accuracy differs by "
+              f"corridor {label}: card vs CPU accuracy differs by "
               f"{acc_diff}")
-        log(f"corridor: {engine}: card and CPU traces identical ((round, "
+        log(f"corridor: {label}: card and CPU traces identical ((round, "
             f"vehicle, rsu), uploads on RSUs "
             f"{sorted({r for _, _, r in trace})}; event times max |diff| "
             f"{float(np.abs(tg - tc).max())}); final params max |diff| "
             f"{worst} (atol {HOST_ATOL}, rtol {HOST_RTOL}); accuracy max "
             f"|diff| {acc_diff}")
+
+
+# the selection worlds at their registered sizes and rounds, eval every 10
+SELECTION_FLEET = (("fleet-k1000-topk", 30), ("fleet-k1000-budget", 30))
+SELECTION_CORRIDOR = ("corridor-r4-k400-bandit", 40)
+
+
+def admitted_pops(plan):
+    """Whether every popped vehicle was admitted when it downloaded: at
+    t = 0 (``admit0``), by its previous pop's mask, or re-admitted at the
+    boundary after that pop."""
+    from repro_torch.core.jit_engine import readmit_points
+    sel, readmits = plan.sel, readmit_points(plan)
+    for v, d in zip(plan.veh, plan.dl_round):
+        if d < 0:
+            ok = sel.admit0[v]
+        else:
+            ok = (sel.mask_for_round(int(d))[v]
+                  or int(v) in readmits.get(int(d) + 1, ()))
+        if not ok:
+            return False
+    return True
+
+
+def phase_selection(dev):
+    """Vehicle selection on every engine of the port at registered sizes:
+    the fleet engine on fleet-k1000-topk and -budget (K1 = the selection
+    plan's chains, K2 = 0, every pop admitted, the summary equal to a host
+    re-plan's), the batched host engine on fleet-k1000-topk (K2 = one
+    launch per merge), the corridor engine on corridor-r4-k400-bandit (K1 =
+    ``chain_launches`` of its plan, the bandit guard passing) and the
+    serial handover loop on it (K2 = one launch per arrival); selection
+    with the EMA reconcile raises.  Returns (K1 launches, K2 launches)."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import (build_world, get_scenario,
+                                            run_scenario)
+    from repro_torch.corridor import plan_corridor
+    from repro_torch.kernels.weighted_agg import ops
+    from repro_torch.models.cnn import CNN_SHAPES
+
+    k1 = k2 = 0
+    for name, rounds in SELECTION_FLEET:
+        t0 = time.perf_counter()                 # warm-up, untimed
+        run_scenario(name, engine="jit", use_kernel=True, device=DEVICE,
+                     rounds=rounds, eval_every=EVAL_EVERY)
+        log(f"selection: {name} warm-up {time.perf_counter() - t0:.3f} s")
+        res, ms, n = run_fleet(name, rounds)
+        k1 += n
+        if name == SELECTION_FLEET[0][0]:
+            profile_run(name, "jit", rounds, ms * rounds)
+        sc = get_scenario(name)
+        plan = jit_engine.plan_fleet(sc.channel(), 0, rounds,
+                                     selection=sc.selection_spec())
+        summary = res.extras["selection"]
+        check(summary == plan.sel.summary(),
+              f"{name}/jit: selection summary differs from a host re-plan")
+        check(admitted_pops(plan)
+              and [r.vehicle for r in res.rounds] == plan.veh.tolist(),
+              f"{name}/jit: a popped vehicle was not admitted")
+        log(f"selection: {name}/jit: {sum(summary['admit0'])} of {sc.K} "
+            f"admitted ({summary['policy']}), {len(plan.waves)} waves, "
+            f"{len({r.vehicle for r in res.rounds})} vehicles arrived; "
+            f"every pop admitted; summary = the host re-plan's")
+
+    name = SELECTION_FLEET[0][0]
+    run_scenario(name, engine="batched", use_kernel=True, device=DEVICE,
+                 rounds=5)                       # warm-up, untimed
+    res, _, n = run_main(name, "batched", SELECTION_FLEET[0][1])
+    k2 += n
+    check(not all(res.extras["selection"]["admit0"]),
+          f"{name}/batched: nothing parked")
+
+    name, rounds = SELECTION_CORRIDOR
+    sc, plan, want = corridor_plan(name, rounds)
+    run_corridor(name, rounds)                   # warm-up, untimed
+    res, ms, counts = run_corridor(name, rounds)
+    check(counts["ring_agg"] == want and counts["weighted_agg"] == 0,
+          f"{name}/corridor: ring_agg {counts['ring_agg']} (plan {want}), "
+          f"weighted_agg {counts['weighted_agg']}")
+    check(res.extras["selection"] == plan.sel.summary(),
+          f"{name}/corridor: selection summary differs from the plan's")
+    k1 += counts["ring_agg"]
+    t0 = time.perf_counter()
+    _, _, _, p = build_world(sc)
+    t1 = time.perf_counter()
+    plan_corridor(p, sc.n_rsus, 0, rounds, selection=sc.selection_spec(),
+                  reconcile_every=sc.reconcile_every)
+    t2 = time.perf_counter()
+    readmitted = [len(n) for _, n, _ in plan.sel.boundaries]
+    log(f"selection: {name}/corridor: ring_agg launches = the plan's "
+        f"{want} chunks; bandit guard passed; re-admitted {readmitted} at "
+        f"{[b for b, _, _ in plan.sel.boundaries]}; set-up timed alone: "
+        f"build_world {t1 - t0:.3f} s, plan_corridor {t2 - t1:.3f} s; "
+        f"{ms:.3f} ms/round")
+
+    per_merge = ops.launches(len(CNN_SHAPES))
+    run_corridor(name, 8, engine="serial")       # warm-up, untimed
+    _, _, counts = run_corridor(name, rounds, engine="serial")
+    check(counts["weighted_agg"] == per_merge * rounds
+          and counts["ring_agg"] == 0,
+          f"{name}/serial: weighted_agg {counts['weighted_agg']} for "
+          f"{rounds} arrivals, ring_agg {counts['ring_agg']}")
+    k2 += counts["weighted_agg"]
+
+    for engine in ("corridor", "serial"):
+        try:
+            run_scenario(name, engine=engine, device=DEVICE, rounds=8,
+                         reconcile_mode="ema")
+        except ValueError as e:
+            check("ema" in str(e), f"{name}/{engine} EMA: {e}")
+        else:
+            check(False, f"{name}/{engine}: selection with the EMA "
+                         f"reconcile ran")
+    log(f"selection: {name}: selection with the EMA reconcile raises "
+        f"ValueError on both corridor engines")
+    return k1, k2
+
+
+def phase_selection_vs_cpu():
+    """Selection card against CPU: paper-k10 with weighted-topk k 5 for 8
+    rounds on the serial and the fleet engine, and corridor-quick-r2-k8
+    with eps-bandit k 2, eps 0.4 for 12 rounds on both corridor engines,
+    each from one numpy-made init within phase 5's bands."""
+    from repro_torch.selection import SelectionSpec
+    topk = SelectionSpec("weighted-topk", k=5)
+    phase_host("serial", topk)
+    phase_host("jit", topk)
+    phase_corridor_vs_cpu(rounds=12, selection="eps-bandit", selection_k=2,
+                          selection_eps=0.4)
 
 
 # K4 decode_attention / K5 swa_attention: f32 inputs from N(0, 1) within
@@ -2095,27 +2266,33 @@ def main() -> int:
     host_merges = phase_main()
     fleet_chains = phase_fleet()
     corridor_chains, corridor_merges, corridor_ms = phase_corridor(dev)
-    # K1 runs on two main paths: the fleet engine's chains and the
-    # corridor's per-RSU chains
-    k1["launches"] = fleet_chains + corridor_chains
+    selection_chains, selection_merges = phase_selection(dev)
+    # K1 runs on three main paths: the fleet engine's chains, the
+    # corridor's per-RSU chains and both under vehicle selection
+    k1["launches"] = fleet_chains + corridor_chains + selection_chains
     k1["launches_by_path"] = {"fleet engine": fleet_chains,
-                              "corridor": corridor_chains}
+                              "corridor": corridor_chains,
+                              "selection": selection_chains}
     k4["launches"], k5["launches"] = phase_serve(dev)
     k3["launches"], train_merges = phase_train(dev)
     # F1 is a fixture: no main path launches it
     f1_main = racy_kernel.KERNEL.launches - f1_before
     check(f1_main == 0,
           f"racy_sum launched {f1_main} times on the main paths")
-    # K2 runs on three main paths: the host engines' merges, the
-    # corridor's (EMA reconciles, serial handover merges) and training's
-    k2["launches"] = host_merges + corridor_merges + train_merges
+    # K2 runs on four main paths: the host engines' merges, the
+    # corridor's (EMA reconciles, serial handover merges), those under
+    # vehicle selection and training's
+    k2["launches"] = (host_merges + corridor_merges + selection_merges
+                      + train_merges)
     k2["launches_by_path"] = {"host engines": host_merges,
                               "corridor": corridor_merges,
+                              "selection": selection_merges,
                               "training": train_merges}
     phase_train_step(dev)
     phase_host("serial")
     phase_host("jit")
     phase_corridor_vs_cpu()
+    phase_selection_vs_cpu()
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
     # after every host-clock timing of the main paths (its host-side probe

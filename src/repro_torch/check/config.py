@@ -29,12 +29,14 @@ ENGINE_MODULES = (
 # torch.utils.checkpoint are found in any scanned file without listing.
 DEVICE_LOOP_FUNCTIONS = {
     "repro_torch/core/jit_engine.py": (
-        "_SlotQueue.pop", "_SlotQueue.upload_delay", "_event_segment",
+        "_SlotQueue.pop", "_SlotQueue.upload_delay", "_SlotQueue.admit",
+        "_SlotQueue.readmit", "_event_segment",
         "_chain_segment", "_run_program", "_train_wave"),
     "repro_torch/corridor/engine.py": (
         "_CorridorQueue.pop", "_CorridorQueue.upload_delay",
-        "_CorridorQueue.wrap", "_CorridorQueue.serving", "_chain_segment",
-        "_reconcile", "_run_program"),
+        "_CorridorQueue.readmit", "_CorridorQueue.wrap",
+        "_CorridorQueue.serving", "_chain_segment", "_reconcile",
+        "_run_program"),
     "repro_torch/models/transformer.py": ("decode_step",),
     "repro_torch/models/attention.py": ("attention_decode",),
     "repro_torch/launch/steps.py": (
@@ -45,10 +47,13 @@ DEVICE_LOOP_FUNCTIONS = {
 }
 
 # Planner modules: pure f64 host numpy, no engine/kernel imports, no torch
-# (PLN001/PLN002).  selection/ joins with item 8; the bad-planner fixture is
-# linted as one.
+# (PLN001/PLN002).  selection/runtime.py is the f64 selection replay every
+# planner runs, faults/runtime.py the composition helpers they call; the
+# bad-planner fixture is linted as one.
 PLANNER_MODULES = (
     "repro_torch/corridor/plan.py",
+    "repro_torch/selection/runtime.py",
+    "repro_torch/faults/runtime.py",
     "repro_torch/check/corpus/bad_planner.py",
 )
 
@@ -62,6 +67,8 @@ PLANNER_FUNCTIONS = {
 # repro_torch (and torch) is engine internals from the planner's view.
 PLANNER_ALLOWED_IMPORTS = (
     "repro_torch.channel",
+    "repro_torch.selection",
+    "repro_torch.faults",       # the selection composition helpers
     "repro_torch.core.mafl",    # _Timeline: the shared f64 event-queue replay
 )
 

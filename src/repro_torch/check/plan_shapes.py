@@ -7,12 +7,14 @@ never batch them.  This probe runs the planner twice with different seeds
 on a small fleet and diffs the ndarray fields' ``(shape, dtype)``
 signatures.
 
-The same holds for ``plan_corridor`` and for the padded tables of
-``CorridorPlan.tables()``.  Exempt by design, as in ``repro``: ``waves`` is
-a host-side tuple whose length legitimately varies by seed (the engine
-walks it on the host), and ``n_slots`` is a Python int sizing the gain
-table.  The sweep, selection and fault parts of ``repro``'s probe wait for
-the port's items 11, 8 and 9.
+The same holds for ``plan_corridor``, for the padded tables of
+``CorridorPlan.tables()`` and for the selection plan's ``[rounds, K]``
+admission tables (``SelectionPlan.tables``), whose ragged ``boundaries``
+source is exactly the kind of data that drifts.  Exempt by design, as in
+``repro``: ``waves`` is a host-side tuple whose length legitimately varies
+by seed (the engine walks it on the host), and ``n_slots`` is a Python int
+sizing the gain table.  The sweep and fault parts of ``repro``'s probe wait
+for the port's items 11 and 9.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ def probe_plan_shapes() -> list[Finding]:
     from repro_torch.channel import ChannelParams
     from repro_torch.core.jit_engine import plan_fleet
     from repro_torch.corridor.plan import plan_corridor
+    from repro_torch.selection import SelectionSpec
 
     findings: list[Finding] = []
     p = dataclasses.replace(ChannelParams(), K=5)
@@ -81,4 +84,10 @@ def probe_plan_shapes() -> list[Finding]:
     _diff("plan_corridor", sigs, findings, "<probe:plan_corridor>")
     sigs = {s: _tables_signature(plan.tables()) for s, plan in plans.items()}
     _diff("CorridorPlan.tables", sigs, findings, "<probe:plan_corridor>")
+
+    spec = SelectionSpec(policy="weighted-topk", k=3, resel_every=4)
+    sigs = {s: _tables_signature(
+        plan_fleet(p, seed=s, rounds=12, selection=spec).sel.tables(12))
+        for s in _PROBE_SEEDS}
+    _diff("SelectionPlan.tables", sigs, findings, "<probe:selection>")
     return findings

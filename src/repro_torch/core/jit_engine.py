@@ -26,6 +26,11 @@ eagerly on the card.
   ported.
 - ``ring_dtype="bf16"`` stores snapshot rows and upload rows in bf16
   around the f32 master and f32 accumulation.
+- **Selection** is host data: an ``[M, K]`` admission table on the card
+  gates each pop's re-schedule (a parked vehicle's slot goes ``+inf``),
+  boundary re-admissions write the queue between two pops, and the
+  eps-bandit's f32 reward accumulators are checked after the run against
+  the host replay's f64 expectation.
 
 Times on the device are f32.  The timeline never depends on training, so
 an f64 host dry run (:func:`plan_fleet`) fixes the pop order, the waves and
@@ -49,8 +54,10 @@ from repro_torch.core.flat import ParamLayout
 from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.device import resolve_device
+from repro_torch.faults import arrival_step, fold_readmits, initial_vehicles
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 from repro_torch.models.cnn import init_cnn
+from repro_torch.selection import make_selection_state
 
 _SUPPORTED_SCHEMES = ("mafl", "afl", "fedasync")
 
@@ -69,25 +76,31 @@ class FleetPlan:
     waves: tuple                # ((train_rounds, seg_start, seg_end), ...)
     n_slots: int                # gain-table height
     q0: dict                    # initial per-vehicle slot arrays
+    sel: object = None          # SelectionPlan, or None without selection
+    sel_bandit: object = None   # (rew_sum, rew_cnt) f64 the bandit guard reads
 
 
 def plan_fleet(p: ChannelParams, seed: int, rounds: int,
                selection=None, faults=None, l_iters: int = 5) -> FleetPlan:
     """Dry-run ``rounds`` arrivals (no payloads, no training) and derive the
     pop order, the wave partition and the initial queue slots, as
-    ``repro.core.jit_engine.plan_fleet`` does without selection or
-    faults."""
-    if selection is not None:
-        raise unported("vehicle selection", "selection (item 8)")
+    ``repro.core.jit_engine.plan_fleet`` does without faults.  A selection
+    policy is replayed by its own ``SelectionState``: parked vehicles hold
+    ``+inf`` in ``q0`` and re-admissions are part of the plan."""
     if faults not in (None, "off"):
         raise unported("fault injection", "faults (item 9)")
+    sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
     tl = _Timeline(p, seed)
-    for k in range(p.K):
+    for k in initial_vehicles(sel, None, p.K):
         tl.schedule(k, 0.0)
 
     ev0 = tl.queue.as_struct_arrays()
-    assert len(np.unique(ev0["vehicle"])) == p.K, \
-        "slot queue invariant: one in-flight upload per vehicle"
+    if sel is None:
+        assert len(np.unique(ev0["vehicle"])) == p.K, \
+            "slot queue invariant: one in-flight upload per vehicle"
+    # full-K slot arrays; a parked vehicle holds +inf (never popped) until
+    # a re-admission boundary writes it a live slot.  train_delay is Eq. 8
+    # for every vehicle, parked ones too: a re-admission reads it
     q0 = {
         "time": np.full(p.K, np.inf),
         "download_time": np.zeros(p.K),
@@ -115,7 +128,20 @@ def plan_fleet(p: ChannelParams, seed: int, rounds: int,
         times[r], c_l[r], c_u[r] = ev.time, ev.train_delay, ev.upload_delay
         dlt[r] = ev.download_time
         last_pop[ev.vehicle] = r
-        tl.schedule(ev.vehicle, ev.time)
+
+        def _readmit(v, t=ev.time, r=r):
+            # a re-admitted vehicle downloads the post-round-r model, so
+            # its next pop's payload is row r+1, as for an ordinary
+            # re-download
+            tl.schedule(v, t)
+            last_pop[v] = r
+
+        arrival_step(
+            sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+            upload_delay=ev.upload_delay, train_delay=ev.train_delay,
+            pending=len(tl.queue),
+            schedule=lambda v, t=ev.time: tl.schedule(v, t),
+            readmit=_readmit)
         tl.prune()
 
     # Wave partition, the batched engine's rule: a wave trains every
@@ -136,7 +162,9 @@ def plan_fleet(p: ChannelParams, seed: int, rounds: int,
     return FleetPlan(veh=veh, cycle=cyc, dl_round=dlr, times=times,
                      train_delay=c_l, upload_delay=c_u, download_time=dlt,
                      waves=tuple(waves), n_slots=tl.gains.last_slot + 3,
-                     q0=q0)
+                     q0=q0, sel=None if sel is None else sel.plan(),
+                     sel_bandit=None if sel is None
+                     else sel.bandit_expectation())
 
 
 def eval_rounds_of(rounds: int, eval_every: int) -> tuple:
@@ -180,7 +208,10 @@ class _SlotQueue:
     """The device slot queue and the Eq. 3-6 re-scheduler.
 
     Channel constants are rounded to f32 first and applied as f32 scalars
-    in ``repro``'s op order."""
+    in ``repro``'s op order.  Under an active selection plan the queue
+    holds the ``[M, K]`` admission table (``adm``) and, for eps-bandit,
+    the f32 reward accumulators ``rs``/``rc``; otherwise these are None
+    and a pop is the path without selection."""
 
     def __init__(self, p: ChannelParams, plan: FleetPlan, gains, x0,
                  device):
@@ -207,6 +238,41 @@ class _SlotQueue:
         self.qdl = col(plan.q0["download_time"])
         self.qcu = col(plan.q0["upload_delay"])
         self.qcl = col(plan.q0["train_delay"])
+        self.inf = torch.full((1,), np.inf, dtype=torch.float32,
+                              device=device)
+        self.adm = self.rs = self.rc = None
+        sel = plan.sel
+        if sel is not None and not sel.is_noop:
+            self.adm = torch.from_numpy(
+                sel.tables(len(plan.veh))["mask"]).to(device)
+            if sel.spec.policy == "eps-bandit":
+                self.rs = torch.zeros(p.K, dtype=torch.float32,
+                                      device=device)
+                self.rc = torch.zeros_like(self.rs)
+
+    def admit(self, r: int, i, t_new, cu, cl, weight, mafl: bool):
+        """Selection at pop ``r`` (a host int) of vehicle ``i``: fold the
+        bandit reward (the delay weight, Eqs. 7, 9) into ``rs``/``rc``, and
+        return the re-schedule time, ``+inf`` where the vehicle is parked
+        (the argmin never picks it)."""
+        if self.rs is not None:
+            rew = (weight if mafl else
+                   self.gamma ** (cu - 1.0) * self.zeta ** (cl - 1.0))
+            self.rs.index_add_(0, i, rew)
+            self.rc.index_add_(0, i, torch.ones_like(rew))
+        if self.adm is None:
+            return t_new
+        return torch.where(self.adm[r].index_select(0, i), t_new, self.inf)
+
+    def readmit(self, idx, t_b):
+        """Re-admit the parked vehicles ``idx`` (a device index tensor) at
+        the boundary time ``t_b`` (a one-element tensor): each downloads
+        now, trains C_l and uploads C_u, as a re-schedule does."""
+        t_up = t_b + self.qcl.index_select(0, idx)
+        cu_new = self.upload_delay(idx, t_up)
+        self.qt.index_copy_(0, idx, t_up + cu_new)
+        self.qdl.index_copy_(0, idx, t_b.expand_as(cu_new))
+        self.qcu.index_copy_(0, idx, cu_new)
 
     def upload_delay(self, idx, t_up):
         """Eq. 3-6: slot gain -> position wrap -> distance -> SNR ->
@@ -223,11 +289,11 @@ class _SlotQueue:
         rate = self.bw * torch.log2(1.0 + snr)                  # Eq. 5
         return self.bits / torch.clamp_min(rate, 1e-12)         # Eq. 6
 
-    def pop(self, mafl: bool):
-        """Pop the earliest slot and re-schedule its vehicle (download now,
-        train C_l, upload C_u).  Returns the trace columns of the pop as
-        one-element tensors: (vehicle, time, C_u, C_l, download time,
-        delay weight)."""
+    def pop(self, mafl: bool, r: int):
+        """Pop ``r``: take the earliest slot and re-schedule its vehicle
+        (download now, train C_l, upload C_u) unless selection parks it.
+        Returns the trace columns of the pop as one-element tensors:
+        (vehicle, time, C_u, C_l, download time, delay weight)."""
         i = torch.argmin(self.qt, dim=0, keepdim=True)
         t = self.qt.index_select(0, i)
         cu = self.qcu.index_select(0, i)
@@ -239,7 +305,8 @@ class _SlotQueue:
             weight = torch.ones_like(t)
         t_up = t + cl
         cu_new = self.upload_delay(i, t_up)
-        self.qt.index_copy_(0, i, t_up + cu_new)
+        t_new = self.admit(r, i, t_up + cu_new, cu, cl, weight, mafl)
+        self.qt.index_copy_(0, i, t_new)
         self.qdl.index_copy_(0, i, t)
         self.qcu.index_copy_(0, i, cu_new)
         return i, t, cu, cl, dl_t, weight
@@ -247,12 +314,19 @@ class _SlotQueue:
 
 def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
                    needed: set, store, *, scheme: str, interpretation: str,
-                   beta: float, fedasync_mix: float):
+                   beta: float, fedasync_mix: float, readmits: dict):
     """The event loop between two waves: pops ``s..e-1`` of the slot queue,
     their chain coefficients, and the ``ring_agg`` chains that merge them
-    into ``g``.  Nothing here reads a device value on the host.  Returns
-    the new ``g`` and the segment's six trace columns (``[e-s]`` each)."""
-    pops = [queue.pop(scheme == "mafl") for _ in range(s, e)]
+    into ``g``.  The re-admissions of boundary ``b`` (``readmits[b]``, a
+    device index tensor) are written between pops ``b-1`` and ``b``, at
+    pop ``b-1``'s time: they split the pops, never the chains.  Nothing
+    here reads a device value on the host.  Returns the new ``g`` and the
+    segment's six trace columns (``[e-s]`` each)."""
+    pops = []
+    for r in range(s, e):
+        pops.append(queue.pop(scheme == "mafl", r))
+        if r + 1 in readmits:
+            queue.readmit(readmits[r + 1], pops[-1][1])
     cols = tuple(torch.cat(c) for c in zip(*pops))
     _, t_c, _, _, dlt_c, w_c = cols
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
@@ -283,6 +357,26 @@ def _train_wave(layout: ParamLayout, rows: dict, locals_buf,
                            layout.pack(loc, dtype=locals_buf.dtype))
 
 
+def upload_indices(lists: list, device) -> list:
+    """Index lists the loop reads, copied to the device in one transfer
+    before the loop and handed back as slices in the same order: no copy
+    inside the loop waits for the card."""
+    flat = np.concatenate([np.asarray(x, np.int64) for x in lists])
+    dev = torch.from_numpy(flat).to(device)
+    out, off = [], 0
+    for x in lists:
+        out.append(dev[off:off + len(x)])
+        off += len(x)
+    return out
+
+
+def readmit_points(plan) -> dict:
+    """``{boundary: [vehicle, ...]}``: the selection plan's re-admissions
+    (empty without selection)."""
+    sel = plan.sel
+    return fold_readmits(None if sel is None or sel.is_noop else sel, None)
+
+
 def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
                  w0, imgs, labs, lr: float, *, scheme: str,
                  interpretation: str, beta: float, fedasync_mix: float,
@@ -299,22 +393,49 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
     store = ((lambda x: x.to(torch.bfloat16)) if bf16 else (lambda x: x))
     needed = needed_rounds(plan, eval_rounds)
 
+    readmit_at = readmit_points(plan)
+    # wave rows and re-admitted vehicles: one host-to-device copy
+    idx = upload_indices([T for T, _, _ in plan.waves]
+                         + [readmit_at[b] for b in sorted(readmit_at)],
+                         device)
+    wave_idx = idx[:len(plan.waves)]
+    readmits = dict(zip(sorted(readmit_at), idx[len(plan.waves):]))
+
     g = layout.pack(w0)                         # f32[P] master weights
     locals_buf = torch.zeros((M, layout.P), dtype=store_dtype, device=device)
     snaps = {0: store(g)}
     traces = []
-    for T, s, e in plan.waves:
+    for (T, s, e), T_dev in zip(plan.waves, wave_idx):
         T = np.asarray(T, np.int64)
         if len(T):
-            _train_wave(layout, snaps, locals_buf, d[T] + 1,
-                        torch.from_numpy(T).to(device), imgs, labs, lr)
+            _train_wave(layout, snaps, locals_buf, d[T] + 1, T_dev, imgs,
+                        labs, lr)
         g, cols = _event_segment(
             queue, g, locals_buf, snaps, s, e, needed, store, scheme=scheme,
             interpretation=interpretation, beta=beta,
-            fedasync_mix=fedasync_mix)
+            fedasync_mix=fedasync_mix, readmits=readmits)
         traces.append(cols)
     trace = tuple(torch.cat([tr[k] for tr in traces]) for k in range(6))
     return g, snaps, trace
+
+
+def check_bandit(queue: _SlotQueue, plan, engine: str) -> None:
+    """The selection divergence guard: the device's f32 reward
+    accumulators must reproduce the host replay's f64 ones, from which
+    the admission decisions were planned.  Counts exactly, sums within
+    rtol 1e-4, atol 1e-3.  Raises ``RuntimeError``."""
+    if queue.rs is None:
+        return
+    exp_rs, exp_rc = plan.sel_bandit
+    if not np.array_equal(queue.rc.cpu().numpy(), exp_rc):
+        raise RuntimeError(
+            f"{engine}: device bandit arrival counts diverged from the host "
+            "selection replay")
+    if not np.allclose(queue.rs.cpu().numpy(), exp_rs, rtol=1e-4,
+                       atol=1e-3):
+        raise RuntimeError(
+            f"{engine}: device bandit reward accumulators diverged from the "
+            "host selection replay")
 
 
 def _check_jit_args(scheme, ring_dtype, flat, mesh, metrics):
@@ -413,10 +534,12 @@ def run_simulation_jit(
     (its plain version on the CPU).  ``ring_dtype="bf16"`` stores snapshot
     and upload rows in bf16 around f32 master weights and accumulation.
     ``progress`` fires after the run, in round order.  ``device=None`` runs
-    on the card.
+    on the card.  ``selection`` is replayed by the host plan and folded in
+    as the admission table and re-admissions; ``result.extras["selection"]``
+    holds the plan's ``summary()``.
 
-    Not ported yet, and raising: ``flat=False``, ``mesh``, ``selection``,
-    ``faults`` and ``metrics`` other than None/"off"."""
+    Not ported yet, and raising: ``flat=False``, ``mesh``, ``faults`` and
+    ``metrics`` other than None/"off"."""
     _check_jit_args(scheme, ring_dtype, flat, mesh, metrics)
     device = resolve_device(device)
     p, plan, queue, w0, imgs, labs = _stage_run(
@@ -448,6 +571,7 @@ def run_simulation_jit(
         raise RuntimeError(
             "jit engine: device event times diverged from the host dry run "
             f"at round {bad}: {t_time[bad]} vs {plan.times[bad]}")
+    check_bandit(queue, plan, "jit engine")
     if ring_dtype == "bf16" and not bool(torch.isfinite(g).all()):
         # the timeline guards stay exact (times never depend on params);
         # a non-finite master means the quantized chain blew up
@@ -458,6 +582,8 @@ def run_simulation_jit(
 
     result = SimResult(scheme=scheme, rounds=[], acc_history=[],
                        loss_history=[], final_params=layout.unpack(g))
+    if plan.sel is not None:
+        result.extras["selection"] = plan.sel.summary()
     test_images = torch.as_tensor(test_images, device=device)
     test_labels = torch.as_tensor(test_labels, device=device)
     for r in range(rounds):

@@ -40,7 +40,9 @@ from repro_torch.core.client import Vehicle, VehicleData, local_update_many
 from repro_torch.core.events import EventQueue
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
+from repro_torch.faults import arrival_step, initial_vehicles
 from repro_torch.models.cnn import cnn_forward, init_cnn
+from repro_torch.selection import make_selection_state
 
 # accepted run_simulation engine names ('unbatched' is a legacy alias for
 # 'serial')
@@ -142,9 +144,14 @@ def run_simulation(
 
     ``engine="jit"`` runs the device fleet engine
     (:func:`repro_torch.core.jit_engine.run_simulation_jit`); ``flat`` and
-    ``ring_dtype="bf16"`` reach it only.  Not ported yet, and raising:
-    ``flat=False``, ``selection``, ``faults`` and ``metrics`` other than
-    None/"off"."""
+    ``ring_dtype="bf16"`` reach it only.
+
+    ``selection`` (None | policy name | ``SelectionSpec``) parks the
+    vehicles a policy does not admit at (re-)schedule time and re-scores
+    every ``spec.resel_every`` arrivals; ``result.extras["selection"]``
+    holds the plan's ``summary()`` (``repro`` keeps it in
+    ``result.report.selection``).  Not ported yet, and raising:
+    ``flat=False``, ``faults`` and ``metrics`` other than None/"off"."""
     if engine == "jit":
         from repro_torch.core.jit_engine import run_simulation_jit
         return run_simulation_jit(
@@ -162,8 +169,6 @@ def run_simulation(
         raise ValueError(
             f"ring_dtype={ring_dtype!r} requires engine='jit'; the host "
             "engines keep full-precision params")
-    if selection is not None:
-        raise unported("vehicle selection", "selection (item 8)")
     if faults not in (None, "off"):
         raise unported("fault injection", "faults (item 9)")
     if metrics not in (None, "off"):
@@ -185,19 +190,21 @@ def run_simulation(
     test_images = torch.as_tensor(test_images, device=device)
     test_labels = torch.as_tensor(test_labels, device=device)
 
+    sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
     timeline = _Timeline(p, seed)
     queue = timeline.queue
     if engine == "batched":
         # The event timeline depends only on the channel/mobility/data-size
         # processes, never on training — so a time-only dry run tells us
         # *exactly* which (vehicle, cycle) uploads the M rounds consume, and
-        # the wave engine trains nothing else.
-        consumed = _consumed_events(p, seed, rounds)
+        # the wave engine trains nothing else.  The replay carries its own
+        # SelectionState, so admission decisions are reproduced exactly.
+        consumed = _consumed_events(p, seed, rounds, selection)
 
     def schedule(vehicle: int, t_download: float):
         timeline.schedule(vehicle, t_download, server.global_params)
 
-    for k in range(p.K):
+    for k in initial_vehicles(sel, None, p.K):
         schedule(k, 0.0)
 
     result = SimResult(scheme=scheme, rounds=[], acc_history=[],
@@ -208,6 +215,7 @@ def run_simulation(
 
         ``ev.local_params`` must already hold the local update trained from
         the stale payload snapshot."""
+        r = server.round                    # 0-based index of this pop
         rec = server.receive(
             ev.local_params, time=ev.time, vehicle=ev.vehicle,
             upload_delay=ev.upload_delay, train_delay=ev.train_delay,
@@ -221,8 +229,12 @@ def run_simulation(
             result.loss_history.append((server.round, loss))
             if progress:
                 progress(server.round, acc)
-        # the vehicle re-downloads the fresh global model (Fig. 2)
-        schedule(ev.vehicle, ev.time)
+        # mask at schedule: the vehicle re-downloads the fresh global model
+        # (Fig. 2) only while admitted; epoch boundaries re-score
+        arrival_step(sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+                     upload_delay=ev.upload_delay,
+                     train_delay=ev.train_delay, pending=len(queue),
+                     schedule=lambda v: schedule(v, ev.time))
         timeline.prune()
 
     if engine in ("serial", "unbatched"):
@@ -270,6 +282,8 @@ def run_simulation(
 
     result.rounds = server.rounds
     result.final_params = server.global_params
+    if sel is not None:
+        result.extras["selection"] = sel.plan().summary()
     return result
 
 
@@ -314,17 +328,25 @@ class _Timeline:
             self.gains.prune_below(self.queue.earliest_time())
 
 
-def _consumed_events(p: ChannelParams, seed: int,
-                     rounds: int) -> set[tuple[int, int]]:
+def _consumed_events(p: ChannelParams, seed: int, rounds: int,
+                     selection=None) -> set[tuple[int, int]]:
     """Dry-run the timeline (no training, no payloads): the exact set of
-    (vehicle, cycle) uploads consumed within ``rounds`` arrivals."""
+    (vehicle, cycle) uploads consumed within ``rounds`` arrivals.  With a
+    selection policy the replay drives an identical ``SelectionState``, so
+    parked cycles never enter the set."""
     tl = _Timeline(p, seed)
-    for k in range(p.K):
+    sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
+    for k in initial_vehicles(sel, None, p.K):
         tl.schedule(k, 0.0)
     out: set[tuple[int, int]] = set()
     while len(out) < rounds and len(tl.queue):
         ev = tl.queue.pop()
+        r = len(out)
         out.add((ev.vehicle, ev.cycle))
-        tl.schedule(ev.vehicle, ev.time)
+        arrival_step(
+            sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+            upload_delay=ev.upload_delay, train_delay=ev.train_delay,
+            pending=len(tl.queue),
+            schedule=lambda v, t=ev.time: tl.schedule(v, t))
         tl.prune()
     return out

@@ -5,13 +5,15 @@ builds identically in both packages.  ``run_scenario`` runs the single-RSU
 worlds on the host engines (``serial`` and ``batched``) and on the device
 fleet engine (``jit``, with the bf16 ring where the world asks for it), and
 the multi-RSU corridor worlds on the device corridor engine (``corridor``)
-and the serial handover loop (``serial``); the sweep, selection and fault
-worlds raise with the name of the slice of the port they wait for.
+and the serial handover loop (``serial``), vehicle selection included; the
+sweep and fault worlds raise with the name of the slice of the port they
+wait for.
 
     from repro_torch.core.scenarios import run_scenario
     result = run_scenario("paper-k10", use_kernel=True)     # on the card
     result = run_scenario("fleet-k10000")       # fleet engine, bf16 ring
     result = run_scenario("corridor-r8-k4000")  # corridor engine
+    result = run_scenario("fleet-k1000-topk", K=40, device="cpu")
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.channel import ChannelParams
 from repro_torch.core.mafl import (ENGINES, SimResult, run_simulation,
                                    unported)
 from repro_torch.device import resolve_device
+from repro_torch.selection import scenario_spec
 
 # engines that run multi-RSU corridor worlds: the device corridor engine
 # and the serial handover loop
@@ -84,6 +87,11 @@ class Scenario:
     def channel(self) -> ChannelParams:
         return dataclasses.replace(ChannelParams(), K=self.K,
                                    **dict(self.channel_overrides))
+
+    def selection_spec(self):
+        """The scenario's :class:`repro_torch.selection.SelectionSpec`
+        (or None)."""
+        return scenario_spec(self)
 
 
 _REGISTRY: dict[str, Scenario] = {}
@@ -312,9 +320,6 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
         raise unported("engine='vmap'", "sweep (item 11)")
     if mesh is not None:
         raise unported("mesh sharding", "distribution (item 13)")
-    if sc.selection is not None:
-        raise unported(f"selection policy {sc.selection!r}",
-                        "selection (item 8)")
     if sc.faults is not None:
         raise unported(f"fault profile {sc.faults!r}", "faults (item 9)")
     if sc.ring_dtype != "f32" and (engine not in (None, "jit", "corridor")
@@ -351,16 +356,19 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                     "reference keeps no cohort snapshots")
             return run_handover_simulation(
                 sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
-                use_kernel=use_kernel, progress=progress, metrics=metrics,
+                use_kernel=use_kernel, progress=progress,
+                selection=sc.selection_spec(), metrics=metrics,
                 device=device)
         return run_corridor_simulation(
             sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
             use_kernel=use_kernel, record_cohorts=record_cohorts,
-            progress=progress, flat=flat, metrics=metrics, device=device)
+            progress=progress, selection=sc.selection_spec(), flat=flat,
+            metrics=metrics, device=device)
     kw = {} if flat is None else {"flat": flat}
     return run_simulation(
         veh, te_i, te_l, scheme=sc.scheme,
         rounds=sc.rounds, l_iters=sc.l_iters, lr=sc.lr,
         params=p, seed=seed, eval_every=eval_every,
         use_kernel=use_kernel, engine=eng, progress=progress,
-        ring_dtype=sc.ring_dtype, metrics=metrics, device=device, **kw)
+        selection=sc.selection_spec(), ring_dtype=sc.ring_dtype,
+        metrics=metrics, device=device, **kw)

@@ -23,6 +23,11 @@
   ``[R, P]`` leaf under ``use_kernel``); ring row b becomes the reconciled
   row of ``up_rsu[b-1]``, since that re-download follows the reconcile.
 - **Eval** reads the consensus (the stack mean) kept at each eval round.
+- **Selection** is the fleet engine's fold: the ``[M, K]`` admission table
+  sends a parked vehicle to ``+inf`` in every RSU row, the re-admissions of
+  boundary b land (after the reconcile at b) in the row of the RSU serving
+  each vehicle at its next arrival, and the eps-bandit's f32 accumulators
+  meet the same divergence guard.
 
 Wave-hoisted training is the fleet engine's (``core/jit_engine.py``).
 Times on the device are f32; the f64 host plan (``corridor/plan.py``)
@@ -41,13 +46,16 @@ from repro_torch.core.aggregation import chain_coeffs
 from repro_torch.core.client import VehicleData
 from repro_torch.core.flat import ParamLayout
 from repro_torch.core.jit_engine import (_SlotQueue, _stage_arrays,
-                                         _train_wave, eval_rounds_of)
+                                         _train_wave, check_bandit,
+                                         eval_rounds_of, readmit_points,
+                                         upload_indices)
 from repro_torch.core.mafl import SimResult, evaluate, unported
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.corridor.plan import (CorridorPlan, plan_corridor,
                                        rsu_chain_groups)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.weighted_agg import ops as agg_ops
+from repro_torch.selection import check_reconcile_mode, scenario_spec
 
 _SUPPORTED_SCHEMES = ("mafl", "afl", "fedasync")
 
@@ -69,12 +77,13 @@ def reconcile_rounds(rounds: int, reconcile_every: int) -> set:
 def corridor_schedule(plan: CorridorPlan, eval_rounds: Sequence[int],
                       reconcile_every: int) -> list:
     """The engine's loop as host data: per wave ``(T, [(a, b, groups),
-    ...])``, its segments ``[a, b)`` split at the eval and reconcile rounds
-    and each segment's :func:`rsu_chain_groups`.  One ``ring_agg`` launch
-    per chunk."""
+    ...])``, its segments ``[a, b)`` split at the eval, reconcile and
+    re-admission rounds and each segment's :func:`rsu_chain_groups`.  One
+    ``ring_agg`` launch per chunk.  Selection re-scores only at reconcile
+    boundaries, so its re-admissions add no split."""
     needed = needed_rounds(plan)
-    stops = set(eval_rounds) | reconcile_rounds(len(plan.veh),
-                                                reconcile_every)
+    stops = (set(eval_rounds) | set(readmit_points(plan))
+             | reconcile_rounds(len(plan.veh), reconcile_every))
     out = []
     for T, s, e in plan.waves:
         segs, a = [], s
@@ -120,8 +129,6 @@ class _CorridorQueue(_SlotQueue):
         qt = np.full((R, p.K), np.inf, np.float32)
         qt[plan.row0, np.arange(p.K)] = plan.q0["time"]
         self.qt = torch.from_numpy(qt.reshape(-1)).to(device)
-        self.inf = torch.full((1,), np.inf, dtype=torch.float32,
-                              device=device)
 
     def wrap(self, x):
         """Corridor wrap of a raw position (floored modulo, as jnp.mod)."""
@@ -145,12 +152,26 @@ class _CorridorQueue(_SlotQueue):
         rate = self.bw * torch.log2(1.0 + snr)                  # Eq. 5
         return self.bits / torch.clamp_min(rate, 1e-12)         # Eq. 6
 
-    def pop(self, mafl: bool):
-        """Pop the earliest slot of the ``R*K`` column, re-schedule its
-        vehicle (download now, train C_l, upload C_u) and migrate the slot
-        to the row of the RSU serving the vehicle at its next arrival.
-        Returns one-element tensors: (vehicle, RSU, time, C_u, C_l,
-        download time, delay weight)."""
+    def readmit(self, idx, t_b):
+        """Re-admit the parked vehicles ``idx`` at the boundary time
+        ``t_b``: each slot lands in the row of the RSU serving its vehicle
+        at the new arrival time (every row of a parked vehicle is +inf)."""
+        t_up = t_b + self.qcl.index_select(0, idx)
+        cu_new = self.upload_delay(idx, t_up)
+        t_new = t_up + cu_new
+        j_new = self.serving(self.wrap(self.x0.index_select(0, idx)
+                                       + self.v * t_new))
+        self.qt.index_copy_(0, j_new * self.K + idx, t_new)
+        self.qdl.index_copy_(0, idx, t_b.expand_as(cu_new))
+        self.qcu.index_copy_(0, idx, cu_new)
+
+    def pop(self, mafl: bool, r: int):
+        """Pop ``r``: take the earliest slot of the ``R*K`` column,
+        re-schedule its vehicle (download now, train C_l, upload C_u)
+        unless selection parks it, and migrate the slot to the row of the
+        RSU serving the vehicle at its next arrival.  Returns one-element
+        tensors: (vehicle, RSU, time, C_u, C_l, download time, delay
+        weight)."""
         flat = torch.argmin(self.qt, dim=0, keepdim=True)
         j = torch.div(flat, self.K, rounding_mode="floor")
         i = flat - j * self.K
@@ -167,6 +188,8 @@ class _CorridorQueue(_SlotQueue):
         t_new = t_up + cu_new
         j_new = self.serving(self.wrap(self.x0.index_select(0, i)
                                        + self.v * t_new))
+        # a parked vehicle lands as +inf, so it is +inf in every row
+        t_new = self.admit(r, i, t_new, cu, cl, weight, mafl)
         # leave row j, land in row j_new: the second write wins when equal
         self.qt.index_copy_(0, flat, self.inf)
         self.qt.index_copy_(0, j_new * self.K + i, t_new)
@@ -175,22 +198,18 @@ class _CorridorQueue(_SlotQueue):
         return i, j, t, cu, cl, dl_t, weight
 
 
-def _upload_indices(schedule: list, device) -> list:
-    """Every index list the loop reads (wave rows, chain rounds), in loop
-    order, copied to the device in one transfer before the loop and
-    handed out as slices: no copy inside the loop waits for the card."""
+def _loop_indices(schedule: list, readmit_at: dict) -> list:
+    """Every index list the loop reads, in loop order: per wave its rows,
+    then each segment's chain rounds, then the vehicles re-admitted at the
+    segment's end."""
     lists = []
     for T, segs in schedule:
         lists.append(T)
-        lists.extend(chunk for _, _, groups in segs
-                     for _, chunks in groups for chunk in chunks)
-    flat = np.concatenate([np.asarray(x, np.int64) for x in lists])
-    dev = torch.from_numpy(flat).to(device)
-    out, off = [], 0
-    for x in lists:
-        out.append(dev[off:off + len(x)])
-        off += len(x)
-    return out
+        for _, b, groups in segs:
+            lists.extend(chunk for _, chunks in groups for chunk in chunks)
+            if b in readmit_at:
+                lists.append(readmit_at[b])
+    return lists
 
 
 def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
@@ -203,7 +222,7 @@ def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
     output (a new tensor) as that ring row.  ``chunk_idx`` yields each
     chunk's rounds as a device tensor.  Nothing here reads a device value
     on the host.  Returns the segment's seven trace columns."""
-    pops = [queue.pop(scheme == "mafl") for _ in range(a, b)]
+    pops = [queue.pop(scheme == "mafl", r) for r in range(a, b)]
     cols = tuple(torch.cat(c) for c in zip(*pops))
     _, _, t_c, _, _, dlt_c, w_c = cols
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
@@ -261,7 +280,9 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     needed = needed_rounds(plan)
     reconciles = reconcile_rounds(M, reconcile_every)
     schedule = corridor_schedule(plan, eval_rounds, reconcile_every)
-    indices = iter(_upload_indices(schedule, device))
+    readmit_at = readmit_points(plan)
+    indices = iter(upload_indices(_loop_indices(schedule, readmit_at),
+                                  device))
 
     w = layout.pack(w0)
     G = w.repeat(R, 1)                          # f32[R, P] cohort stack
@@ -286,6 +307,10 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                     # copy of the reconciled row its upload landed on
                     row = G[int(plan.up_rsu[b - 1])]
                     ring[b] = row.to(store_dtype, copy=True)
+            if b in readmit_at:
+                # after the reconcile: a re-admitted vehicle downloads
+                # ring[b], at pop b-1's time
+                queue.readmit(next(indices), traces[-1][2][-1:])
             if b in eval_rounds:
                 cons.append(G.mean(dim=0))
                 if record_cohorts:
@@ -294,8 +319,8 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     return G, cons, cohorts, trace
 
 
-def _check_corridor_args(sc, scheme, mode, ring_dtype, flat, mesh,
-                         selection, metrics, faults):
+def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics,
+                         faults):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
             f"engine='corridor' supports schemes {_SUPPORTED_SCHEMES}, not "
@@ -307,8 +332,6 @@ def _check_corridor_args(sc, scheme, mode, ring_dtype, flat, mesh,
     if ring_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown ring_dtype {ring_dtype!r}; "
                          "expected 'f32' or 'bf16'")
-    if selection is not None or getattr(sc, "selection", None):
-        raise unported("vehicle selection", "selection (item 8)")
     if faults not in (None, "off"):
         raise unported("fault injection", "faults (item 9)")
     if metrics not in (None, "off", False):
@@ -353,17 +376,21 @@ def run_corridor_simulation(
     in bf16 around the f32 stack.  ``result.extras`` holds ``n_rsus``, the
     serving-RSU trace ``up_rsu``, ``eval_rounds``, ``final_cohorts`` (the
     ``[R, ...]`` stack as a param dict) and, with ``record_cohorts``,
-    ``cohort_snapshots`` per eval round.  ``progress`` fires after the
+    ``cohort_snapshots`` per eval round, and under ``selection`` (or the
+    scenario's policy) ``selection``, the plan's ``summary()``.
+    Selection re-scores at every reconcile boundary and raises
+    ``ValueError`` with the EMA reconcile.  ``progress`` fires after the
     run, in round order.  ``device=None`` runs on the card.
 
-    Not ported yet, and raising: ``flat=False``, ``mesh``, ``selection``
-    (or a scenario selection policy), ``faults`` and ``metrics`` other
-    than None/"off"."""
+    Not ported yet, and raising: ``flat=False``, ``mesh``, ``faults`` and
+    ``metrics`` other than None/"off"."""
     scheme = sc.scheme
     mode = getattr(sc, "reconcile_mode", "fedavg")
+    spec = selection if selection is not None else scenario_spec(sc)
+    check_reconcile_mode(spec, mode)
     ring_dtype = getattr(sc, "ring_dtype", "f32")
-    _check_corridor_args(sc, scheme, mode, ring_dtype, flat, mesh,
-                         selection, metrics, faults)
+    _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics,
+                         faults)
     device = resolve_device(device)
     p = p if p is not None else sc.channel()
     if len(vehicles_data) != p.K:
@@ -374,7 +401,7 @@ def run_corridor_simulation(
         raise ValueError("rounds must be >= 1")
     R = sc.n_rsus
     entry = getattr(sc, "corridor_entry", "uniform")
-    plan = plan_corridor(p, R, seed, M, entry=entry,
+    plan = plan_corridor(p, R, seed, M, entry=entry, selection=spec,
                          reconcile_every=sc.reconcile_every,
                          l_iters=sc.l_iters)
     w0, imgs, labs, gains = _stage_arrays(
@@ -417,6 +444,7 @@ def run_corridor_simulation(
         raise RuntimeError(
             "corridor engine: device event times diverged from the host "
             f"dry run at round {bad}: {t_time[bad]} vs {plan.times[bad]}")
+    check_bandit(queue, plan, "corridor engine")
     if ring_dtype == "bf16" and not bool(torch.isfinite(G).all()):
         raise RuntimeError(
             "corridor engine: non-finite cohort stack under "
@@ -457,4 +485,6 @@ def run_corridor_simulation(
     if record_cohorts:
         result.extras["cohort_snapshots"] = [layout.unpack(c)
                                              for c in cohorts]
+    if plan.sel is not None:
+        result.extras["selection"] = plan.sel.summary()
     return result

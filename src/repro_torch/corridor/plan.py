@@ -1,13 +1,14 @@
 """Host dry-run planner of the corridor engine: ``repro.corridor.plan``
-without selection and faults.
+without faults.
 
 The event timeline depends only on the channel, mobility and data-size
 processes, never on training.  With the corridor's serving-cell geometry in
 place of the single-RSU distance, one payload-free f64 replay of the serial
 handover loop's scheduling rules gives the pop order, each pop's serving
 RSU, the wave partition, the gain-table height and the initial slot of
-every vehicle in the ``[R, K]`` queue.  numpy f64 only: the device engine
-re-derives the times in f32 and checks its trace against this plan.
+every vehicle in the ``[R, K]`` queue.  A selection policy is replayed by
+its own ``SelectionState`` in the same pass.  numpy f64 only: the device
+engine re-derives the times in f32 and checks its trace against this plan.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.channel import ChannelParams, CorridorMobility, training_delay
+from repro_torch.faults import arrival_step, initial_vehicles
+from repro_torch.selection import make_selection_state
 
 
 @dataclass
@@ -36,8 +39,8 @@ class CorridorPlan:
     n_slots: int                # gain-table height
     q0: dict                    # initial per-vehicle slot arrays (by vehicle)
     row0: np.ndarray            # i32[K] initial RSU row of each vehicle's slot
-    sel: object = None          # selection plan: always None until item 8
-    sel_bandit: object = None   # bandit accumulators: always None until item 8
+    sel: object = None          # SelectionPlan, or None without selection
+    sel_bandit: object = None   # (rew_sum, rew_cnt) f64 the bandit guard reads
     flt: object = None          # fault plan: always None until item 9
 
     def tables(self) -> dict:
@@ -81,22 +84,26 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
                   l_iters: int = 1) -> CorridorPlan:
     """Dry-run ``rounds`` arrivals through the corridor timeline (no
     payloads, no training) and derive everything static.  ``selection``
-    and ``faults`` raise until the port's items 8 and 9;
-    ``reconcile_every`` and ``l_iters`` only matter to them."""
+    re-scores the fleet at every reconcile boundary (``reconcile_every``;
+    the spec's own ``resel_every`` is never read here).  ``faults`` raises
+    until the port's item 9; ``l_iters`` only matters to it."""
     from repro_torch.core.mafl import _Timeline, unported
 
-    if selection is not None:
-        raise unported("vehicle selection", "selection (item 8)")
     if faults not in (None, "off"):
         raise unported("fault injection", "faults (item 9)")
     corridor = CorridorMobility(p, n_rsus, entry=entry)
+    sel = make_selection_state(selection, p, corridor, seed, rounds,
+                               resel_every=reconcile_every)
     tl = _Timeline(p, seed, distance_fn=corridor.distance)
-    for k in range(p.K):
+    for k in initial_vehicles(sel, None, p.K):
         tl.schedule(k, 0.0)
 
     ev0 = tl.queue.as_struct_arrays()
-    assert len(np.unique(ev0["vehicle"])) == p.K, \
-        "slot queue invariant: one in-flight upload per vehicle"
+    if sel is None:
+        assert len(np.unique(ev0["vehicle"])) == p.K, \
+            "slot queue invariant: one in-flight upload per vehicle"
+    # full-K slot arrays; a parked vehicle holds +inf until a re-admission
+    # boundary writes it a live slot (train_delay is Eq. 8 for all)
     q0 = {
         "time": np.full(p.K, np.inf),
         "download_time": np.zeros(p.K),
@@ -108,7 +115,8 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
     q0["download_time"][ev0["vehicle"]] = ev0["download_time"]
     q0["upload_delay"][ev0["vehicle"]] = ev0["upload_delay"]
     # a slot lives in the row of the RSU serving the vehicle at *arrival*
-    # time, known at schedule time because positions are pure in t
+    # time, known at schedule time because positions are pure in t; a
+    # parked vehicle's slot is +inf in every row, so its row is moot (0)
     live = np.isfinite(q0["time"])
     row0 = np.zeros(p.K, np.int32)
     row0[live] = np.asarray(
@@ -133,7 +141,19 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
         times[r], c_l[r], c_u[r] = ev.time, ev.train_delay, ev.upload_delay
         dlt[r] = ev.download_time
         last_pop[ev.vehicle] = r
-        tl.schedule(ev.vehicle, ev.time)
+
+        def _readmit(v, t=ev.time, r=r):
+            # re-admitted at the (post-reconcile) boundary round: its next
+            # pop's payload is ring[r+1], the reconciled model
+            tl.schedule(v, t)
+            last_pop[v] = r
+
+        arrival_step(
+            sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+            upload_delay=ev.upload_delay, train_delay=ev.train_delay,
+            pending=len(tl.queue),
+            schedule=lambda v, t=ev.time: tl.schedule(v, t),
+            readmit=_readmit)
         tl.prune()
 
     # Wave partition, the fleet planner's rule: a wave trains every
@@ -156,7 +176,10 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
                         up_rsu=ups, times=times, train_delay=c_l,
                         upload_delay=c_u, download_time=dlt,
                         waves=tuple(waves), n_slots=tl.gains.last_slot + 3,
-                        q0=q0, row0=row0)
+                        q0=q0, row0=row0,
+                        sel=None if sel is None else sel.plan(),
+                        sel_bandit=None if sel is None
+                        else sel.bandit_expectation())
 
 
 def rsu_chain_groups(plan: CorridorPlan, s: int, e: int,

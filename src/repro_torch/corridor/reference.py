@@ -18,7 +18,10 @@ from repro_torch.core.hierarchical import ema_toward, reconcile_models
 from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
+from repro_torch.faults import arrival_step, initial_vehicles
 from repro_torch.models.cnn import init_cnn
+from repro_torch.selection import (check_reconcile_mode, make_selection_state,
+                                   scenario_spec)
 
 
 def run_handover_simulation(sc, vehicles_data: Sequence,
@@ -41,7 +44,11 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
 
     ``sc`` is any object with the Scenario fields this reads (scheme,
     rounds, l_iters, lr, n_rsus, reconcile_every, reconcile_mode,
-    reconcile_tau, corridor_entry, selection).  ``init_params`` is a param
+    reconcile_tau, corridor_entry, selection fields).  ``selection`` (or
+    the scenario's policy) parks unadmitted vehicles at re-schedule and
+    re-scores at every reconcile boundary; it raises ``ValueError`` with
+    the EMA reconcile, and ``result.extras["selection"]`` holds the plan's
+    ``summary()``.  ``init_params`` is a param
     dict (e.g. ``repro``'s init through
     :func:`repro_torch.convert.params_from_jax`); without it the model is
     drawn by :func:`init_cnn` from a generator seeded with ``seed``.
@@ -49,16 +56,16 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     reconcile stays plain, as in ``repro``).
     ``device=None`` runs on the card.  ``result.report`` stays None.
 
-    Not ported yet, and raising: ``selection`` (or a scenario selection
-    policy), ``faults`` and ``metrics`` other than None/"off"."""
-    if selection is not None or getattr(sc, "selection", None):
-        raise unported("vehicle selection", "selection (item 8)")
+    Not ported yet, and raising: ``faults`` and ``metrics`` other than
+    None/"off"."""
+    mode = getattr(sc, "reconcile_mode", "fedavg")
+    spec = selection if selection is not None else scenario_spec(sc)
+    check_reconcile_mode(spec, mode)
     if faults not in (None, "off"):
         raise unported("fault injection", "faults (item 9)")
     if metrics not in (None, "off"):
         raise unported("run metrics", "telemetry (item 10)")
     device = resolve_device(device)
-    mode = getattr(sc, "reconcile_mode", "fedavg")
     tau = getattr(sc, "reconcile_tau", 0.5)
     entry = getattr(sc, "corridor_entry", "uniform")
     if init_params is None:
@@ -70,6 +77,10 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
                          interpretation=interpretation, device=device)
                for _ in range(sc.n_rsus)]
     corridor = CorridorMobility(p, sc.n_rsus, entry=entry)
+    # selection re-scores at every reconcile boundary (handed-over vehicles
+    # by their new RSU)
+    sel = make_selection_state(spec, p, corridor, seed, sc.rounds,
+                               resel_every=sc.reconcile_every)
     # the single-RSU scheduling rules; only the geometry (distance to the
     # serving RSU) differs
     timeline = _Timeline(p, seed, distance_fn=corridor.distance)
@@ -85,7 +96,7 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
         return timeline.schedule(vehicle, t_download,
                                  payload=servers[rsu].global_params)
 
-    for k in range(p.K):
+    for k in initial_vehicles(sel, None, p.K):
         schedule(k, 0.0)
 
     result = SimResult(scheme=f"{sc.scheme}+handover", rounds=[],
@@ -125,9 +136,15 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
                 progress(total, acc)
         result.rounds.append(rec)
         # the re-download reads the post-reconcile cohort of the RSU the
-        # upload landed on
-        schedule(ev.vehicle, ev.time)
+        # upload landed on; selection parks unadmitted vehicles and
+        # re-admits at reconcile boundaries
+        arrival_step(sel, None, r=total - 1, vehicle=ev.vehicle,
+                     time=ev.time, upload_delay=ev.upload_delay,
+                     train_delay=ev.train_delay, pending=len(queue),
+                     schedule=lambda v, t=ev.time: schedule(v, t))
         timeline.prune()
 
     result.final_params = reconcile_models([s.global_params for s in servers])
+    if sel is not None:
+        result.extras["selection"] = sel.plan().summary()
     return result

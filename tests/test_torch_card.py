@@ -371,6 +371,212 @@ def test_corridor_on_card_matches_cpu(cuda_device, engine_name):
         assert abs(a - b) <= 0.02
 
 
+# vehicle selection on the card: quick-k5 with an eps-bandit re-scored
+# every 3 rounds re-admits at rounds 3 and 6, each between two pops of one
+# segment; corridor-quick-r2-k8's bandit re-admits at its reconciles
+FLEET_BANDIT = dict(selection="eps-bandit", selection_k=2,
+                    selection_eps=0.3, resel_every=3)
+CORRIDOR_BANDIT = dict(selection="eps-bandit", selection_k=2,
+                       selection_eps=0.4)
+
+
+def _fleet_selection_plan(rounds, **sel):
+    import dataclasses
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import get_scenario
+    sc = dataclasses.replace(get_scenario("quick-k5"), **sel)
+    return jit_engine.plan_fleet(sc.channel(), 0, rounds,
+                                 selection=sc.selection_spec())
+
+
+@pytest.mark.cuda
+def test_selection_event_loop_never_waits_for_the_card(cuda_device,
+                                                       monkeypatch):
+    """The fleet engine's segments, with the admission gate and the
+    re-admissions between their pops, run with CUDA synchronisation made
+    an error; the run's summary is its plan's."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import run_scenario
+    real = jit_engine._event_segment
+    segments = []
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        segments.append((a[4], a[5], sorted(kw["readmits"])))
+        return out
+
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    monkeypatch.setattr(jit_engine, "_event_segment", strict)
+    res = run_scenario("quick-k5", engine="jit", rounds=12, eval_every=4,
+                       device=cuda_device, **FLEET_BANDIT)
+    plan = _fleet_selection_plan(12, **FLEET_BANDIT)
+    assert res.extras["selection"] == plan.sel.summary()
+    assert [r.vehicle for r in res.rounds] == plan.veh.tolist()
+    inside = [b for s, e, bs in segments for b in bs if s < b < e]
+    assert inside == [3, 6]
+
+
+@pytest.mark.cuda
+def test_corridor_selection_loop_never_waits_for_the_card(cuda_device,
+                                                          monkeypatch):
+    """The corridor's segments, reconciles and re-admissions under the
+    bandit run with CUDA synchronisation made an error."""
+    from repro_torch.corridor import engine
+
+    def strict(real, log):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log.append(out)
+            return out
+        return call
+
+    segments, readmits = [], []
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    monkeypatch.setattr(engine, "_chain_segment",
+                        strict(engine._chain_segment, segments))
+    monkeypatch.setattr(engine._CorridorQueue, "readmit",
+                        strict(engine._CorridorQueue.readmit, readmits))
+    from repro_torch.core.scenarios import run_scenario
+    res = run_scenario("corridor-quick-r2-k8", rounds=12, eval_every=4,
+                       use_kernel=True, device=cuda_device,
+                       **CORRIDOR_BANDIT)
+    assert sum(cols[0].numel() for cols in segments) == len(res.rounds)
+    assert len(readmits) == sum(
+        1 for _, newly, _ in res.extras["selection"]["decisions"] if newly)
+    assert readmits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["fleet", "corridor"])
+def test_selection_on_card_launches_the_plan(cuda_device, world):
+    """Every merge of a selection world a ring_agg chain of its plan, and
+    no weighted_agg; the bandit guard passes on the card."""
+    import dataclasses
+    from repro_torch.core.jit_engine import eval_rounds_of
+    from repro_torch.core.scenarios import get_scenario, run_scenario
+    from repro_torch.corridor import engine, plan_corridor
+    from repro_torch.core import jit_engine
+    if world == "fleet":
+        plan = _fleet_selection_plan(12, **FLEET_BANDIT)
+        need = jit_engine.needed_rounds(plan, eval_rounds_of(12, 4))
+        want = sum(len(jit_engine.chain_bounds(s, e, need))
+                   for _, s, e in plan.waves)
+        name, kw = "quick-k5", dict(engine="jit", **FLEET_BANDIT)
+    else:
+        sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"),
+                                 **CORRIDOR_BANDIT)
+        plan = plan_corridor(sc.channel(), 2, 0, 12,
+                             selection=sc.selection_spec(),
+                             reconcile_every=sc.reconcile_every)
+        want = engine.chain_launches(plan, eval_rounds_of(12, 4),
+                                     sc.reconcile_every)
+        name, kw = "corridor-quick-r2-k8", CORRIDOR_BANDIT
+    kernels.reset_launches()
+    res = run_scenario(name, rounds=12, eval_every=4, use_kernel=True,
+                       device=cuda_device, **kw)
+    assert kernels.launch_counts() == {
+        "weighted_agg": 0, "ring_agg": want, "decode_attention": 0,
+        "swa_attention": 0, "cross_entropy": 0}
+    assert res.extras["selection"] == plan.sel.summary()
+    assert all(v.is_cuda and bool(torch.isfinite(v).all())
+               for v in res.final_params.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["fleet", "corridor"])
+def test_bandit_guard_raises_on_card(cuda_device, monkeypatch, world):
+    """A perturbed f64 expectation fails the device accumulators' guard."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import run_scenario
+    from repro_torch.corridor import engine
+    mod, attr = ((jit_engine, "plan_fleet") if world == "fleet"
+                 else (engine, "plan_corridor"))
+    real = getattr(mod, attr)
+
+    def perturbed(*a, **kw):
+        plan = real(*a, **kw)
+        rs, rc = (x.copy() for x in plan.sel_bandit)
+        rs[int(np.argmax(rc))] += 1e-2
+        plan.sel_bandit = (rs, rc)
+        return plan
+
+    monkeypatch.setattr(mod, attr, perturbed)
+    name, kw = (("quick-k5", dict(engine="jit", **FLEET_BANDIT))
+                if world == "fleet"
+                else ("corridor-quick-r2-k8", CORRIDOR_BANDIT))
+    with pytest.raises(RuntimeError, match="reward accumulators"):
+        run_scenario(name, rounds=8, eval_every=8, device=cuda_device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine_name", ["jit", "corridor", "serial"])
+def test_selection_on_card_matches_cpu(cuda_device, engine_name):
+    """Card against CPU from one numpy init: paper-k10 with weighted-topk
+    k 5 for 8 rounds on the fleet engine, corridor-quick-r2-k8 with the
+    bandit for 12 rounds on both corridor engines: the same summary and
+    trace, times in the f32 band, params to atol 1e-4 / rtol 1e-3."""
+    import dataclasses
+    from repro_torch.convert import params_from_jax, params_to_numpy
+    from repro_torch.core.mafl import run_simulation
+    from repro_torch.core.scenarios import build_world, get_scenario
+    from repro_torch.corridor import (run_corridor_simulation,
+                                      run_handover_simulation)
+    from repro_torch.models.cnn import CNN_SHAPES
+    from repro_torch.selection import SelectionSpec
+
+    rng = np.random.default_rng(0)
+    init = {k: (np.zeros(s, np.float32) if k.endswith("_b") else
+                (rng.normal(size=s) / np.sqrt(np.prod(s[:-1])))
+                .astype(np.float32)) for k, s in CNN_SHAPES.items()}
+    if engine_name == "jit":
+        sc = get_scenario("paper-k10")
+        veh, ti, tl, p = build_world(sc)
+
+        def run(dev):
+            return run_simulation(
+                veh, ti, tl, scheme=sc.scheme, rounds=8, l_iters=sc.l_iters,
+                lr=sc.lr, params=p, eval_every=4, use_kernel=True,
+                engine="jit", selection=SelectionSpec("weighted-topk", k=5),
+                init_params=params_from_jax(init, dev), device=dev)
+    else:
+        sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"),
+                                 rounds=12, **CORRIDOR_BANDIT)
+        veh, ti, tl, p = build_world(sc)
+        fn = (run_corridor_simulation if engine_name == "corridor"
+              else run_handover_simulation)
+
+        def run(dev):
+            return fn(sc, veh, ti, tl, p, eval_every=4, use_kernel=True,
+                      init_params=params_from_jax(init, dev), device=dev)
+    gpu, cpu = run(cuda_device), run("cpu")
+    assert gpu.extras["selection"] == cpu.extras["selection"]
+    assert not all(cpu.extras["selection"]["admit0"])
+    assert ([(r.round, r.vehicle, r.rsu) for r in gpu.rounds]
+            == [(r.round, r.vehicle, r.rsu) for r in cpu.rounds])
+    np.testing.assert_allclose([r.time for r in gpu.rounds],
+                               [r.time for r in cpu.rounds],
+                               rtol=2e-5, atol=1e-3)
+    pg, pc = params_to_numpy(gpu.final_params), params_to_numpy(
+        cpu.final_params)
+    for k in pg:
+        np.testing.assert_allclose(pg[k], pc[k], atol=1e-4, rtol=1e-3,
+                                   err_msg=k)
+    for (_, a), (_, b) in zip(gpu.acc_history, cpu.acc_history):
+        assert abs(a - b) <= 0.02
+
+
 # K4 decode_attention and K5 swa_attention against their plain versions:
 # f32 inputs from N(0, 1) within 2e-5 (the online softmax sums in another
 # order than the dense plain version), bf16 within 3e-2 (the plain version

@@ -137,13 +137,12 @@ def test_engine_matches_repro_engine_on_the_highway(init):
     _assert_engine_conforms(jres, tres)
 
 
-def test_ring_rows_stay_as_stored_and_match_repro(init, monkeypatch):
-    """corridor-quick-r2-k8 for 16 rounds with the EMA reconcile: later
-    waves read ring rows stored by chains on both RSUs and by the
-    reconcile at round 4, while the cohort stack is written in place at
-    every chain end.  Each row a wave reads is bitwise the row as it was
-    stored, and stays so to the end of the run; the run matches
-    ``repro``'s."""
+def _ring_reads(init, monkeypatch, kw):
+    """Run corridor-quick-r2-k8 with ``kw`` on the port's corridor engine,
+    checking that each ring row a wave reads is bitwise the row as it was
+    stored, and that no row changes after the reads either (later chains
+    and reconciles write the stack in place).  Returns the rows read and
+    the run."""
     stored, reads, rings = {}, [], []
     real_seg, real_wave = tengine._chain_segment, tengine._train_wave
 
@@ -168,19 +167,43 @@ def test_ring_rows_stay_as_stored_and_match_repro(init, monkeypatch):
 
     monkeypatch.setattr(tengine, "_chain_segment", seg)
     monkeypatch.setattr(tengine, "_train_wave", wave)
-    kw = dict(rounds=16, reconcile_mode="ema", reconcile_tau=0.3)
     res = _port(QUICK, "corridor", init, eval_every=4, **kw)
-    # rows of both RSUs' chains (5 and 6 follow uploads to RSU 1) and the
-    # reconciled row of round 4
-    assert {1, 2, 3, 4, 5, 6, 10, 11} <= set(reads)
-    # and no row changed after the reads either (later chains and
-    # reconciles write the stack in place)
     ring = rings[-1]
     assert all(stored[r][0] is row and torch.equal(row, stored[r][1])
                for r, row in ring.items())
+    return set(reads), res
+
+
+def test_ring_rows_stay_as_stored_and_match_repro(init, monkeypatch):
+    """corridor-quick-r2-k8 for 16 rounds with the EMA reconcile: later
+    waves read ring rows stored by chains on both RSUs and by the
+    reconcile at round 4, while the cohort stack is written in place at
+    every chain end.  Each row a wave reads is bitwise the row as it was
+    stored, and stays so to the end of the run; the run matches
+    ``repro``'s."""
+    kw = dict(rounds=16, reconcile_mode="ema", reconcile_tau=0.3)
+    reads, res = _ring_reads(init, monkeypatch, kw)
+    # rows of both RSUs' chains (5 and 6 follow uploads to RSU 1) and the
+    # reconciled row of round 4
+    assert {1, 2, 3, 4, 5, 6, 10, 11} <= reads
     jres = jsc.run_scenario(QUICK, engine="corridor", eval_every=4,
                             use_kernel=True, **kw)
     _assert_engine_conforms(jres, res)
+
+
+def test_ring_rows_stay_as_stored_on_a_selection_world(init, monkeypatch):
+    """The same on a FedAvg world with eps-bandit selection: a vehicle
+    re-admitted at reconcile round b reads ring row b (in f32 the stored
+    row is the tensor itself), and the run matches ``repro``'s."""
+    kw = dict(rounds=16, selection="eps-bandit", selection_k=2,
+              selection_eps=0.4)
+    reads, res = _ring_reads(init, monkeypatch, kw)
+    decisions = res.extras["selection"]["decisions"]
+    assert {b for b, newly, _ in decisions if newly} & reads
+    jres = jsc.run_scenario(QUICK, engine="corridor", eval_every=4,
+                            use_kernel=True, **kw)
+    _assert_engine_conforms(jres, res)
+    assert res.extras["selection"] == jres.report.selection
 
 
 def test_engine_matches_serial_in_the_port(init):
@@ -239,7 +262,6 @@ def test_chains_and_reconciles_follow_the_plan(monkeypatch, kw, merges):
     (dict(flat=False), NotImplementedError, "item 15"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
     (dict(metrics="on"), NotImplementedError, "item 10"),
-    (dict(selection="eps-bandit"), NotImplementedError, "item 8"),
     (dict(faults="deadzone"), NotImplementedError, "item 9"),
     (dict(scheme="fedbuff"), ValueError, "fedbuff"),
     (dict(reconcile_mode="median"), ValueError, "reconcile_mode"),
@@ -254,6 +276,25 @@ def test_corridor_engine_rejects(kw, err, match):
         run_corridor_simulation(sc, veh, ti, tl, p, device="cpu", **kw)
 
 
+def test_corridor_engine_runs_a_selection_policy():
+    """The call that raised before selection was ported: eps-bandit by
+    name needs its k, as in ``repro``; with k 1 it re-scores at the
+    reconcile boundary and reports the plan's summary."""
+    from repro_torch.selection import SelectionSpec
+    sc = dataclasses.replace(tsc.get_scenario(QUICK), rounds=6)
+    veh, ti, tl, p = tsc.build_world(sc)
+    with pytest.raises(ValueError, match="needs k"):
+        run_corridor_simulation(sc, veh, ti, tl, p, device="cpu",
+                                selection="eps-bandit")
+    res = run_corridor_simulation(sc, veh, ti, tl, p, device="cpu",
+                                  selection=SelectionSpec("eps-bandit", k=1))
+    assert len(res.rounds) == 6
+    summary = res.extras["selection"]
+    assert summary["policy"] == "eps-bandit"
+    assert [b for b, _, _ in summary["decisions"]] == [4]
+    assert sum(summary["admit0"]) == 2          # k = 1 on each of 2 RSUs
+
+
 @pytest.mark.parametrize("name, engine, match", [
     (QUICK, "batched", "cannot run multi-RSU"),
     (QUICK, "jit", "cannot run multi-RSU"),
@@ -265,10 +306,7 @@ def test_run_scenario_rejects_engine_topology_mismatch(name, engine, match):
 
 
 @pytest.mark.parametrize("engine", ["serial", "corridor"])
-def test_selection_and_fault_worlds_raise(engine):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsc.run_scenario("corridor-r4-k400-bandit", engine=engine,
-                         device="cpu")
+def test_fault_worlds_raise(engine):
     with pytest.raises(NotImplementedError, match="item 9"):
         tsc.run_scenario("corridor-rush-hour-deadzone-r8-k4000",
                          engine=engine, device="cpu")

@@ -73,10 +73,8 @@ def test_chain_groups_equal_repro_on_every_segment(name):
                for _, cs in g for c in cs) == sc.rounds
 
 
-def test_plan_corridor_rejects_selection_and_faults():
+def test_plan_corridor_rejects_faults():
     p = tsc.get_scenario("corridor-quick-r2-k8").channel()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tplan.plan_corridor(p, 2, 0, 4, selection="eps-bandit")
     with pytest.raises(NotImplementedError, match="item 9"):
         tplan.plan_corridor(p, 2, 0, 4, faults="deadzone")
 

@@ -133,7 +133,6 @@ def test_run_scenario_selects_jit_for_a_bf16_world(monkeypatch):
     (dict(flat=False), NotImplementedError, "pytree"),
     (dict(mesh=object()), NotImplementedError, "distribution"),
     (dict(metrics="on"), NotImplementedError, "telemetry"),
-    (dict(selection="weighted-topk"), NotImplementedError, "selection"),
     (dict(faults="flaky"), NotImplementedError, "faults"),
 ])
 def test_run_simulation_jit_rejects(kw, err, match):
@@ -142,3 +141,17 @@ def test_run_simulation_jit_rejects(kw, err, match):
     with pytest.raises(err, match=match):
         tjit.run_simulation_jit(veh, ti, tl, params=p, rounds=2,
                                 device="cpu", **kw)
+
+
+def test_run_simulation_jit_runs_a_selection_policy():
+    """The call that raised before selection was ported: a policy name
+    runs with its default spec and reports the plan's summary."""
+    from repro_torch.selection import SelectionSpec
+    sc = tsc.get_scenario("quick-k5")
+    veh, ti, tl, p = tsc.build_world(sc)
+    res = tjit.run_simulation_jit(veh, ti, tl, params=p, rounds=2,
+                                  device="cpu", selection="admit-all")
+    assert len(res.rounds) == 2
+    assert res.extras["selection"] == tjit.plan_fleet(
+        p, 0, 2, SelectionSpec()).sel.summary()
+    assert res.extras["selection"]["admit0"] == [True] * 5

@@ -152,20 +152,37 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [
-    (dict(scenario="corridor-r4-k400-bandit"), "selection"),
     (dict(scenario="corridor-rush-hour-deadzone-r8-k4000"), "faults"),
     (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
-    (dict(scenario="fleet-k1000-topk", engine="jit"), "selection"),
     (dict(scenario="quick-k5", engine="jit", mesh=object()),
      "distribution"),
     (dict(scenario="quick-k5", engine="vmap"), "sweep"),
-    (dict(scenario="fleet-k1000-topk"), "selection"),
     (dict(scenario="fleet-k1000-flaky"), "faults"),
     (dict(scenario="quick-k5", metrics="on"), "telemetry"),
 ])
 def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         run_scenario(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs, policy", [
+    (dict(scenario="corridor-r4-k400-bandit"), "eps-bandit"),
+    (dict(scenario="fleet-k1000-topk", engine="jit"), "weighted-topk"),
+    (dict(scenario="fleet-k1000-topk"), "weighted-topk"),
+])
+def test_selection_worlds_run_on_the_port(kwargs, policy):
+    """The selection worlds that raised before selection was ported, cut
+    to K 40 and 10 rounds (k 5 per RSU, so the policy parks vehicles)."""
+    res = run_scenario(device="cpu", K=40, rounds=10, eval_every=10,
+                       selection_k=5, n_train=1200, n_test=120, **kwargs)
+    assert len(res.rounds) == 10
+    summary = res.extras["selection"]
+    assert summary["policy"] == policy and len(summary["admit0"]) == 40
+    admitted = {v for v, m in enumerate(summary["admit0"]) if m}
+    assert len(admitted) < 40
+    # nothing parked at t = 0 arrives before the first re-score
+    first = min([b for b, _, _ in summary["decisions"]] + [10])
+    assert {r.vehicle for r in res.rounds[:first]} <= admitted
 
 
 def test_unknown_engine_raises():
