@@ -64,6 +64,21 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    k 2, eps 0.4 (12 rounds, both corridor engines) on the card and on the
    CPU from one numpy-made init: equal ``extras["selection"]``, the same
    traces, times and params within phase 5's bands.
+6c. fault path (after phase 6b): fleet-k1000-flaky and
+   fleet-k1000-throttled (30 rounds each) on ``engine="jit"``: ``ring_agg``
+   launches = the fault plan's chains (a cap-discarded pop stays in its
+   chain as a (1, 0) step), ``weighted_agg`` none, fleet-k1000-flaky
+   profiled; both on ``batched``: one ``weighted_agg`` launch per kept
+   merge; corridor-rush-hour-deadzone-r8-k4000 (40 rounds) on
+   ``engine="corridor"``: ``ring_agg`` = ``chain_launches`` of its plan,
+   set-up timed alone; every ``extras["faults"]`` equal to a host
+   replay's summary; deadzone with the EMA reconcile raises
+   ``ValueError``.  After the selection's card-vs-CPU check: paper-k10
+   with throttled (10 rounds, serial and jit: partial cycles on the card)
+   and corridor-quick-r2-k8 with repro's HEAVY spec (24 rounds of 2 local
+   steps, both corridor engines), card against CPU from one numpy-made
+   init: equal ``extras["faults"]``, the same traces, times and params
+   within phase 5's bands.
 7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
@@ -94,8 +109,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     defaults (batch 8, seq-len 64, 4 local steps, lr 0.05) for 10 rounds;
     ``cross_entropy`` launches once per local step and held-out eval,
     ``weighted_agg`` 3 times per merge (290 leaves, 112 a launch); every
-    printed loss finite; a second run under torch.profiler gives the busy
-    share.
+    printed loss finite; a 3-round run under torch.profiler gives the busy
+    share (against the timed run's wall per round).
 12. train step: ``make_train_step`` at full width, B 8, S 512 (4096 rows
     into K3): one warm-up and 5 timed steps.
 13. training, card against host: the same config cut to 4 layers, one CPU
@@ -167,8 +182,17 @@ ACC_TOL = 0.02                     # the golden suite's accuracy bar
 JIT_TIME_TOL = dict(rtol=2e-5, atol=1e-3)
 
 
+START = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def mark(label):
+    """Log how far into the run a phase ended: the script's time budget."""
+    log(f"time: {label} ended {time.perf_counter() - START:.1f} s into the "
+        f"run")
 
 
 def check(cond, msg):
@@ -646,12 +670,15 @@ def run_main(name, engine, rounds):
     dt = time.perf_counter() - t0
     launches = kernels.launch_counts()["weighted_agg"]
     merges = len(res.rounds)
+    # a cap-discarded arrival counts its round but merges nothing
+    kept = (sum(res.extras["faults"]["keep"]) if "faults" in res.extras
+            else merges)
     per_merge = agg_ops.launches(len(CNN_SHAPES))
     check(merges == rounds, f"{name}/{engine}: {merges} of {rounds} rounds")
-    check(launches == per_merge * merges,
-          f"{name}/{engine}: {launches} weighted_agg launches for {merges} "
-          f"merges (expected {per_merge} per merge: the CNN's 8 leaves in "
-          f"one table)")
+    check(launches == per_merge * kept,
+          f"{name}/{engine}: {launches} weighted_agg launches for {kept} "
+          f"kept merges (expected {per_merge} per merge: the CNN's 8 leaves "
+          f"in one table)")
     for k, v in res.final_params.items():
         check(v.device.type == DEVICE and bool(torch.isfinite(v).all()),
               f"{name}/{engine}: final {k} not finite on the card")
@@ -662,7 +689,7 @@ def run_main(name, engine, rounds):
     log(f"main: {name} engine={engine} rounds={rounds}: "
         f"{ms_round:.3f} ms/round ({dt:.3f} s), final accuracy "
         f"{res.final_accuracy():.5f}, weighted_agg launches {launches} "
-        f"= {per_merge} x {merges} merges")
+        f"= {per_merge} x {kept} kept merges of {merges}")
     return res, ms_round, launches
 
 
@@ -699,9 +726,11 @@ def expected_chains(name, rounds):
     the port's own plan and ``needed`` set."""
     from repro_torch.core import jit_engine
     from repro_torch.core.scenarios import get_scenario
+    from repro_torch.faults import scenario_faults
     sc = get_scenario(name)
     plan = jit_engine.plan_fleet(sc.channel(), 0, rounds,
                                  selection=sc.selection_spec(),
+                                 faults=scenario_faults(sc),
                                  l_iters=sc.l_iters)
     need = jit_engine.needed_rounds(
         plan, jit_engine.eval_rounds_of(rounds, EVAL_EVERY))
@@ -717,6 +746,7 @@ def run_fleet(name, rounds):
     from repro_torch.core import jit_engine
     from repro_torch.core.scenarios import (build_world, get_scenario,
                                             run_scenario)
+    from repro_torch.faults import scenario_faults
 
     want = expected_chains(name, rounds)
     kernels.reset_launches()
@@ -746,7 +776,8 @@ def run_fleet(name, rounds):
     sc = get_scenario(name)
     _, _, _, p = build_world(sc)
     t1 = time.perf_counter()
-    jit_engine.plan_fleet(p, 0, rounds, selection=sc.selection_spec())
+    jit_engine.plan_fleet(p, 0, rounds, selection=sc.selection_spec(),
+                          faults=scenario_faults(sc), l_iters=sc.l_iters)
     t2 = time.perf_counter()
     log(f"fleet: {name} engine=jit rounds={rounds}: {ms_round:.3f} "
         f"ms/round ({dt:.3f} s), final accuracy {res.final_accuracy():.5f}, "
@@ -787,9 +818,10 @@ def numpy_init(seed=0):
     return tree
 
 
-def phase_host(engine, selection=None):
-    """paper-k10 for 8 rounds on the card and on the CPU, same init (with
-    a ``SelectionSpec``: the same ``extras["selection"]`` too)."""
+def phase_host(engine, selection=None, faults=None, rounds=HOST_ROUNDS):
+    """paper-k10 for ``rounds`` rounds on the card and on the CPU, same
+    init (with a ``SelectionSpec``: the same ``extras["selection"]`` too;
+    with a fault profile, the same ``extras["faults"]``)."""
     from repro_torch.convert import params_from_jax, params_to_numpy
     from repro_torch.core.mafl import run_simulation
     from repro_torch.core.scenarios import build_world, get_scenario
@@ -799,16 +831,23 @@ def phase_host(engine, selection=None):
     init = numpy_init()
     out = {}
     label = engine if selection is None else f"{engine} {selection.policy}"
+    if faults is not None:
+        label = f"{label} faults={faults}"
     for dev in (DEVICE, "cpu"):
         t0 = time.perf_counter()
         out[dev] = run_simulation(
-            veh, te_i, te_l, scheme=sc.scheme, rounds=HOST_ROUNDS,
+            veh, te_i, te_l, scheme=sc.scheme, rounds=rounds,
             l_iters=sc.l_iters, lr=sc.lr, params=p, eval_every=2,
             use_kernel=True, init_params=params_from_jax(init, dev),
-            engine=engine, selection=selection, device=dev)
-        log(f"host: paper-k10 {label} {HOST_ROUNDS} rounds on {dev}: "
+            engine=engine, selection=selection, faults=faults, device=dev)
+        log(f"host: paper-k10 {label} {rounds} rounds on {dev}: "
             f"{time.perf_counter() - t0:.3f} s")
     gpu, cpu = out[DEVICE], out["cpu"]
+    if faults is not None:
+        counts = cpu.extras["faults"]["counts"]
+        check(gpu.extras["faults"] == cpu.extras["faults"],
+              f"{label}: card and CPU fault summaries differ")
+        log(f"host: {label}: card and CPU fault summaries equal: {counts}")
     if selection is not None:
         admit0 = cpu.extras["selection"]["admit0"]
         check(gpu.extras["selection"] == cpu.extras["selection"],
@@ -861,11 +900,13 @@ def corridor_plan(name, rounds, **overrides):
     from repro_torch.core.jit_engine import eval_rounds_of
     from repro_torch.core.scenarios import get_scenario
     from repro_torch.corridor import engine, plan_corridor
+    from repro_torch.faults import scenario_faults
     sc = dataclasses.replace(get_scenario(name), rounds=rounds, **overrides)
     plan = plan_corridor(sc.channel(), sc.n_rsus, 0, rounds,
                          entry=sc.corridor_entry,
                          selection=sc.selection_spec(),
-                         reconcile_every=sc.reconcile_every)
+                         reconcile_every=sc.reconcile_every,
+                         faults=scenario_faults(sc), l_iters=sc.l_iters)
     return sc, plan, engine.chain_launches(
         plan, eval_rounds_of(rounds, EVAL_EVERY), sc.reconcile_every)
 
@@ -986,21 +1027,24 @@ def phase_corridor(dev):
     return k1, k2, ms["corridor-r8-k4000"]
 
 
-def phase_corridor_vs_cpu(rounds=8, **selection):
+def phase_corridor_vs_cpu(rounds=8, **fields):
     """corridor-quick-r2-k8 for ``rounds`` rounds on the card and on the
     CPU from one numpy-made init, on the device engine and on the serial
-    loop; ``selection`` holds Scenario selection fields (then the two
-    ``extras["selection"]`` must be equal too)."""
+    loop; ``fields`` holds Scenario selection or fault fields (then the
+    two ``extras["selection"]`` or ``extras["faults"]`` must be equal
+    too)."""
     import dataclasses
     from repro_torch.convert import params_from_jax, params_to_numpy
     from repro_torch.core.scenarios import build_world, get_scenario
     from repro_torch.corridor import (run_corridor_simulation,
                                       run_handover_simulation)
+    from repro_torch.faults import scenario_faults
 
     sc = dataclasses.replace(get_scenario("corridor-quick-r2-k8"),
-                             rounds=rounds, **selection)
+                             rounds=rounds, **fields)
     veh, te_i, te_l, p = build_world(sc)
     init = numpy_init()
+    selection = sc.selection is not None
     for engine, run in (("corridor", run_corridor_simulation),
                         ("serial", run_handover_simulation)):
         out = {}
@@ -1008,9 +1052,18 @@ def phase_corridor_vs_cpu(rounds=8, **selection):
             out[dev] = run(sc, veh, te_i, te_l, p, eval_every=4,
                            use_kernel=True,
                            init_params=params_from_jax(init, dev),
-                           device=dev)
+                           faults=scenario_faults(sc), device=dev)
         gpu, cpu = out[DEVICE], out["cpu"]
         label = f"{engine} {sc.selection}" if selection else engine
+        if sc.faults is not None:
+            label = (f"{label} faults={sc.faults}"
+                     + (" with overrides" if sc.faults_overrides else ""))
+            summary = cpu.extras["faults"]
+            check(gpu.extras["faults"] == summary,
+                  f"corridor {label}: card and CPU fault summaries differ")
+            log(f"corridor: {engine} under faults: card and CPU fault "
+                f"summaries equal: {summary['counts']}, recoveries at "
+                f"{[b for b, _ in summary['readmits']]}")
         if selection:
             summary = cpu.extras["selection"]
             check(gpu.extras["selection"] == summary,
@@ -1176,6 +1229,131 @@ def phase_selection_vs_cpu():
     phase_host("jit", topk)
     phase_corridor_vs_cpu(rounds=12, selection="eps-bandit", selection_k=2,
                           selection_eps=0.4)
+
+
+# the fault worlds at their registered sizes and rounds, eval every 10
+FAULT_FLEET = (("fleet-k1000-flaky", 30), ("fleet-k1000-throttled", 30))
+FAULT_CORRIDOR = ("corridor-rush-hour-deadzone-r8-k4000", 40)
+# repro's churn-heavy spec (its tests/test_faults.py) as Scenario fields:
+# drops, blackouts, recoveries, partial cycles, discards and stragglers
+# within a few corridor-quick-r2-k8 rounds
+HEAVY_FIELDS = dict(faults="flaky", faults_overrides=(
+    ("p_dropout", 0.25), ("p_blackout", 0.15), ("blackout_mean", 20.0),
+    ("p_partial", 0.5), ("straggler_frac", 0.4), ("straggler_mult", 3.0),
+    ("staleness_cap", 6), ("recheck_every", 2)))
+# paper-k10 under throttled for 10 rounds: 4 partial cycles, 1 discard
+FAULT_HOST_ROUNDS = 10
+
+
+def fault_replay(name, rounds):
+    """The f64 host replay of a registry fault world's decisions."""
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.faults import (replay_corridor_faults,
+                                    replay_fleet_faults, scenario_faults)
+    sc = get_scenario(name)
+    spec = scenario_faults(sc)
+    if sc.n_rsus > 1:
+        return replay_corridor_faults(
+            sc.channel(), sc.n_rsus, 0, rounds, spec, l_iters=sc.l_iters,
+            entry=sc.corridor_entry, reconcile_every=sc.reconcile_every)
+    return replay_fleet_faults(sc.channel(), 0, rounds, spec,
+                               l_iters=sc.l_iters)
+
+
+def check_faults(tag, res, replay, l_iters):
+    summary = res.extras["faults"]
+    check(summary == replay.summary(l_iters),
+          f"{tag}: fault summary differs from a host replay's")
+    log(f"faults: {tag}: summary = the host replay's: {summary['counts']}, "
+        f"{sum(not a for a in summary['admit0'])} dark at t = 0, "
+        f"recoveries {[(b, len(v)) for b, v in summary['readmits']]}, "
+        f"{summary['n_stragglers']} stragglers, {sum(summary['keep'])} of "
+        f"{len(summary['keep'])} merges kept")
+
+
+def phase_faults(dev):
+    """Fault injection on every engine of the port at registered sizes:
+    fleet-k1000-flaky and -throttled on the fleet engine (K1 = the fault
+    plans' chains, cap discards staying in their chains as no-ops) and on
+    ``batched`` (K2 = one launch per kept merge), the dead-zone corridor on
+    the corridor engine (K1 = ``chain_launches`` of its plan, K2 = 0); each
+    summary equal to a host replay's; timeline faults with the EMA
+    reconcile raise.  Returns (K1 launches, K2 launches)."""
+    from repro_torch.core.scenarios import (build_world, get_scenario,
+                                            run_scenario)
+    from repro_torch.corridor import plan_corridor
+    from repro_torch.faults import scenario_faults
+
+    k1 = k2 = 0
+    for name, rounds in FAULT_FLEET:
+        t0 = time.perf_counter()                 # warm-up, untimed
+        run_scenario(name, engine="jit", use_kernel=True, device=DEVICE,
+                     rounds=rounds, eval_every=EVAL_EVERY)
+        log(f"faults: {name} warm-up {time.perf_counter() - t0:.3f} s")
+        res, ms, n = run_fleet(name, rounds)
+        k1 += n
+        if name == FAULT_FLEET[0][0]:
+            profile_run(name, "jit", rounds, ms * rounds)
+        check_faults(f"{name}/jit", res, fault_replay(name, rounds),
+                     get_scenario(name).l_iters)
+
+    for name, rounds in FAULT_FLEET:
+        run_scenario(name, engine="batched", use_kernel=True, device=DEVICE,
+                     rounds=5)                   # warm-up, untimed
+        replay = fault_replay(name, rounds)
+        res, _, n = run_main(name, "batched", rounds)
+        check(n == sum(replay.keep),
+              f"{name}/batched: {n} weighted_agg launches, "
+              f"{sum(replay.keep)} kept merges in the replay")
+        k2 += n
+        check_faults(f"{name}/batched", res, replay,
+                     get_scenario(name).l_iters)
+
+    name, rounds = FAULT_CORRIDOR
+    sc, plan, want = corridor_plan(name, rounds)
+    run_corridor(name, rounds)                   # warm-up, untimed
+    res, ms, counts = run_corridor(name, rounds)
+    check(counts["ring_agg"] == want and counts["weighted_agg"] == 0,
+          f"{name}/corridor: ring_agg {counts['ring_agg']} (plan {want}), "
+          f"weighted_agg {counts['weighted_agg']}")
+    k1 += counts["ring_agg"]
+    check_faults(f"{name}/corridor", res, fault_replay(name, rounds),
+                 sc.l_iters)
+    t0 = time.perf_counter()
+    _, _, _, p = build_world(sc)
+    t1 = time.perf_counter()
+    plan_corridor(p, sc.n_rsus, 0, rounds, entry=sc.corridor_entry,
+                  reconcile_every=sc.reconcile_every,
+                  faults=scenario_faults(sc), l_iters=sc.l_iters)
+    t2 = time.perf_counter()
+    log(f"faults: {name}/corridor: ring_agg launches = the plan's {want} "
+        f"chunks; set-up timed alone: build_world {t1 - t0:.3f} s, "
+        f"plan_corridor {t2 - t1:.3f} s; {ms:.3f} ms/round")
+
+    for engine in ("corridor", "serial"):
+        try:
+            run_scenario(name, engine=engine, device=DEVICE, rounds=8,
+                         K=40, reconcile_mode="ema")
+        except ValueError as e:
+            check("ema" in str(e), f"{name}/{engine} EMA: {e}")
+        else:
+            check(False, f"{name}/{engine}: timeline faults with the EMA "
+                         f"reconcile ran")
+    log(f"faults: {name}: deadzone with the EMA reconcile raises "
+        f"ValueError on both corridor engines")
+    return k1, k2
+
+
+def phase_faults_vs_cpu():
+    """Faults card against CPU: paper-k10 with throttled (partial cycles
+    and a cap discard) on the serial and the fleet engine, and
+    corridor-quick-r2-k8 with repro's HEAVY spec for 24 rounds of 2 local
+    steps on both corridor engines, each from one numpy-made init: equal
+    ``extras["faults"]``, the same traces, times and params within phase
+    5's bands."""
+    phase_host("serial", faults="throttled", rounds=FAULT_HOST_ROUNDS)
+    phase_host("jit", faults="throttled", rounds=FAULT_HOST_ROUNDS)
+    phase_corridor_vs_cpu(rounds=24, l_iters=2, **HEAVY_FIELDS)
 
 
 # K4 decode_attention / K5 swa_attention: f32 inputs from N(0, 1) within
@@ -1623,6 +1801,10 @@ CE_TIMED = (("train step R=512 V=49152 f32", 512, 49152, "f32"),
 CE_OPS_PER_LOGIT = 4       # compare, subtract, exponential, add
 # training: full-width smollm-360m, train.py's defaults, 10 rounds
 TRAIN_ROUNDS = 10
+# the profiled training run is cut to 3 rounds: post-processing the trace
+# of all 10 (about 300,000 kernel launches and their host ops) took
+# minutes of host time
+TRAIN_PROFILE_ROUNDS = 3
 TRAIN_STEP_B, TRAIN_STEP_S, TRAIN_STEP_TIMED = 8, 512, 5
 # card vs CPU on the training path: 4 layers, 2 rounds x 2 local steps;
 # cuBLAS and the CPU sum the f32 products in different orders, a few ulps
@@ -1857,10 +2039,12 @@ def phase_train(dev):
         f"{tokens_per_step / step_ms * 1e3:.1f} tokens/s; launches {counts} "
         f"(cross_entropy = {steps} steps + {evals} evals, weighted_agg = "
         f"{per_merge} launches for {leaves} leaves x {args.rounds} merges)")
-    profile_later(f"train {cfg.name} {args.rounds} rounds",
-                  lambda: train.run_training(cfg, model, args,
+    # set against the timed run's wall per round, as the fleet worlds are
+    prof_args = train_args("--rounds", str(TRAIN_PROFILE_ROUNDS))
+    profile_later(f"train {cfg.name} {TRAIN_PROFILE_ROUNDS} rounds",
+                  lambda: train.run_training(cfg, model, prof_args,
                                              log=lambda *a: None),
-                  wall * 1e3)
+                  wall / args.rounds * TRAIN_PROFILE_ROUNDS * 1e3)
     return counts["cross_entropy"], counts["weighted_agg"]
 
 
@@ -2262,48 +2446,68 @@ def main() -> int:
     k4 = phase_decode_kernel(dev)
     k5 = phase_swa_kernel(dev)
     k3 = phase_ce_kernel(dev)
+    mark("kernel phases")
     f1_before = racy_kernel.KERNEL.launches
     host_merges = phase_main()
+    mark("host engines")
     fleet_chains = phase_fleet()
+    mark("fleet engine")
     corridor_chains, corridor_merges, corridor_ms = phase_corridor(dev)
+    mark("corridor")
     selection_chains, selection_merges = phase_selection(dev)
-    # K1 runs on three main paths: the fleet engine's chains, the
-    # corridor's per-RSU chains and both under vehicle selection
-    k1["launches"] = fleet_chains + corridor_chains + selection_chains
+    mark("selection")
+    fault_chains, fault_merges = phase_faults(dev)
+    mark("faults")
+    # K1 runs on four main paths: the fleet engine's chains, the
+    # corridor's per-RSU chains, both under vehicle selection and both
+    # under fault injection
+    k1["launches"] = (fleet_chains + corridor_chains + selection_chains
+                      + fault_chains)
     k1["launches_by_path"] = {"fleet engine": fleet_chains,
                               "corridor": corridor_chains,
-                              "selection": selection_chains}
+                              "selection": selection_chains,
+                              "faults": fault_chains}
     k4["launches"], k5["launches"] = phase_serve(dev)
+    mark("serve")
     k3["launches"], train_merges = phase_train(dev)
+    mark("train")
     # F1 is a fixture: no main path launches it
     f1_main = racy_kernel.KERNEL.launches - f1_before
     check(f1_main == 0,
           f"racy_sum launched {f1_main} times on the main paths")
-    # K2 runs on four main paths: the host engines' merges, the
+    # K2 runs on five main paths: the host engines' merges, the
     # corridor's (EMA reconciles, serial handover merges), those under
-    # vehicle selection and training's
+    # vehicle selection and under fault injection (kept merges only), and
+    # training's
     k2["launches"] = (host_merges + corridor_merges + selection_merges
-                      + train_merges)
+                      + fault_merges + train_merges)
     k2["launches_by_path"] = {"host engines": host_merges,
                               "corridor": corridor_merges,
                               "selection": selection_merges,
+                              "faults": fault_merges,
                               "training": train_merges}
     phase_train_step(dev)
+    mark("train step")
     phase_host("serial")
     phase_host("jit")
     phase_corridor_vs_cpu()
     phase_selection_vs_cpu()
+    phase_faults_vs_cpu()
+    mark("card against CPU (host, corridor, selection, faults)")
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
+    mark("card against CPU (serve, train)")
     # after every host-clock timing of the main paths (its host-side probe
     # runs the CPU fleet engine), before the profiler readings
     f1 = phase_check(dev)
+    mark("check")
     f1["launches"] = f1_main
     f1["launches_by_path"]["main paths"] = f1_main
     profile_run("corridor-r8-k4000", "corridor", 40, corridor_ms * 40)
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last
         measure()
+    mark("profiler readings")
     log(f"launch cost: {before:.3f} us per tiny launch before the profiler "
         f"readings, {launch_us(dev):.3f} us after them")
     for rec in (k2, k1, k4, k5, k3):    # the main shape's device time

@@ -1,5 +1,5 @@
-"""Host/device boundary lint for torch code (rules BND001-BND004 and
-PLN001-PLN002), the counterpart of ``repro.check.boundary``.
+"""Host/device boundary lint for torch code (rules BND001-BND004,
+PLN001-PLN002 and FLT001's lint), the counterpart of ``repro.check.boundary``.
 
 The port runs eagerly: a host sync inside a device loop (``.item()``, a
 Python branch on a tensor, ``np.*`` on a tensor) does not fail the way a
@@ -33,7 +33,8 @@ whatever the arguments are.
 
 **Planner rules (PLN001-PLN002).**  The dual contract for the f64 dry-run
 planner (``plan_fleet``): no engine/kernel or torch imports, no torch, no
-f32 drop mid-plan.
+f32 drop mid-plan.  The fault modules (``config.FAULT_PLANNER_MODULES``)
+get the same lint under FLT001.
 
 ``repro``'s BND005 (a donated buffer read after the donating call) has no
 counterpart: torch has no ``donate_argnums``.
@@ -500,39 +501,41 @@ def _planner_import_ok(module_name: str) -> bool:
                for p in config.PLANNER_ALLOWED_IMPORTS)
 
 
-def _planner_lint(mod: _Module, scope, findings: list):
-    """PLN001/PLN002 over ``scope`` (a module or one function body)."""
+def _planner_lint(mod: _Module, scope, findings: list,
+                  import_rule: str = "PLN001", purity_rule: str = "PLN002"):
+    """PLN001/PLN002 over ``scope`` (a module or one function body).  The
+    fault planner modules run the same lint under the FLT001 rule id."""
     for node in ast.walk(scope):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 if not _planner_import_ok(alias.name):
                     findings.append(Finding(
-                        "PLN001", mod.path, node.lineno,
+                        import_rule, mod.path, node.lineno,
                         f"planner imports {alias.name!r}: planners stay "
                         "pure host numpy (f64)"))
         elif isinstance(node, ast.ImportFrom):
             name = node.module or ""
             if not _planner_import_ok(name):
                 findings.append(Finding(
-                    "PLN001", mod.path, node.lineno,
+                    import_rule, mod.path, node.lineno,
                     f"planner imports from {name!r}: planners stay pure "
                     "host numpy (f64)"))
         elif isinstance(node, ast.Attribute):
             if node.attr == "float32":
                 findings.append(Finding(
-                    "PLN002", mod.path, node.lineno,
+                    purity_rule, mod.path, node.lineno,
                     "f32 drop inside the f64 planner (timelines are "
                     "exact only in f64)"))
         elif isinstance(node, ast.Name) and node.id in ("torch", "jnp"):
             findings.append(Finding(
-                "PLN002", mod.path, node.lineno,
+                purity_rule, mod.path, node.lineno,
                 f"{node.id} usage inside the f64 planner (device types "
                 "leak into the timeline)"))
         elif (isinstance(node, ast.Constant)
                 and isinstance(node.value, str)
                 and node.value in F32_STRINGS):
             findings.append(Finding(
-                "PLN002", mod.path, node.lineno,
+                purity_rule, mod.path, node.lineno,
                 "'float32' dtype string inside the f64 planner"))
 
 
@@ -561,6 +564,9 @@ def check_source(path: str, source: str) -> list[Finding]:
 
     if config.matches(path, config.PLANNER_MODULES):
         _planner_lint(mod, mod.tree, findings)
+    if config.matches(path, config.FAULT_PLANNER_MODULES):
+        _planner_lint(mod, mod.tree, findings, import_rule="FLT001",
+                      purity_rule="FLT001")
     for suffix, fns in config.PLANNER_FUNCTIONS.items():
         if config.matches(path, (suffix,)):
             for d in mod.defs:

@@ -30,7 +30,7 @@ ENGINE_MODULES = (
 DEVICE_LOOP_FUNCTIONS = {
     "repro_torch/core/jit_engine.py": (
         "_SlotQueue.pop", "_SlotQueue.upload_delay", "_SlotQueue.admit",
-        "_SlotQueue.readmit", "_event_segment",
+        "_SlotQueue.readmit", "_event_segment", "keep_coeffs",
         "_chain_segment", "_run_program", "_train_wave"),
     "repro_torch/corridor/engine.py": (
         "_CorridorQueue.pop", "_CorridorQueue.upload_delay",
@@ -48,13 +48,21 @@ DEVICE_LOOP_FUNCTIONS = {
 
 # Planner modules: pure f64 host numpy, no engine/kernel imports, no torch
 # (PLN001/PLN002).  selection/runtime.py is the f64 selection replay every
-# planner runs, faults/runtime.py the composition helpers they call; the
-# bad-planner fixture is linted as one.
+# planner runs; the bad-planner fixture is linted as one.
 PLANNER_MODULES = (
     "repro_torch/corridor/plan.py",
     "repro_torch/selection/runtime.py",
-    "repro_torch/faults/runtime.py",
     "repro_torch/check/corpus/bad_planner.py",
+)
+
+# Fault planner modules (FLT001, DESIGN.md §16): the stochastic client-state
+# sampler, its replays and the composition helpers every planner runs are
+# planners too — the same lint as PLN001/PLN002, reported under FLT001.
+FAULT_PLANNER_MODULES = (
+    "repro_torch/faults/__init__.py",
+    "repro_torch/faults/spec.py",
+    "repro_torch/faults/runtime.py",
+    "repro_torch/faults/replay.py",
 )
 
 # Planner functions living inside engine modules: the f64 dry runs.  The
@@ -68,7 +76,7 @@ PLANNER_FUNCTIONS = {
 PLANNER_ALLOWED_IMPORTS = (
     "repro_torch.channel",
     "repro_torch.selection",
-    "repro_torch.faults",       # the selection composition helpers
+    "repro_torch.faults",       # fault tables and the composition helpers
     "repro_torch.core.mafl",    # _Timeline: the shared f64 event-queue replay
 )
 

@@ -13,9 +13,8 @@ fails on any finding that is not waived.
 
 Rule ids and slugs are ``repro``'s where the contract is the same.  Rules
 whose subject the port does not have yet are not registered (ROADMAP queue
-1, item 14): TEL001 (telemetry, item 10), FLT001 (faults, item 9) and
-BND005 (torch has no ``donate_argnums``, so the port has no donating
-call).
+1, item 14): TEL001 (telemetry, item 10) and BND005 (torch has no
+``donate_argnums``, so the port has no donating call).
 """
 from __future__ import annotations
 
@@ -96,6 +95,15 @@ _rule("PLN003", "plan-shape-instability",
       "tables are the declared prerequisite for the multi-world engine "
       "(ROADMAP)",
       "plan_shapes")
+
+# -- fault-injection discipline (boundary lint + plan probes) ---------------
+_rule("FLT001", "fault-planner-discipline",
+      "fault tables must be sampled in the host f64 planner only — no "
+      "engine/kernel/torch imports and no f32 inside repro_torch.faults "
+      "(duals of PLN001/PLN002), fault-table shapes stable across seeds "
+      "(the PLN003 extension), and every faults-off spelling resolving to "
+      "None so a faults-off plan carries no fault state (DESIGN.md §16)",
+      "boundary+plan_shapes")
 
 # -- dtype-flow checker (check/dtype_flow.py) -------------------------------
 _rule("DTF001", "bf16-dot",

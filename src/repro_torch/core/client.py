@@ -56,6 +56,32 @@ _local_scan_vmap = torch.func.vmap(_local_scan, in_dims=(0, 0, 0, None))
 _local_scan_shared = torch.func.vmap(_local_scan, in_dims=(None, 0, 0, None))
 
 
+def _local_scan_partial(params, images, labels, lr, n_ep):
+    """Partial computation (faults, DESIGN.md §16): the same ``l`` steps,
+    but only the first ``n_ep`` (an int tensor) apply — deadline
+    semantics, so every gradient is still computed on the same minibatches
+    and steps ``>= n_ep`` leave the params as they are.  Returns the
+    updated params and the loss of the last live step.  At ``n_ep == l``
+    it is bitwise :func:`_local_scan`; that loop stays separate so the
+    path without faults is untouched."""
+    last = None
+    for t in range(images.shape[0]):
+        new, loss = sgd_train_step(params, images[t], labels[t], lr)
+        live = t < n_ep
+        params = {k: torch.where(live, new[k], w) for k, w in params.items()}
+        last = torch.where(live, loss,
+                           torch.zeros_like(loss) if last is None else last)
+    return params, last
+
+
+# the partial scan's vmaps: per-row params, and a payload shared by the
+# whole wave (the fleet engine's initial-download waves)
+_local_scan_partial_vmap = torch.func.vmap(_local_scan_partial,
+                                           in_dims=(0, 0, 0, None, 0))
+_local_scan_partial_shared = torch.func.vmap(_local_scan_partial,
+                                             in_dims=(None, 0, 0, None, 0))
+
+
 def _batch_tensors(images: np.ndarray, labels: np.ndarray, device):
     return (torch.from_numpy(np.ascontiguousarray(images)).to(device),
             torch.from_numpy(labels.astype(np.int64)).to(device))
@@ -87,13 +113,18 @@ class Vehicle:
         return self.data.images[sel], self.data.labels[sel]
 
     def local_update(self, global_params, l_iters: int, n_ep=None):
-        if n_ep is not None:
-            raise NotImplementedError(
-                "partial computation (n_ep) arrives with the faults slice "
-                "of the port")
+        """``n_ep`` truncates the update to the first n_ep of the l_iters
+        steps (partial computation, faults); the minibatches of all
+        l_iters steps are drawn regardless, so the RNG stream stays aligned
+        with the run without faults."""
         imgs, labs = _batch_tensors(*self.sample_batches(l_iters),
                                     self.device)
-        params, loss = _local_scan(global_params, imgs, labs, self.lr)
+        if n_ep is None:
+            params, loss = _local_scan(global_params, imgs, labs, self.lr)
+        else:
+            params, loss = _local_scan_partial(
+                global_params, imgs, labs, self.lr,
+                torch.tensor(n_ep, device=self.device))
         return params, float(loss)
 
 
@@ -107,11 +138,11 @@ def local_update_many(payloads: Sequence, batches: Sequence, lr: float,
     their params and train as one vmapped step; the remainder trains one
     event at a time through the serial loop — the same split as
     ``repro.core.client.local_update_many``.  Returns the list of updated
-    param dicts and the final losses."""
-    if n_eps is not None:
-        raise NotImplementedError(
-            "partial computation (n_eps) arrives with the faults slice of "
-            "the port")
+    param dicts and the final losses.
+
+    ``n_eps`` (faults, partial computation): matching per-vehicle epoch
+    counts; when given, every update runs the masked partial scan (a
+    count equal to l_iters is bitwise the full update)."""
     outs, losses = [], []
     n = len(payloads)
     if n == 0:
@@ -124,12 +155,21 @@ def local_update_many(payloads: Sequence, batches: Sequence, lr: float,
         imgs, labs = _batch_tensors(
             np.stack([b[0] for b in batches[s:s + chunk]]),
             np.stack([b[1] for b in batches[s:s + chunk]]), device)
-        out, ls = _local_scan_vmap(stacked, imgs, labs, lr)
+        if n_eps is None:
+            out, ls = _local_scan_vmap(stacked, imgs, labs, lr)
+        else:
+            eps = torch.tensor(n_eps[s:s + chunk], device=device)
+            out, ls = _local_scan_partial_vmap(stacked, imgs, labs, lr, eps)
         outs.extend({k: v[i] for k, v in out.items()} for i in range(chunk))
         losses.extend(ls.tolist())
     for i in range(full, n):
         imgs, labs = _batch_tensors(batches[i][0], batches[i][1], device)
-        params, loss = _local_scan(payloads[i], imgs, labs, lr)
+        if n_eps is None:
+            params, loss = _local_scan(payloads[i], imgs, labs, lr)
+        else:
+            params, loss = _local_scan_partial(
+                payloads[i], imgs, labs, lr,
+                torch.tensor(n_eps[i], device=device))
         outs.append(params)
         losses.append(float(loss))
     return outs, losses

@@ -31,6 +31,12 @@ eagerly on the card.
   boundary re-admissions write the queue between two pops, and the
   eps-bandit's f32 reward accumulators are checked after the run against
   the host replay's f64 expectation.
+- **Faults** are the same fold: dropped and blacked-out re-schedules AND
+  into the admission table (all-True without selection), recovery sweeps
+  join the re-admissions, a cap-discarded pop's chain coefficients become
+  ``(1, 0)`` (an exact no-op inside its ``ring_agg`` chain, which keeps
+  the plan's chains), and the per-cycle epoch counts feed the masked
+  partial trainer.  Straggler multipliers are in the plan's train delays.
 
 Times on the device are f32.  The timeline never depends on training, so
 an f64 host dry run (:func:`plan_fleet`) fixes the pop order, the waves and
@@ -54,7 +60,8 @@ from repro_torch.core.flat import ParamLayout
 from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.device import resolve_device
-from repro_torch.faults import arrival_step, fold_readmits, initial_vehicles
+from repro_torch.faults import (arrival_step, fold_admission, fold_readmits,
+                                initial_vehicles, make_fault_state)
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 from repro_torch.models.cnn import init_cnn
 from repro_torch.selection import make_selection_state
@@ -78,29 +85,33 @@ class FleetPlan:
     q0: dict                    # initial per-vehicle slot arrays
     sel: object = None          # SelectionPlan, or None without selection
     sel_bandit: object = None   # (rew_sum, rew_cnt) f64 the bandit guard reads
+    flt: object = None          # FaultPlan, or None without faults
 
 
 def plan_fleet(p: ChannelParams, seed: int, rounds: int,
                selection=None, faults=None, l_iters: int = 5) -> FleetPlan:
     """Dry-run ``rounds`` arrivals (no payloads, no training) and derive the
     pop order, the wave partition and the initial queue slots, as
-    ``repro.core.jit_engine.plan_fleet`` does without faults.  A selection
-    policy is replayed by its own ``SelectionState``: parked vehicles hold
-    ``+inf`` in ``q0`` and re-admissions are part of the plan."""
-    if faults not in (None, "off"):
-        raise unported("fault injection", "faults (item 9)")
+    ``repro.core.jit_engine.plan_fleet`` does.  A selection policy is
+    replayed by its own ``SelectionState``: parked vehicles hold ``+inf``
+    in ``q0`` and re-admissions are part of the plan.  A fault model is
+    replayed by its own ``FaultState`` the same way: suppressions, recovery
+    sweeps, staleness-cap verdicts, epoch counts and straggler delays
+    are plan data (``FleetPlan.flt``)."""
     sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
-    tl = _Timeline(p, seed)
-    for k in initial_vehicles(sel, None, p.K):
+    flt = make_fault_state(faults, p, seed, rounds, l_iters)
+    tl = _Timeline(p, seed, cl_scale=None if flt is None else flt.cl_scale)
+    for k in initial_vehicles(sel, flt, p.K):
         tl.schedule(k, 0.0)
 
     ev0 = tl.queue.as_struct_arrays()
-    if sel is None:
+    if sel is None and flt is None:
         assert len(np.unique(ev0["vehicle"])) == p.K, \
             "slot queue invariant: one in-flight upload per vehicle"
     # full-K slot arrays; a parked vehicle holds +inf (never popped) until
     # a re-admission boundary writes it a live slot.  train_delay is Eq. 8
-    # for every vehicle, parked ones too: a re-admission reads it
+    # for every vehicle, parked ones too: a re-admission reads it; the
+    # straggler multipliers scale it as the timeline does
     q0 = {
         "time": np.full(p.K, np.inf),
         "download_time": np.zeros(p.K),
@@ -108,6 +119,8 @@ def plan_fleet(p: ChannelParams, seed: int, rounds: int,
         "train_delay": np.array(
             [training_delay(p, i) for i in range(1, p.K + 1)]),
     }
+    if flt is not None:
+        q0["train_delay"] = q0["train_delay"] * flt.cl_scale
     q0["time"][ev0["vehicle"]] = ev0["time"]
     q0["download_time"][ev0["vehicle"]] = ev0["download_time"]
     q0["upload_delay"][ev0["vehicle"]] = ev0["upload_delay"]
@@ -128,16 +141,20 @@ def plan_fleet(p: ChannelParams, seed: int, rounds: int,
         times[r], c_l[r], c_u[r] = ev.time, ev.train_delay, ev.upload_delay
         dlt[r] = ev.download_time
         last_pop[ev.vehicle] = r
+        if flt is not None:
+            # the staleness verdict reads the download round before the
+            # gate below re-schedules
+            flt.on_pop(ev.vehicle, r)
 
         def _readmit(v, t=ev.time, r=r):
-            # a re-admitted vehicle downloads the post-round-r model, so
-            # its next pop's payload is row r+1, as for an ordinary
-            # re-download
+            # a re-admitted (or recovered) vehicle downloads the
+            # post-round-r model, so its next pop's payload is row r+1, as
+            # for an ordinary re-download
             tl.schedule(v, t)
             last_pop[v] = r
 
         arrival_step(
-            sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+            sel, flt, r=r, vehicle=ev.vehicle, time=ev.time,
             upload_delay=ev.upload_delay, train_delay=ev.train_delay,
             pending=len(tl.queue),
             schedule=lambda v, t=ev.time: tl.schedule(v, t),
@@ -164,7 +181,8 @@ def plan_fleet(p: ChannelParams, seed: int, rounds: int,
                      waves=tuple(waves), n_slots=tl.gains.last_slot + 3,
                      q0=q0, sel=None if sel is None else sel.plan(),
                      sel_bandit=None if sel is None
-                     else sel.bandit_expectation())
+                     else sel.bandit_expectation(),
+                     flt=None if flt is None else flt.plan())
 
 
 def eval_rounds_of(rounds: int, eval_every: int) -> tuple:
@@ -208,10 +226,14 @@ class _SlotQueue:
     """The device slot queue and the Eq. 3-6 re-scheduler.
 
     Channel constants are rounded to f32 first and applied as f32 scalars
-    in ``repro``'s op order.  Under an active selection plan the queue
-    holds the ``[M, K]`` admission table (``adm``) and, for eps-bandit,
-    the f32 reward accumulators ``rs``/``rc``; otherwise these are None
-    and a pop is the path without selection."""
+    in ``repro``'s op order.  Under an active selection plan, or a fault
+    plan that can suppress re-schedules, the queue holds the ``[M, K]``
+    admission table (``adm``, all-True before the fault fold when only
+    faults are on) and, for eps-bandit, the f32 reward accumulators
+    ``rs``/``rc``; otherwise these are None and a pop is the path without
+    them.  A fault plan with a staleness cap adds the ``bool[M]`` keep
+    column (``keep``), one with partial computation the ``i32[M]`` epoch
+    column (``epochs``): the event segments and the waves read them."""
 
     def __init__(self, p: ChannelParams, plan: FleetPlan, gains, x0,
                  device):
@@ -240,15 +262,26 @@ class _SlotQueue:
         self.qcl = col(plan.q0["train_delay"])
         self.inf = torch.full((1,), np.inf, dtype=torch.float32,
                               device=device)
-        self.adm = self.rs = self.rc = None
-        sel = plan.sel
-        if sel is not None and not sel.is_noop:
-            self.adm = torch.from_numpy(
-                sel.tables(len(plan.veh))["mask"]).to(device)
-            if sel.spec.policy == "eps-bandit":
-                self.rs = torch.zeros(p.K, dtype=torch.float32,
-                                      device=device)
-                self.rc = torch.zeros_like(self.rs)
+        self.adm = self.rs = self.rc = self.keep = self.epochs = None
+        M = len(plan.veh)
+        sel, flt = plan.sel, plan.flt
+        sel_on = sel is not None and not sel.is_noop
+        flt_adm = flt is not None and flt.timeline_active
+        if sel_on or flt_adm:
+            adm = (sel.tables(M)["mask"] if sel_on
+                   else np.ones((M, p.K), bool))
+            if flt_adm:
+                adm = fold_admission(adm, flt, plan.veh)
+            self.adm = torch.from_numpy(adm).to(device)   # one copy
+        if sel_on and sel.spec.policy == "eps-bandit":
+            self.rs = torch.zeros(p.K, dtype=torch.float32, device=device)
+            self.rc = torch.zeros_like(self.rs)
+        if flt is not None and flt.spec.has_cap:
+            self.keep = torch.from_numpy(
+                np.asarray(flt.keep, bool)).to(device)
+        if flt is not None and flt.spec.has_partial:
+            self.epochs = torch.from_numpy(
+                np.asarray(flt.epochs, np.int32)).to(device)
 
     def admit(self, r: int, i, t_new, cu, cl, weight, mafl: bool):
         """Selection at pop ``r`` (a host int) of vehicle ``i``: fold the
@@ -312,6 +345,17 @@ class _SlotQueue:
         return i, t, cu, cl, dl_t, weight
 
 
+def keep_coeffs(queue: _SlotQueue, cc, dd, s: int, e: int):
+    """The staleness-cap fold on the chain coefficients of pops
+    ``s..e-1``: a discarded pop becomes ``(c, d) = (1, 0)``, so
+    ``c g + d l = g`` exactly inside its chain and the chain bounds (and
+    the ``ring_agg`` count) stay the plan's.  Without a cap, unchanged."""
+    if queue.keep is None:
+        return cc, dd
+    keep = queue.keep[s:e]
+    return torch.where(keep, cc, 1.0), torch.where(keep, dd, 0.0)
+
+
 def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
                    needed: set, store, *, scheme: str, interpretation: str,
                    beta: float, fedasync_mix: float, readmits: dict):
@@ -319,9 +363,10 @@ def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
     their chain coefficients, and the ``ring_agg`` chains that merge them
     into ``g``.  The re-admissions of boundary ``b`` (``readmits[b]``, a
     device index tensor) are written between pops ``b-1`` and ``b``, at
-    pop ``b-1``'s time: they split the pops, never the chains.  Nothing
-    here reads a device value on the host.  Returns the new ``g`` and the
-    segment's six trace columns (``[e-s]`` each)."""
+    pop ``b-1``'s time: they split the pops, never the chains.  A
+    cap-discarded pop stays in its chain as a no-op (:func:`keep_coeffs`).
+    Nothing here reads a device value on the host.  Returns the new ``g``
+    and the segment's six trace columns (``[e-s]`` each)."""
     pops = []
     for r in range(s, e):
         pops.append(queue.pop(scheme == "mafl", r))
@@ -331,27 +376,38 @@ def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
     _, t_c, _, _, dlt_c, w_c = cols
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
                           dl_t=dlt_c, fedasync_mix=fedasync_mix)
+    cc, dd = keep_coeffs(queue, cc, dd, s, e)
     coeffs = torch.stack([cc, dd], dim=1)
     g = _chain_segment(g, locals_buf, coeffs, snaps, s, e, needed, store)
     return g, cols
 
 
 def _train_wave(layout: ParamLayout, rows: dict, locals_buf,
-                pay_rounds: np.ndarray, T_dev, imgs, labs, lr: float):
+                pay_rounds: np.ndarray, T_dev, imgs, labs, lr: float,
+                epochs=None):
     """Train the wave of rounds ``T_dev`` (a device index tensor) from
     their payload rows ``rows[pay_rounds]`` and write the uploads into
     ``locals_buf`` rows ``T_dev``: through a broadcast of one params dict
     when the wave shares its payload (every initial-download wave), else
-    through a vmap of stacked params."""
-    if (pay_rounds == pay_rounds[0]).all():
+    through a vmap of stacked params.  ``epochs`` (the fault plan's
+    ``i32[M]`` epoch column on the device, under partial computation)
+    switches to the masked partial scan."""
+    shared = bool((pay_rounds == pay_rounds[0]).all())
+    if shared:
         pay = layout.unpack(rows[int(pay_rounds[0])])
-        train = client_mod._local_scan_shared
     else:
         pay = layout.unpack(torch.stack([rows[int(pr)]
                                          for pr in pay_rounds]))
-        train = client_mod._local_scan_vmap
-    loc, _ = train(pay, imgs.index_select(0, T_dev),
-                   labs.index_select(0, T_dev), lr)
+    args = (pay, imgs.index_select(0, T_dev), labs.index_select(0, T_dev),
+            lr)
+    if epochs is None:
+        train = (client_mod._local_scan_shared if shared
+                 else client_mod._local_scan_vmap)
+    else:
+        train = (client_mod._local_scan_partial_shared if shared
+                 else client_mod._local_scan_partial_vmap)
+        args += (epochs.index_select(0, T_dev),)
+    loc, _ = train(*args)
     # in place: rows T are written once, before any chain reads them
     locals_buf.index_copy_(0, T_dev,
                            layout.pack(loc, dtype=locals_buf.dtype))
@@ -372,9 +428,10 @@ def upload_indices(lists: list, device) -> list:
 
 def readmit_points(plan) -> dict:
     """``{boundary: [vehicle, ...]}``: the selection plan's re-admissions
-    (empty without selection)."""
+    and the fault plan's recovery sweeps, merged (empty without either)."""
     sel = plan.sel
-    return fold_readmits(None if sel is None or sel.is_noop else sel, None)
+    return fold_readmits(None if sel is None or sel.is_noop else sel,
+                         plan.flt)
 
 
 def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
@@ -409,7 +466,7 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
         T = np.asarray(T, np.int64)
         if len(T):
             _train_wave(layout, snaps, locals_buf, d[T] + 1, T_dev, imgs,
-                        labs, lr)
+                        labs, lr, queue.epochs)
         g, cols = _event_segment(
             queue, g, locals_buf, snaps, s, e, needed, store, scheme=scheme,
             interpretation=interpretation, beta=beta,
@@ -536,10 +593,13 @@ def run_simulation_jit(
     ``progress`` fires after the run, in round order.  ``device=None`` runs
     on the card.  ``selection`` is replayed by the host plan and folded in
     as the admission table and re-admissions; ``result.extras["selection"]``
-    holds the plan's ``summary()``.
+    holds the plan's ``summary()``.  ``faults`` is replayed by the same
+    plan and folded in as well (admission table, recovery re-admissions,
+    the keep fold on the chains, the partial trainer);
+    ``result.extras["faults"]`` holds its ``summary(l_iters)``.
 
-    Not ported yet, and raising: ``flat=False``, ``mesh``, ``faults`` and
-    ``metrics`` other than None/"off"."""
+    Not ported yet, and raising: ``flat=False``, ``mesh`` and ``metrics``
+    other than None/"off"."""
     _check_jit_args(scheme, ring_dtype, flat, mesh, metrics)
     device = resolve_device(device)
     p, plan, queue, w0, imgs, labs = _stage_run(
@@ -584,6 +644,8 @@ def run_simulation_jit(
                        loss_history=[], final_params=layout.unpack(g))
     if plan.sel is not None:
         result.extras["selection"] = plan.sel.summary()
+    if plan.flt is not None:
+        result.extras["faults"] = plan.flt.summary(l_iters)
     test_images = torch.as_tensor(test_images, device=device)
     test_labels = torch.as_tensor(test_labels, device=device)
     for r in range(rounds):

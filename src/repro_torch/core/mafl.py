@@ -40,7 +40,8 @@ from repro_torch.core.client import Vehicle, VehicleData, local_update_many
 from repro_torch.core.events import EventQueue
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
-from repro_torch.faults import arrival_step, initial_vehicles
+from repro_torch.faults import (arrival_step, initial_vehicles,
+                                make_fault_state)
 from repro_torch.models.cnn import cnn_forward, init_cnn
 from repro_torch.selection import make_selection_state
 
@@ -150,8 +151,17 @@ def run_simulation(
     vehicles a policy does not admit at (re-)schedule time and re-scores
     every ``spec.resel_every`` arrivals; ``result.extras["selection"]``
     holds the plan's ``summary()`` (``repro`` keeps it in
-    ``result.report.selection``).  Not ported yet, and raising:
-    ``flat=False``, ``faults`` and ``metrics`` other than None/"off"."""
+    ``result.report.selection``).
+
+    ``faults`` (None/"off" | profile name | ``FaultSpec``) injects
+    seeded stochastic dropout, blackout, partial computation, straggler
+    inflation and staleness-cap discard, decided by one host
+    ``FaultState`` and identical decision for decision on every engine;
+    ``result.extras["faults"]`` holds its plan's ``summary(l_iters)``.
+    Off is bitwise the run without faults.
+
+    Not ported yet, and raising: ``flat=False`` and ``metrics`` other than
+    None/"off"."""
     if engine == "jit":
         from repro_torch.core.jit_engine import run_simulation_jit
         return run_simulation_jit(
@@ -169,8 +179,6 @@ def run_simulation(
         raise ValueError(
             f"ring_dtype={ring_dtype!r} requires engine='jit'; the host "
             "engines keep full-precision params")
-    if faults not in (None, "off"):
-        raise unported("fault injection", "faults (item 9)")
     if metrics not in (None, "off"):
         raise unported("run metrics", "telemetry (item 10)")
     device = resolve_device(device)
@@ -191,20 +199,27 @@ def run_simulation(
     test_labels = torch.as_tensor(test_labels, device=device)
 
     sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
-    timeline = _Timeline(p, seed)
+    flt = make_fault_state(faults, p, seed, rounds, l_iters)
+    timeline = _Timeline(p, seed,
+                         cl_scale=None if flt is None else flt.cl_scale)
     queue = timeline.queue
+    # partial computation: each cycle's epoch count was fixed at its
+    # schedule; all l_iters batches are still drawn (RNG alignment)
+    partial = flt is not None and flt.spec.has_partial
     if engine == "batched":
         # The event timeline depends only on the channel/mobility/data-size
         # processes, never on training — so a time-only dry run tells us
         # *exactly* which (vehicle, cycle) uploads the M rounds consume, and
         # the wave engine trains nothing else.  The replay carries its own
-        # SelectionState, so admission decisions are reproduced exactly.
-        consumed = _consumed_events(p, seed, rounds, selection)
+        # SelectionState and FaultState, so admission and fault decisions
+        # are reproduced exactly.
+        consumed = _consumed_events(p, seed, rounds, selection,
+                                    faults=faults, l_iters=l_iters)
 
     def schedule(vehicle: int, t_download: float):
         timeline.schedule(vehicle, t_download, server.global_params)
 
-    for k in initial_vehicles(sel, None, p.K):
+    for k in initial_vehicles(sel, flt, p.K):
         schedule(k, 0.0)
 
     result = SimResult(scheme=scheme, rounds=[], acc_history=[],
@@ -216,10 +231,13 @@ def run_simulation(
         ``ev.local_params`` must already hold the local update trained from
         the stale payload snapshot."""
         r = server.round                    # 0-based index of this pop
+        # staleness-cap verdict before aggregation: a discarded arrival
+        # still counts as a round, only the model update is skipped
+        keep = True if flt is None else flt.on_pop(ev.vehicle, r)[0]
         rec = server.receive(
             ev.local_params, time=ev.time, vehicle=ev.vehicle,
             upload_delay=ev.upload_delay, train_delay=ev.train_delay,
-            download_time=ev.download_time)
+            download_time=ev.download_time, discard=not keep)
         ev.local_params = ev.payload = None
         if server.round % eval_every == 0 or server.round == rounds:
             acc, loss = evaluate(server.global_params, test_images,
@@ -230,8 +248,9 @@ def run_simulation(
             if progress:
                 progress(server.round, acc)
         # mask at schedule: the vehicle re-downloads the fresh global model
-        # (Fig. 2) only while admitted; epoch boundaries re-score
-        arrival_step(sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+        # (Fig. 2) only while admitted and live; epoch boundaries re-score,
+        # recovery sweeps wake dark vehicles whose blackout has passed
+        arrival_step(sel, flt, r=r, vehicle=ev.vehicle, time=ev.time,
                      upload_delay=ev.upload_delay,
                      train_delay=ev.train_delay, pending=len(queue),
                      schedule=lambda v: schedule(v, ev.time))
@@ -244,7 +263,8 @@ def run_simulation(
             # stale snapshot in the payload); the compute runs now, but the
             # ordering and delays follow the event times (DESIGN.md §2)
             ev.local_params, _ = clients[ev.vehicle].local_update(
-                ev.payload, l_iters)
+                ev.payload, l_iters,
+                n_ep=flt.epoch_of(ev.vehicle) if partial else None)
             consume(ev)
     else:
         while server.round < rounds and len(queue):
@@ -259,9 +279,11 @@ def run_simulation(
                 key=lambda ev: (ev.time, ev.seq))
             batches = [clients[ev.vehicle].sample_batches(l_iters)
                        for ev in untrained]
+            n_eps = ([flt.epoch_of(ev.vehicle) for ev in untrained]
+                     if partial else None)
             outs, losses = local_update_many(
                 [ev.payload for ev in untrained], batches, lr,
-                chunk=wave_chunk)
+                chunk=wave_chunk, n_eps=n_eps)
             for ev, out, lo in zip(untrained, outs, losses):
                 ev.local_params, ev.local_loss = out, lo
             # Drain in time order until an event without a precomputed
@@ -284,6 +306,8 @@ def run_simulation(
     result.final_params = server.global_params
     if sel is not None:
         result.extras["selection"] = sel.plan().summary()
+    if flt is not None:
+        result.extras["faults"] = flt.plan().summary(l_iters)
     return result
 
 
@@ -297,14 +321,18 @@ class _Timeline:
     substitute the corridor geometry and keep every other scheduling rule.
 
     Channel gains are sampled per discrete slot and kept only for the live
-    event window (``SlotGainCache``)."""
+    event window (``SlotGainCache``).  ``cl_scale`` (f64 per vehicle, the
+    fault model's straggler multipliers) scales the Eq. 8 training delay;
+    None is the identity."""
 
-    def __init__(self, p: ChannelParams, seed: int, distance_fn=None):
+    def __init__(self, p: ChannelParams, seed: int, distance_fn=None,
+                 cl_scale=None):
         self.p = p
         self.distance = distance_fn or Mobility(p).distance
         self.gains = SlotGainCache(RayleighAR1(p, seed=seed))
         self.queue = EventQueue()
         self._cycle = [0] * p.K
+        self.cl_scale = cl_scale
 
     def schedule(self, vehicle: int, t_download: float, payload=None):
         """Vehicle downloads w_g at t_download, trains C_l, uploads C_u.
@@ -313,6 +341,8 @@ class _Timeline:
         the event payload, which is what makes the uploads stale."""
         p = self.p
         c_l = training_delay(p, vehicle + 1)                # 1-based index
+        if self.cl_scale is not None:
+            c_l = c_l * float(self.cl_scale[vehicle])
         t_up = t_download + c_l
         gain = self.gains.at(t_up)[vehicle]
         rate = shannon_rate(p, gain, self.distance(vehicle, t_up))
@@ -329,22 +359,27 @@ class _Timeline:
 
 
 def _consumed_events(p: ChannelParams, seed: int, rounds: int,
-                     selection=None) -> set[tuple[int, int]]:
+                     selection=None, faults=None,
+                     l_iters: int = 5) -> set[tuple[int, int]]:
     """Dry-run the timeline (no training, no payloads): the exact set of
     (vehicle, cycle) uploads consumed within ``rounds`` arrivals.  With a
-    selection policy the replay drives an identical ``SelectionState``, so
-    parked cycles never enter the set."""
-    tl = _Timeline(p, seed)
+    selection policy or a fault model the replay drives identical
+    ``SelectionState``/``FaultState`` instances, so parked, dropped and
+    blacked-out cycles never enter the set."""
+    flt = make_fault_state(faults, p, seed, rounds, l_iters)
+    tl = _Timeline(p, seed, cl_scale=None if flt is None else flt.cl_scale)
     sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
-    for k in initial_vehicles(sel, None, p.K):
+    for k in initial_vehicles(sel, flt, p.K):
         tl.schedule(k, 0.0)
     out: set[tuple[int, int]] = set()
     while len(out) < rounds and len(tl.queue):
         ev = tl.queue.pop()
         r = len(out)
         out.add((ev.vehicle, ev.cycle))
+        if flt is not None:
+            flt.on_pop(ev.vehicle, r)
         arrival_step(
-            sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+            sel, flt, r=r, vehicle=ev.vehicle, time=ev.time,
             upload_delay=ev.upload_delay, train_delay=ev.train_delay,
             pending=len(tl.queue),
             schedule=lambda v, t=ev.time: tl.schedule(v, t))

@@ -5,15 +5,16 @@ builds identically in both packages.  ``run_scenario`` runs the single-RSU
 worlds on the host engines (``serial`` and ``batched``) and on the device
 fleet engine (``jit``, with the bf16 ring where the world asks for it), and
 the multi-RSU corridor worlds on the device corridor engine (``corridor``)
-and the serial handover loop (``serial``), vehicle selection included; the
-sweep and fault worlds raise with the name of the slice of the port they
-wait for.
+and the serial handover loop (``serial``), vehicle selection and fault
+injection included; the sweep engine (``engine="vmap"``) raises with the
+name of the slice of the port it waits for.
 
     from repro_torch.core.scenarios import run_scenario
     result = run_scenario("paper-k10", use_kernel=True)     # on the card
     result = run_scenario("fleet-k10000")       # fleet engine, bf16 ring
     result = run_scenario("corridor-r8-k4000")  # corridor engine
     result = run_scenario("fleet-k1000-topk", K=40, device="cpu")
+    result = run_scenario("fleet-k1000-flaky", rounds=10, device="cpu")
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.channel import ChannelParams
 from repro_torch.core.mafl import (ENGINES, SimResult, run_simulation,
                                    unported)
 from repro_torch.device import resolve_device
+from repro_torch.faults import scenario_faults
 from repro_torch.selection import scenario_spec
 
 # engines that run multi-RSU corridor worlds: the device corridor engine
@@ -76,8 +78,8 @@ class Scenario:
     # opt-in, never a default precision change
     ring_dtype: str = "f32"
     # fault injection (DESIGN.md §16): name of a FaultSpec profile from
-    # ``repro.faults.PROFILES`` (None = the fault-free world — the engines
-    # compile the identical program and share its cache entry), plus
+    # ``repro_torch.faults.PROFILES`` (None = the fault-free world — the
+    # engines run their exact path without faults), plus
     # dataclasses.replace(...) override pairs applied to the profile
     faults: Optional[str] = None
     faults_overrides: tuple = ()
@@ -311,7 +313,9 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
     not f32 (the bf16 ring exists only on the device engines' flat path),
     else ``"batched"``.  An engine that cannot run the world's topology
     raises.  ``record_cohorts`` reaches the corridor engine only; ``flat``
-    reaches the device engines (``None`` = their default, flat on)."""
+    reaches the device engines (``None`` = their default, flat on).  The
+    world's fault profile (``faults`` with ``faults_overrides``) is
+    resolved once and handed to every engine."""
     device = resolve_device(device)
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if overrides:
@@ -320,8 +324,7 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
         raise unported("engine='vmap'", "sweep (item 11)")
     if mesh is not None:
         raise unported("mesh sharding", "distribution (item 13)")
-    if sc.faults is not None:
-        raise unported(f"fault profile {sc.faults!r}", "faults (item 9)")
+    flt = scenario_faults(sc)
     if sc.ring_dtype != "f32" and (engine not in (None, "jit", "corridor")
                                    or flat is False):
         raise ValueError(
@@ -358,12 +361,12 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                 sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
                 use_kernel=use_kernel, progress=progress,
                 selection=sc.selection_spec(), metrics=metrics,
-                device=device)
+                faults=flt, device=device)
         return run_corridor_simulation(
             sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
             use_kernel=use_kernel, record_cohorts=record_cohorts,
             progress=progress, selection=sc.selection_spec(), flat=flat,
-            metrics=metrics, device=device)
+            metrics=metrics, faults=flt, device=device)
     kw = {} if flat is None else {"flat": flat}
     return run_simulation(
         veh, te_i, te_l, scheme=sc.scheme,
@@ -371,4 +374,4 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
         params=p, seed=seed, eval_every=eval_every,
         use_kernel=use_kernel, engine=eng, progress=progress,
         selection=sc.selection_spec(), ring_dtype=sc.ring_dtype,
-        metrics=metrics, device=device, **kw)
+        metrics=metrics, faults=flt, device=device, **kw)

@@ -53,12 +53,20 @@ class RSUServer:
 
     def receive(self, local_params, *, time: float, vehicle: int,
                 upload_delay: float, train_delay: float,
-                download_time: float) -> RoundRecord:
-        """One upload -> one round r (Eq. 11 et al.)."""
+                download_time: float, discard: bool = False) -> RoundRecord:
+        """One upload -> one round r (Eq. 11 et al.).
+
+        ``discard=True`` is the staleness-cap degradation path (faults,
+        DESIGN.md §16): the arrival still consumes round r and is logged
+        with its weight, but the global model is left untouched and no
+        kernel launches."""
         self._round += 1
         weight = 1.0
         if self.scheme == "mafl":
             weight = combined_weight(self.p, upload_delay, train_delay)
+        if discard:
+            pass
+        elif self.scheme == "mafl":
             if self.use_kernel:
                 self.global_params = aggregation.mafl_update(
                     self.global_params, local_params, self.p.beta, weight,

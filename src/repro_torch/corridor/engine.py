@@ -28,6 +28,11 @@
   boundary b land (after the reconcile at b) in the row of the RSU serving
   each vehicle at its next arrival, and the eps-bandit's f32 accumulators
   meet the same divergence guard.
+- **Faults** are the fleet engine's fold too: suppressions in the
+  admission table (all-True ``[M, K]`` without selection), recovery sweeps
+  with the re-admissions of their reconcile boundary, the keep fold on the
+  per-RSU chains' coefficients and the partial trainer in the waves.
+  Timeline faults under the EMA reconcile raise, as selection does.
 
 Wave-hoisted training is the fleet engine's (``core/jit_engine.py``).
 Times on the device are f32; the f64 host plan (``corridor/plan.py``)
@@ -47,13 +52,14 @@ from repro_torch.core.client import VehicleData
 from repro_torch.core.flat import ParamLayout
 from repro_torch.core.jit_engine import (_SlotQueue, _stage_arrays,
                                          _train_wave, check_bandit,
-                                         eval_rounds_of, readmit_points,
-                                         upload_indices)
+                                         eval_rounds_of, keep_coeffs,
+                                         readmit_points, upload_indices)
 from repro_torch.core.mafl import SimResult, evaluate, unported
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.corridor.plan import (CorridorPlan, plan_corridor,
                                        rsu_chain_groups)
 from repro_torch.device import resolve_device
+from repro_torch.faults import check_faults_reconcile
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 from repro_torch.selection import check_reconcile_mode, scenario_spec
 
@@ -79,8 +85,9 @@ def corridor_schedule(plan: CorridorPlan, eval_rounds: Sequence[int],
     """The engine's loop as host data: per wave ``(T, [(a, b, groups),
     ...])``, its segments ``[a, b)`` split at the eval, reconcile and
     re-admission rounds and each segment's :func:`rsu_chain_groups`.  One
-    ``ring_agg`` launch per chunk.  Selection re-scores only at reconcile
-    boundaries, so its re-admissions add no split."""
+    ``ring_agg`` launch per chunk.  Selection re-scores and fault
+    recovery sweeps run only at reconcile boundaries, so their
+    re-admissions add no split."""
     needed = needed_rounds(plan)
     stops = (set(eval_rounds) | set(readmit_points(plan))
              | reconcile_rounds(len(plan.veh), reconcile_every))
@@ -220,13 +227,15 @@ def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
     chain per chunk on each active RSU's row of ``G`` (written in place at
     the chain's end).  A chunk ending at a round in ``needed`` stores its
     output (a new tensor) as that ring row.  ``chunk_idx`` yields each
-    chunk's rounds as a device tensor.  Nothing here reads a device value
+    chunk's rounds as a device tensor.  A cap-discarded pop stays in its
+    chunk as a no-op (``keep_coeffs``).  Nothing here reads a device value
     on the host.  Returns the segment's seven trace columns."""
     pops = [queue.pop(scheme == "mafl", r) for r in range(a, b)]
     cols = tuple(torch.cat(c) for c in zip(*pops))
     _, _, t_c, _, _, dlt_c, w_c = cols
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
                           dl_t=dlt_c, fedasync_mix=fedasync_mix)
+    cc, dd = keep_coeffs(queue, cc, dd, a, b)
     coeffs = torch.stack([cc, dd], dim=1)
     for j, chunks in groups:
         g = G[j]
@@ -294,7 +303,7 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
         if len(T):
             _train_wave(layout, ring, locals_buf,
                         d[np.asarray(T, np.int64)] + 1, T_dev, imgs, labs,
-                        lr)
+                        lr, queue.epochs)
         for a, b, groups in segs:
             traces.append(_chain_segment(
                 queue, G, locals_buf, ring, a, b, groups, indices, needed,
@@ -308,8 +317,8 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                     row = G[int(plan.up_rsu[b - 1])]
                     ring[b] = row.to(store_dtype, copy=True)
             if b in readmit_at:
-                # after the reconcile: a re-admitted vehicle downloads
-                # ring[b], at pop b-1's time
+                # after the reconcile: a re-admitted (or recovered) vehicle
+                # downloads ring[b], at pop b-1's time
                 queue.readmit(next(indices), traces[-1][2][-1:])
             if b in eval_rounds:
                 cons.append(G.mean(dim=0))
@@ -319,8 +328,7 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     return G, cons, cohorts, trace
 
 
-def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics,
-                         faults):
+def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
             f"engine='corridor' supports schemes {_SUPPORTED_SCHEMES}, not "
@@ -332,8 +340,6 @@ def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics,
     if ring_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown ring_dtype {ring_dtype!r}; "
                          "expected 'f32' or 'bf16'")
-    if faults not in (None, "off"):
-        raise unported("fault injection", "faults (item 9)")
     if metrics not in (None, "off", False):
         raise unported("run metrics", "telemetry (item 10)")
     if mesh is not None:
@@ -379,18 +385,22 @@ def run_corridor_simulation(
     ``cohort_snapshots`` per eval round, and under ``selection`` (or the
     scenario's policy) ``selection``, the plan's ``summary()``.
     Selection re-scores at every reconcile boundary and raises
+    ``ValueError`` with the EMA reconcile.  ``faults`` (a profile name or
+    ``FaultSpec``) is replayed by the plan with recovery sweeps at the
+    reconcile boundaries, and ``extras["faults"]`` holds its
+    ``summary(sc.l_iters)``; faults that suppress re-schedules raise
     ``ValueError`` with the EMA reconcile.  ``progress`` fires after the
     run, in round order.  ``device=None`` runs on the card.
 
-    Not ported yet, and raising: ``flat=False``, ``mesh``, ``faults`` and
-    ``metrics`` other than None/"off"."""
+    Not ported yet, and raising: ``flat=False``, ``mesh`` and ``metrics``
+    other than None/"off"."""
     scheme = sc.scheme
     mode = getattr(sc, "reconcile_mode", "fedavg")
     spec = selection if selection is not None else scenario_spec(sc)
     check_reconcile_mode(spec, mode)
+    check_faults_reconcile(faults, mode)
     ring_dtype = getattr(sc, "ring_dtype", "f32")
-    _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics,
-                         faults)
+    _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics)
     device = resolve_device(device)
     p = p if p is not None else sc.channel()
     if len(vehicles_data) != p.K:
@@ -403,7 +413,7 @@ def run_corridor_simulation(
     entry = getattr(sc, "corridor_entry", "uniform")
     plan = plan_corridor(p, R, seed, M, entry=entry, selection=spec,
                          reconcile_every=sc.reconcile_every,
-                         l_iters=sc.l_iters)
+                         faults=faults, l_iters=sc.l_iters)
     w0, imgs, labs, gains = _stage_arrays(
         vehicles_data, p, plan, l_iters=sc.l_iters, lr=sc.lr, seed=seed,
         init_params=init_params, batch_size=batch_size, device=device)
@@ -487,4 +497,6 @@ def run_corridor_simulation(
                                              for c in cohorts]
     if plan.sel is not None:
         result.extras["selection"] = plan.sel.summary()
+    if plan.flt is not None:
+        result.extras["faults"] = plan.flt.summary(sc.l_iters)
     return result

@@ -1,5 +1,4 @@
-"""Host dry-run planner of the corridor engine: ``repro.corridor.plan``
-without faults.
+"""Host dry-run planner of the corridor engine: ``repro.corridor.plan``.
 
 The event timeline depends only on the channel, mobility and data-size
 processes, never on training.  With the corridor's serving-cell geometry in
@@ -7,8 +6,10 @@ place of the single-RSU distance, one payload-free f64 replay of the serial
 handover loop's scheduling rules gives the pop order, each pop's serving
 RSU, the wave partition, the gain-table height and the initial slot of
 every vehicle in the ``[R, K]`` queue.  A selection policy is replayed by
-its own ``SelectionState`` in the same pass.  numpy f64 only: the device
-engine re-derives the times in f32 and checks its trace against this plan.
+its own ``SelectionState`` in the same pass, a fault model by its own
+``FaultState`` (recovery sweeps at reconcile boundaries).  numpy f64 only:
+the device engine re-derives the times in f32 and checks its trace against
+this plan.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.channel import ChannelParams, CorridorMobility, training_delay
-from repro_torch.faults import arrival_step, initial_vehicles
+from repro_torch.faults import (arrival_step, initial_vehicles,
+                                make_fault_state)
 from repro_torch.selection import make_selection_state
 
 
@@ -41,7 +43,7 @@ class CorridorPlan:
     row0: np.ndarray            # i32[K] initial RSU row of each vehicle's slot
     sel: object = None          # SelectionPlan, or None without selection
     sel_bandit: object = None   # (rew_sum, rew_cnt) f64 the bandit guard reads
-    flt: object = None          # fault plan: always None until item 9
+    flt: object = None          # FaultPlan, or None without faults
 
     def tables(self) -> dict:
         """Fixed-shape padded plan tables whose shapes depend only on
@@ -85,25 +87,28 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
     """Dry-run ``rounds`` arrivals through the corridor timeline (no
     payloads, no training) and derive everything static.  ``selection``
     re-scores the fleet at every reconcile boundary (``reconcile_every``;
-    the spec's own ``resel_every`` is never read here).  ``faults`` raises
-    until the port's item 9; ``l_iters`` only matters to it."""
-    from repro_torch.core.mafl import _Timeline, unported
+    the spec's own ``resel_every`` is never read here).  ``faults`` drives a
+    ``FaultState`` whose recovery sweeps run at the same boundaries;
+    ``l_iters`` sizes its epoch draws."""
+    from repro_torch.core.mafl import _Timeline
 
-    if faults not in (None, "off"):
-        raise unported("fault injection", "faults (item 9)")
     corridor = CorridorMobility(p, n_rsus, entry=entry)
     sel = make_selection_state(selection, p, corridor, seed, rounds,
                                resel_every=reconcile_every)
-    tl = _Timeline(p, seed, distance_fn=corridor.distance)
-    for k in initial_vehicles(sel, None, p.K):
+    flt = make_fault_state(faults, p, seed, rounds, l_iters,
+                           recheck_every=reconcile_every)
+    tl = _Timeline(p, seed, distance_fn=corridor.distance,
+                   cl_scale=None if flt is None else flt.cl_scale)
+    for k in initial_vehicles(sel, flt, p.K):
         tl.schedule(k, 0.0)
 
     ev0 = tl.queue.as_struct_arrays()
-    if sel is None:
+    if sel is None and flt is None:
         assert len(np.unique(ev0["vehicle"])) == p.K, \
             "slot queue invariant: one in-flight upload per vehicle"
     # full-K slot arrays; a parked vehicle holds +inf until a re-admission
-    # boundary writes it a live slot (train_delay is Eq. 8 for all)
+    # boundary writes it a live slot (train_delay is Eq. 8 for all, scaled
+    # by the straggler multipliers as the timeline scales it)
     q0 = {
         "time": np.full(p.K, np.inf),
         "download_time": np.zeros(p.K),
@@ -111,6 +116,8 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
         "train_delay": np.array(
             [training_delay(p, i) for i in range(1, p.K + 1)]),
     }
+    if flt is not None:
+        q0["train_delay"] = q0["train_delay"] * flt.cl_scale
     q0["time"][ev0["vehicle"]] = ev0["time"]
     q0["download_time"][ev0["vehicle"]] = ev0["download_time"]
     q0["upload_delay"][ev0["vehicle"]] = ev0["upload_delay"]
@@ -141,15 +148,18 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
         times[r], c_l[r], c_u[r] = ev.time, ev.train_delay, ev.upload_delay
         dlt[r] = ev.download_time
         last_pop[ev.vehicle] = r
+        if flt is not None:
+            flt.on_pop(ev.vehicle, r)
 
         def _readmit(v, t=ev.time, r=r):
-            # re-admitted at the (post-reconcile) boundary round: its next
-            # pop's payload is ring[r+1], the reconciled model
+            # re-admitted (or recovered) at the (post-reconcile) boundary
+            # round: its next pop's payload is ring[r+1], the reconciled
+            # model
             tl.schedule(v, t)
             last_pop[v] = r
 
         arrival_step(
-            sel, None, r=r, vehicle=ev.vehicle, time=ev.time,
+            sel, flt, r=r, vehicle=ev.vehicle, time=ev.time,
             upload_delay=ev.upload_delay, train_delay=ev.train_delay,
             pending=len(tl.queue),
             schedule=lambda v, t=ev.time: tl.schedule(v, t),
@@ -179,7 +189,8 @@ def plan_corridor(p: ChannelParams, n_rsus: int, seed: int, rounds: int,
                         q0=q0, row0=row0,
                         sel=None if sel is None else sel.plan(),
                         sel_bandit=None if sel is None
-                        else sel.bandit_expectation())
+                        else sel.bandit_expectation(),
+                        flt=None if flt is None else flt.plan())
 
 
 def rsu_chain_groups(plan: CorridorPlan, s: int, e: int,

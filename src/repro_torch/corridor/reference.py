@@ -18,7 +18,8 @@ from repro_torch.core.hierarchical import ema_toward, reconcile_models
 from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
-from repro_torch.faults import arrival_step, initial_vehicles
+from repro_torch.faults import (arrival_step, check_faults_reconcile,
+                                initial_vehicles, make_fault_state)
 from repro_torch.models.cnn import init_cnn
 from repro_torch.selection import (check_reconcile_mode, make_selection_state,
                                    scenario_spec)
@@ -48,7 +49,12 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     the scenario's policy) parks unadmitted vehicles at re-schedule and
     re-scores at every reconcile boundary; it raises ``ValueError`` with
     the EMA reconcile, and ``result.extras["selection"]`` holds the plan's
-    ``summary()``.  ``init_params`` is a param
+    ``summary()``.  ``faults`` drives one ``FaultState`` with recovery
+    sweeps at the reconcile boundaries: a cap-discarded arrival counts its
+    round but leaves its cohort as it is, a partial cycle trains its
+    first ``n_ep`` steps; ``result.extras["faults"]`` holds the plan's
+    ``summary(sc.l_iters)``, and faults that suppress re-schedules raise
+    ``ValueError`` with the EMA reconcile.  ``init_params`` is a param
     dict (e.g. ``repro``'s init through
     :func:`repro_torch.convert.params_from_jax`); without it the model is
     drawn by :func:`init_cnn` from a generator seeded with ``seed``.
@@ -56,13 +62,11 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     reconcile stays plain, as in ``repro``).
     ``device=None`` runs on the card.  ``result.report`` stays None.
 
-    Not ported yet, and raising: ``faults`` and ``metrics`` other than
-    None/"off"."""
+    Not ported yet, and raising: ``metrics`` other than None/"off"."""
     mode = getattr(sc, "reconcile_mode", "fedavg")
     spec = selection if selection is not None else scenario_spec(sc)
     check_reconcile_mode(spec, mode)
-    if faults not in (None, "off"):
-        raise unported("fault injection", "faults (item 9)")
+    check_faults_reconcile(faults, mode)
     if metrics not in (None, "off"):
         raise unported("run metrics", "telemetry (item 10)")
     device = resolve_device(device)
@@ -81,9 +85,14 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     # by their new RSU)
     sel = make_selection_state(spec, p, corridor, seed, sc.rounds,
                                resel_every=sc.reconcile_every)
+    # fault recovery sweeps follow the reconcile cadence, like selection
+    flt = make_fault_state(faults, p, seed, sc.rounds, sc.l_iters,
+                           recheck_every=sc.reconcile_every)
+    partial = flt is not None and flt.spec.has_partial
     # the single-RSU scheduling rules; only the geometry (distance to the
     # serving RSU) differs
-    timeline = _Timeline(p, seed, distance_fn=corridor.distance)
+    timeline = _Timeline(p, seed, distance_fn=corridor.distance,
+                         cl_scale=None if flt is None else flt.cl_scale)
     queue = timeline.queue
     fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
     clients = [Vehicle(d, lr=sc.lr, batch_size=fleet_batch, seed=seed,
@@ -96,7 +105,7 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
         return timeline.schedule(vehicle, t_download,
                                  payload=servers[rsu].global_params)
 
-    for k in initial_vehicles(sel, None, p.K):
+    for k in initial_vehicles(sel, flt, p.K):
         schedule(k, 0.0)
 
     result = SimResult(scheme=f"{sc.scheme}+handover", rounds=[],
@@ -104,13 +113,17 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     total = 0
     while total < sc.rounds and len(queue):
         ev = queue.pop()
-        local_params, _ = clients[ev.vehicle].local_update(ev.payload,
-                                                           sc.l_iters)
+        # the staleness-cap verdict and this cycle's epoch count, fixed
+        # before the gate in arrival_step draws the next cycle's block
+        keep = True if flt is None else flt.on_pop(ev.vehicle, total)[0]
+        local_params, _ = clients[ev.vehicle].local_update(
+            ev.payload, sc.l_iters,
+            n_ep=flt.epoch_of(ev.vehicle) if partial else None)
         rsu = int(corridor.serving_rsu(ev.vehicle, ev.time))  # handover target
         rec = servers[rsu].receive(
             local_params, time=ev.time, vehicle=ev.vehicle,
             upload_delay=ev.upload_delay, train_delay=ev.train_delay,
-            download_time=ev.download_time)
+            download_time=ev.download_time, discard=not keep)
         rec.rsu = rsu
         total += 1
         consensus = None
@@ -136,9 +149,10 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
                 progress(total, acc)
         result.rounds.append(rec)
         # the re-download reads the post-reconcile cohort of the RSU the
-        # upload landed on; selection parks unadmitted vehicles and
-        # re-admits at reconcile boundaries
-        arrival_step(sel, None, r=total - 1, vehicle=ev.vehicle,
+        # upload landed on; selection parks unadmitted vehicles, faults
+        # park dropped and dark ones, and both re-admit at reconcile
+        # boundaries
+        arrival_step(sel, flt, r=total - 1, vehicle=ev.vehicle,
                      time=ev.time, upload_delay=ev.upload_delay,
                      train_delay=ev.train_delay, pending=len(queue),
                      schedule=lambda v, t=ev.time: schedule(v, t))
@@ -147,4 +161,6 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     result.final_params = reconcile_models([s.global_params for s in servers])
     if sel is not None:
         result.extras["selection"] = sel.plan().summary()
+    if flt is not None:
+        result.extras["faults"] = flt.plan().summary(sc.l_iters)
     return result

@@ -994,3 +994,76 @@ def test_racy_sum_geometry_export_matches_python_grid(cuda_device):
     for args in ((8, 2, 2), (2, 2, 2), (8192, 2, 2)):
         assert racy_kernel.cu_grids(*args) == [
             g.dim3 for g in racy_kernel.geometry(*args)]
+
+
+# fault injection on the card: a churn-heavy spec that drops, blacks out,
+# recovers, truncates and discards within a dozen quick-k5 rounds
+FLEET_HEAVY = dict(faults="flaky", faults_overrides=(
+    ("p_dropout", 0.25), ("p_blackout", 0.15), ("blackout_mean", 20.0),
+    ("p_partial", 0.5), ("straggler_frac", 0.4), ("straggler_mult", 3.0),
+    ("staleness_cap", 4), ("recheck_every", 3)))
+
+
+@pytest.mark.cuda
+def test_fault_event_loop_never_waits_for_the_card(cuda_device,
+                                                   monkeypatch):
+    """The fleet engine's segments under faults (the folded admission
+    gate, recovery re-admissions between pops, the keep fold on the chain
+    coefficients) run with CUDA synchronisation made an error; the waves
+    take the partial trainer; the summary is the host replay's."""
+    import dataclasses
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import get_scenario, run_scenario
+    from repro_torch.faults import replay_fleet_faults, scenario_faults
+    real = jit_engine._event_segment
+    segments = []
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        segments.append(a[0].keep is not None and a[0].epochs is not None)
+        return out
+
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    monkeypatch.setattr(jit_engine, "_event_segment", strict)
+    res = run_scenario("quick-k5", engine="jit", rounds=12, eval_every=4,
+                       device=cuda_device, **FLEET_HEAVY)
+    sc = dataclasses.replace(get_scenario("quick-k5"), **FLEET_HEAVY)
+    want = replay_fleet_faults(sc.channel(), 0, 12, scenario_faults(sc),
+                               l_iters=sc.l_iters).summary(sc.l_iters)
+    assert res.extras["faults"] == want and segments and all(segments)
+    assert want["readmits"] and want["counts"]["partial_rounds"]
+
+
+@pytest.mark.cuda
+def test_fleet_k1000_flaky_on_card_matches_its_replay(cuda_device):
+    """fleet-k1000-flaky at its registered size on the fleet engine: the
+    summary is a host replay's, every merge a ring_agg chain of the plan
+    (cap discards stay in their chains as no-ops), no weighted_agg."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import get_scenario, run_scenario
+    from repro_torch.faults import replay_fleet_faults, scenario_faults
+    sc = get_scenario("fleet-k1000-flaky")
+    spec = scenario_faults(sc)
+    plan = jit_engine.plan_fleet(sc.channel(), 0, sc.rounds, faults=spec,
+                                 l_iters=sc.l_iters)
+    need = jit_engine.needed_rounds(
+        plan, jit_engine.eval_rounds_of(sc.rounds, 10))
+    want = sum(len(jit_engine.chain_bounds(s, e, need))
+               for _, s, e in plan.waves)
+    kernels.reset_launches()
+    res = run_scenario("fleet-k1000-flaky", engine="jit", eval_every=10,
+                       use_kernel=True, device=cuda_device)
+    assert kernels.launch_counts()["ring_agg"] == want
+    assert kernels.launch_counts()["weighted_agg"] == 0
+    replay = replay_fleet_faults(sc.channel(), 0, sc.rounds, spec,
+                                 l_iters=sc.l_iters)
+    assert res.extras["faults"] == replay.summary(sc.l_iters)
+    assert [r.vehicle for r in res.rounds] == plan.veh.tolist()
+    assert all(v.is_cuda and bool(torch.isfinite(v).all())
+               for v in res.final_params.values())

@@ -155,7 +155,8 @@ def test_helper_called_from_loop_gets_bnd004_only():
 
 def test_plan_fleet_is_linted_as_a_planner():
     src = (REPO / JIT_ENGINE).read_text()
-    anchor = "    tl = _Timeline(p, seed)\n"
+    anchor = ("    tl = _Timeline(p, seed, cl_scale=None if flt is None "
+              "else flt.cl_scale)\n")
     assert anchor in src
     bad = (anchor + "    drop = np.float32(p.v)\n    import torch\n"
            "    t = torch.zeros(3)\n")
@@ -187,4 +188,5 @@ def test_waivers_agree_with_repro():
 def test_rule_catalog_keeps_repro_ids_and_slugs():
     for rid, rule in findings.RULES.items():
         assert jfindings.RULES[rid].slug == rule.slug
-    assert not {"TEL001", "FLT001", "BND005"} & set(findings.RULES)
+    assert not {"TEL001", "BND005"} & set(findings.RULES)
+    assert "FLT001" in findings.RULES

@@ -70,7 +70,8 @@ def test_one_sgd_step(init):
 
 def test_vehicle_local_update_same_batches_and_scan(init):
     """Same shard and seed: identical minibatch draws, and the l-step scan
-    lands on the same params."""
+    lands on the same params, also truncated to its first 2 steps (partial
+    computation: all 4 batches drawn, 2 applied)."""
     imgs, labs = _batch(60, seed=2)
     jveh = jclient.Vehicle(jclient.VehicleData(3, imgs, labs), lr=0.03,
                            batch_size=24, seed=5)
@@ -82,8 +83,10 @@ def test_vehicle_local_update_same_batches_and_scan(init):
     tp, tloss = tveh.local_update(params_from_jax(init, "cpu"), 4)
     np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
     _assert_params_close(jp, tp, SCAN_TOL)
-    with pytest.raises(NotImplementedError, match="faults"):
-        tveh.local_update(params_from_jax(init, "cpu"), 4, n_ep=2)
+    jp, jloss = jveh.local_update(init, 4, n_ep=2)
+    tp, tloss = tveh.local_update(params_from_jax(init, "cpu"), 4, n_ep=2)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    _assert_params_close(jp, tp, SCAN_TOL)
 
 
 def test_local_update_many_chunk_path_matches_serial_path(init):

@@ -262,7 +262,8 @@ def test_chains_and_reconciles_follow_the_plan(monkeypatch, kw, merges):
     (dict(flat=False), NotImplementedError, "item 15"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
     (dict(metrics="on"), NotImplementedError, "item 10"),
-    (dict(faults="deadzone"), NotImplementedError, "item 9"),
+    (dict(faults="deadzone", reconcile_mode="ema"), ValueError,
+     "fault injection"),
     (dict(scheme="fedbuff"), ValueError, "fedbuff"),
     (dict(reconcile_mode="median"), ValueError, "reconcile_mode"),
     (dict(ring_dtype="f16"), ValueError, "ring_dtype"),
@@ -307,9 +308,23 @@ def test_run_scenario_rejects_engine_topology_mismatch(name, engine, match):
 
 @pytest.mark.parametrize("engine", ["serial", "corridor"])
 def test_fault_worlds_raise(engine):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsc.run_scenario("corridor-rush-hour-deadzone-r8-k4000",
-                         engine=engine, device="cpu")
+    """The call that raised before faults were ported: the dead-zone
+    corridor, cut to K 40 and 16 rounds, runs on both corridor engines
+    and reports ``repro``'s own replay's fault summary."""
+    from repro.faults import replay_corridor_faults
+    name = "corridor-rush-hour-deadzone-r8-k4000"
+    cut = dict(K=40, rounds=16, n_train=1200, n_test=120)
+    jsc_ = dataclasses.replace(jsc.get_scenario(name), **cut)
+    want = replay_corridor_faults(
+        jsc_.channel(), jsc_.n_rsus, 0, jsc_.rounds, jsc_.faults,
+        l_iters=jsc_.l_iters, entry=jsc_.corridor_entry,
+        reconcile_every=jsc_.reconcile_every).summary(jsc_.l_iters)
+    res = tsc.run_scenario(name, engine=engine, device="cpu",
+                           eval_every=16, **cut)
+    assert len(res.rounds) == 16
+    assert res.extras["faults"] == want
+    assert want["counts"]["blackout_rounds"] + want["counts"][
+        "discarded_uploads"] > 0 or not all(want["admit0"])
 
 
 def test_run_scenario_defaults_to_the_corridor_engine():

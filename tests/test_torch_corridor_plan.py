@@ -12,6 +12,7 @@ import torch
 
 import repro.core  # noqa: F401  (repro.corridor imports through repro.core)
 import repro.core.hierarchical as jhier
+import repro.core.scenarios as jsc
 import repro.corridor.plan as jplan
 import repro_torch.core.hierarchical as thier
 import repro_torch.core.scenarios as tsc
@@ -74,9 +75,19 @@ def test_chain_groups_equal_repro_on_every_segment(name):
 
 
 def test_plan_corridor_rejects_faults():
+    """The call that raised before faults were ported: the plan carries
+    ``repro``'s own fault plan (tables and summary equal) and the same pop
+    order."""
     p = tsc.get_scenario("corridor-quick-r2-k8").channel()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tplan.plan_corridor(p, 2, 0, 4, faults="deadzone")
+    jp = jsc.get_scenario("corridor-quick-r2-k8").channel()
+    kw = dict(faults="deadzone", reconcile_every=4, l_iters=2)
+    got = tplan.plan_corridor(p, 2, 0, 24, **kw)
+    want = jplan.plan_corridor(jp, 2, 0, 24, **kw)
+    np.testing.assert_array_equal(got.veh, want.veh)
+    assert got.flt.summary(2) == want.flt.summary(2)
+    tw, jw = got.flt.tables(24), want.flt.tables(24)
+    for k in jw:
+        np.testing.assert_array_equal(tw[k], jw[k], err_msg=k)
 
 
 def _cohorts(n, seed=0):

@@ -133,7 +133,7 @@ def test_run_scenario_selects_jit_for_a_bf16_world(monkeypatch):
     (dict(flat=False), NotImplementedError, "pytree"),
     (dict(mesh=object()), NotImplementedError, "distribution"),
     (dict(metrics="on"), NotImplementedError, "telemetry"),
-    (dict(faults="flaky"), NotImplementedError, "faults"),
+    (dict(faults="no-such-profile"), KeyError, "unknown fault profile"),
 ])
 def test_run_simulation_jit_rejects(kw, err, match):
     sc = tsc.get_scenario("quick-k5")

@@ -152,12 +152,13 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [
-    (dict(scenario="corridor-rush-hour-deadzone-r8-k4000"), "faults"),
+    (dict(scenario="corridor-quick-r2-k8", metrics="on"), "telemetry"),
     (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
     (dict(scenario="quick-k5", engine="jit", mesh=object()),
      "distribution"),
     (dict(scenario="quick-k5", engine="vmap"), "sweep"),
-    (dict(scenario="fleet-k1000-flaky"), "faults"),
+    (dict(scenario="quick-k5", engine="serial", metrics="on"),
+     "telemetry"),
     (dict(scenario="quick-k5", metrics="on"), "telemetry"),
 ])
 def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
@@ -183,6 +184,31 @@ def test_selection_worlds_run_on_the_port(kwargs, policy):
     # nothing parked at t = 0 arrives before the first re-score
     first = min([b for b, _, _ in summary["decisions"]] + [10])
     assert {r.vehicle for r in res.rounds[:first]} <= admitted
+
+
+@pytest.mark.parametrize("name", ["fleet-k1000-flaky",
+                                  "fleet-k1000-throttled",
+                                  "corridor-rush-hour-deadzone-r8-k4000"])
+def test_fault_worlds_run_on_the_port(name):
+    """The fault worlds that raised before faults were ported, cut to K 40
+    and 10 rounds on their default engine: the summary is the port's own
+    host replay's (held to ``repro``'s in ``tests/test_torch_faults.py``)."""
+    from repro_torch.faults import (replay_corridor_faults,
+                                    replay_fleet_faults, scenario_faults)
+    cut = dict(K=40, rounds=10, n_train=1200, n_test=120)
+    sc = dataclasses.replace(get_scenario(name), **cut)
+    spec = scenario_faults(sc)
+    if sc.n_rsus > 1:
+        want = replay_corridor_faults(
+            sc.channel(), sc.n_rsus, 0, 10, spec, l_iters=sc.l_iters,
+            entry=sc.corridor_entry, reconcile_every=sc.reconcile_every)
+    else:
+        want = replay_fleet_faults(sc.channel(), 0, 10, spec,
+                                   l_iters=sc.l_iters)
+    res = run_scenario(name, device="cpu", eval_every=10, **cut)
+    assert len(res.rounds) == 10
+    assert res.extras["faults"] == want.summary(sc.l_iters)
+    assert res.extras["faults"]["spec"]["staleness_cap"] is not None
 
 
 def test_unknown_engine_raises():

@@ -344,17 +344,44 @@ def test_composition_helpers_equal_repro():
         log.append(helpers.fold_readmits(st.plan(), None))
         out.append(log)
     assert out[1] == out[0]
-    assert set(tfaults.__all__) == {"arrival_step", "fold_readmits",
-                                    "initial_vehicles"}
+    assert set(tfaults.__all__) == set(jfaults.__all__)
+
+
+def _drive_helpers(helpers, sel_mod, pkg, call):
+    """One selection state and one fault state of K 7 (churn-heavy, so
+    the gate parks vehicles at t = 0 and on re-schedule), handed to one of
+    the composition helpers by ``call``; returns what it gave and both
+    states' residue."""
+    p, mob = _mobility(pkg, 7, 1)
+    sel = sel_mod.SelectionState(
+        sel_mod.SelectionSpec(policy="eps-bandit", k=4, eps=0.5,
+                              resel_every=3), p, mob, seed=3, rounds=20)
+    flt = helpers.make_fault_state(
+        helpers.FaultSpec(p_dropout=0.3, p_blackout=0.3, blackout_mean=2.0,
+                          p_partial=0.5, staleness_cap=4, recheck_every=4),
+        p, seed=3, rounds=20, l_iters=3)
+    out = call(helpers, sel, flt)
+    return out, sel.plan().summary(), flt.plan().summary(3)
 
 
 @pytest.mark.parametrize("call", [
-    lambda h: h.initial_vehicles(None, object(), 3),
-    lambda h: h.arrival_step(None, object(), r=0, vehicle=0, time=0.0,
-                             upload_delay=1.0, train_delay=1.0, pending=0,
-                             schedule=print),
-    lambda h: h.fold_readmits(None, object()),
+    lambda h, sel, flt: h.initial_vehicles(sel, flt, 7),
+    lambda h, sel, flt: [h.initial_vehicles(sel, flt, 7)] + [
+        (h.arrival_step(sel, flt, r=r, vehicle=r % 7, time=float(r),
+                        upload_delay=1.0, train_delay=1.5, pending=2,
+                        schedule=log.append, readmit=log.append), log)[1]
+        for r, log in zip(range(20), [[] for _ in range(20)])],
+    lambda h, sel, flt: (h.initial_vehicles(sel, flt, 7), [
+        h.arrival_step(sel, flt, r=r, vehicle=r % 7, time=float(r),
+                       upload_delay=1.0, train_delay=1.5, pending=2,
+                       schedule=lambda v: None) for r in range(20)],
+        h.fold_readmits(sel.plan(), flt.plan()))[2],
 ], ids=["initial_vehicles", "arrival_step", "fold_readmits"])
 def test_composition_helpers_raise_for_a_fault_state(call):
-    with pytest.raises(NotImplementedError, match=r"faults \(item 9\)"):
-        call(tfaults)
+    """The calls that raised before faults were ported: each helper drives
+    a fault state beside a selection state as ``repro``'s does, and both
+    states end with ``repro``'s residue."""
+    mine = _drive_helpers(tfaults, tsel, tchannel, call)
+    ref = _drive_helpers(jfaults, jsel, jchannel, call)
+    assert mine == ref
+    assert mine[0]
