@@ -52,7 +52,7 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
 6b. selection path (after phase 6): fleet-k1000-topk and
    fleet-k1000-budget on ``engine="jit"`` (30 rounds each): ``ring_agg``
    launches = the selection plan's chains, ``weighted_agg`` none, every
-   popped vehicle admitted when it downloaded, ``extras["selection"]`` =
+   popped vehicle admitted when it downloaded, ``report.selection`` =
    a host re-plan's summary, fleet-k1000-topk profiled; fleet-k1000-topk
    on ``batched``: one ``weighted_agg`` launch per merge;
    corridor-r4-k400-bandit on ``engine="corridor"`` (40 rounds):
@@ -62,7 +62,7 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    After the corridor's card-vs-CPU check: paper-k10 with weighted-topk k
    5 (8 rounds, serial and jit) and corridor-quick-r2-k8 with eps-bandit
    k 2, eps 0.4 (12 rounds, both corridor engines) on the card and on the
-   CPU from one numpy-made init: equal ``extras["selection"]``, the same
+   CPU from one numpy-made init: equal ``report.selection``, the same
    traces, times and params within phase 5's bands.
 6c. fault path (after phase 6b): fleet-k1000-flaky and
    fleet-k1000-throttled (30 rounds each) on ``engine="jit"``: ``ring_agg``
@@ -79,6 +79,18 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    steps, both corridor engines), card against CPU from one numpy-made
    init: equal ``extras["faults"]``, the same traces, times and params
    within phase 5's bands.
+6d. telemetry (after the card-vs-CPU checks of 5-6c): ``metrics="on"``
+   against no metrics, in turns (off, on, on, off), on fleet-k1000 (30
+   rounds), fleet-k10000 (60, bf16 ring: the ring guard counts no
+   non-finite row) and fleet-k1000-flaky (30: the fault counters) on
+   ``engine="jit"``, and corridor-r8-k4000 and corridor-r4-k400-bandit (40
+   each: per-RSU channels, the bandit's reward accumulators) on the
+   corridor engine: K1/K2 launches equal on and off, the same trace,
+   params within 1e-6, every channel equal to the port's own f64 replay
+   (the pop wait within rtol 1e-4 / atol 1e-3), the report's device
+   memory keys present; ms/round on and off printed, with one rendered run
+   log line; a profiler reading of the extra launches per pop on
+   fleet-k1000 is queued.
 7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
@@ -820,7 +832,7 @@ def numpy_init(seed=0):
 
 def phase_host(engine, selection=None, faults=None, rounds=HOST_ROUNDS):
     """paper-k10 for ``rounds`` rounds on the card and on the CPU, same
-    init (with a ``SelectionSpec``: the same ``extras["selection"]`` too;
+    init (with a ``SelectionSpec``: the same ``report.selection`` too;
     with a fault profile, the same ``extras["faults"]``)."""
     from repro_torch.convert import params_from_jax, params_to_numpy
     from repro_torch.core.mafl import run_simulation
@@ -849,8 +861,8 @@ def phase_host(engine, selection=None, faults=None, rounds=HOST_ROUNDS):
               f"{label}: card and CPU fault summaries differ")
         log(f"host: {label}: card and CPU fault summaries equal: {counts}")
     if selection is not None:
-        admit0 = cpu.extras["selection"]["admit0"]
-        check(gpu.extras["selection"] == cpu.extras["selection"],
+        admit0 = cpu.report.selection["admit0"]
+        check(gpu.report.selection == cpu.report.selection,
               f"{label}: card and CPU selection summaries differ")
         check(not all(admit0) and {r.vehicle for r in cpu.rounds}
               <= {v for v, a in enumerate(admit0) if a},
@@ -1031,7 +1043,7 @@ def phase_corridor_vs_cpu(rounds=8, **fields):
     """corridor-quick-r2-k8 for ``rounds`` rounds on the card and on the
     CPU from one numpy-made init, on the device engine and on the serial
     loop; ``fields`` holds Scenario selection or fault fields (then the
-    two ``extras["selection"]`` or ``extras["faults"]`` must be equal
+    two ``report.selection`` or ``extras["faults"]`` must be equal
     too)."""
     import dataclasses
     from repro_torch.convert import params_from_jax, params_to_numpy
@@ -1065,8 +1077,8 @@ def phase_corridor_vs_cpu(rounds=8, **fields):
                 f"summaries equal: {summary['counts']}, recoveries at "
                 f"{[b for b, _ in summary['readmits']]}")
         if selection:
-            summary = cpu.extras["selection"]
-            check(gpu.extras["selection"] == summary,
+            summary = cpu.report.selection
+            check(gpu.report.selection == summary,
                   f"corridor {label}: card and CPU selection summaries "
                   f"differ")
             log(f"corridor: {label}: card and CPU selection summaries "
@@ -1153,7 +1165,7 @@ def phase_selection(dev):
         sc = get_scenario(name)
         plan = jit_engine.plan_fleet(sc.channel(), 0, rounds,
                                      selection=sc.selection_spec())
-        summary = res.extras["selection"]
+        summary = res.report.selection
         check(summary == plan.sel.summary(),
               f"{name}/jit: selection summary differs from a host re-plan")
         check(admitted_pops(plan)
@@ -1169,7 +1181,7 @@ def phase_selection(dev):
                  rounds=5)                       # warm-up, untimed
     res, _, n = run_main(name, "batched", SELECTION_FLEET[0][1])
     k2 += n
-    check(not all(res.extras["selection"]["admit0"]),
+    check(not all(res.report.selection["admit0"]),
           f"{name}/batched: nothing parked")
 
     name, rounds = SELECTION_CORRIDOR
@@ -1179,7 +1191,7 @@ def phase_selection(dev):
     check(counts["ring_agg"] == want and counts["weighted_agg"] == 0,
           f"{name}/corridor: ring_agg {counts['ring_agg']} (plan {want}), "
           f"weighted_agg {counts['weighted_agg']}")
-    check(res.extras["selection"] == plan.sel.summary(),
+    check(res.report.selection == plan.sel.summary(),
           f"{name}/corridor: selection summary differs from the plan's")
     k1 += counts["ring_agg"]
     t0 = time.perf_counter()
@@ -1354,6 +1366,213 @@ def phase_faults_vs_cpu():
     phase_host("serial", faults="throttled", rounds=FAULT_HOST_ROUNDS)
     phase_host("jit", faults="throttled", rounds=FAULT_HOST_ROUNDS)
     phase_corridor_vs_cpu(rounds=24, l_iters=2, **HEAVY_FIELDS)
+
+
+# telemetry (metrics="on") on the device engines at registered sizes: the
+# f32 ring, the bf16 ring guard, the fault counters, the corridor's per-RSU
+# channels and the bandit's reward accumulators
+TELEMETRY_RUNS = (("fleet-k1000", 30, "jit"), ("fleet-k10000", 60, "jit"),
+                  ("fleet-k1000-flaky", 30, "jit"),
+                  ("corridor-r8-k4000", 40, "corridor"),
+                  ("corridor-r4-k400-bandit", 40, "corridor"))
+# metrics on leaves the models as they are: cuDNN is set deterministic
+# (repro_torch/device.py), so the bound is met with room; an off-path op
+# leaking into the training would move them by 1e-3 and more
+TELEMETRY_PARAM_TOL = 1e-6
+TELEMETRY_GAP_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+def telemetry_run(name, rounds, engine, metrics):
+    """One run with ``metrics`` (None or "on"); returns (result, ms/round,
+    launch counts)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.scenarios import run_scenario
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_scenario(name, engine=engine, use_kernel=True, device=DEVICE,
+                       rounds=rounds, eval_every=EVAL_EVERY, metrics=metrics)
+    torch.cuda.synchronize()
+    return (res, (time.perf_counter() - t0) / rounds * 1e3,
+            kernels.launch_counts())
+
+
+def telemetry_replay(name, rounds):
+    """The port's own f64 channel replay of a registry world and the edges
+    the planner derives from it."""
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.faults import scenario_faults
+    from repro_torch.telemetry.replay import (replay_corridor_channels,
+                                              replay_fleet_channels)
+    from repro_torch.telemetry.spec import resolve_metrics
+    sc = get_scenario(name)
+    kw = dict(selection=sc.selection_spec(), faults=scenario_faults(sc),
+              l_iters=sc.l_iters)
+    if sc.n_rsus > 1:
+        rep = replay_corridor_channels(
+            sc.channel(), sc.n_rsus, 0, rounds, entry=sc.corridor_entry,
+            reconcile_every=sc.reconcile_every, **kw)
+    else:
+        rep = replay_fleet_channels(sc.channel(), 0, rounds, **kw)
+    spec = resolve_metrics("on", stale=rep["stale"], times=rep["times"],
+                           n_rsus=sc.n_rsus)
+    return sc, rep, spec
+
+
+def check_channels(tag, res, sc, rep, spec):
+    """A metrics-on card run's channels against the f64 replay: histogram,
+    occupancy, handovers and fault counters exactly, the pop wait within
+    rtol 1e-4 / atol 1e-3."""
+    from repro_torch.faults import (replay_corridor_faults,
+                                    replay_fleet_faults, scenario_faults)
+    from repro_torch.telemetry.spec import stale_histogram
+    ch = res.report.channels
+    check(res.report.spec["edges"] == list(spec.edges),
+          f"{tag}: spec edges {res.report.spec['edges']} differ from the "
+          f"replay's {list(spec.edges)}")
+    rsu = rep.get("up_rsu")
+    check(np.array_equal(ch["stale_hist"], stale_histogram(
+        spec.edges, rep["stale"], rsu=rsu, n_rsus=sc.n_rsus)),
+          f"{tag}: staleness histogram {ch['stale_hist'].tolist()} differs "
+          f"from the replay's")
+    check(np.array_equal(ch["occupancy"], rep["occupancy"]),
+          f"{tag}: occupancy differs from the replay's")
+    check(np.allclose(ch["gap"], rep["gap"], **TELEMETRY_GAP_TOL),
+          f"{tag}: pop wait outside rtol 1e-4 / atol 1e-3 of the replay's")
+    if rsu is not None:
+        check(np.array_equal(np.asarray(ch["handover"], bool),
+                             rep["handover"])
+              and np.array_equal(ch["handover_count"],
+                                 rep["handover_count"]),
+              f"{tag}: handovers differ from the replay's")
+    spec_f = scenario_faults(sc)
+    if spec_f is not None:
+        if sc.n_rsus > 1:
+            replay = replay_corridor_faults(
+                sc.channel(), sc.n_rsus, 0, len(rep["veh"]), spec_f,
+                l_iters=sc.l_iters, entry=sc.corridor_entry,
+                reconcile_every=sc.reconcile_every)
+        else:
+            replay = replay_fleet_faults(sc.channel(), 0, len(rep["veh"]),
+                                         spec_f, l_iters=sc.l_iters)
+        want = replay.counts_table(sc.l_iters).sum(0)
+        check(np.array_equal(ch["fault_counts"], want),
+              f"{tag}: fault counters {ch['fault_counts'].tolist()} differ "
+              f"from the replay's {want.tolist()}")
+
+
+def phase_telemetry():
+    """Telemetry on the device engines at registered sizes: each world run
+    metrics-off and metrics-on in turns (off, on, on, off).  The K1/K2
+    launches are equal on and off, the card's channels equal the port's
+    own f64 replay, the trace is identical and the params within 1e-6;
+    ms/round on and off, the report's memory keys and one rendered run
+    log line are printed.  Returns the K1 and K2 launches of the
+    metrics-on runs (one per world)."""
+    import torch
+    from repro_torch.telemetry import runlog
+
+    k1 = k2 = 0
+    rendered = None
+    for name, rounds, engine in TELEMETRY_RUNS:
+        sc, rep, spec = telemetry_replay(name, rounds)
+        ms = {None: [], "on": []}
+        runs = {}
+        for metrics in (None, "on", "on", None):
+            res, ms_round, counts = telemetry_run(name, rounds, engine,
+                                                  metrics)
+            ms[metrics].append(ms_round)
+            runs.setdefault(metrics, (res, counts))
+        (off, c_off), (on, c_on) = runs[None], runs["on"]
+        tag = f"{name}/{engine}"
+        check(c_on == c_off, f"{tag}: launches with metrics on {c_on}, "
+              f"off {c_off}")
+        check(on.report.metrics_on and not off.report.metrics_on
+              and off.report.channels == {},
+              f"{tag}: metrics on/off reports {on.report.metrics_on}, "
+              f"{off.report.metrics_on}")
+        check([(r.round, r.vehicle, r.time) for r in on.rounds]
+              == [(r.round, r.vehicle, r.time) for r in off.rounds],
+              f"{tag}: the trace differs with metrics on")
+        diff = max((on.final_params[k] - off.final_params[k]).abs().max()
+                   .item() for k in off.final_params)
+        check(diff <= TELEMETRY_PARAM_TOL and all(
+            v.is_cuda for v in on.final_params.values()),
+            f"{tag}: params with metrics on differ by {diff} (or left the "
+            f"card)")
+        check_channels(tag, on, sc, rep, spec)
+        ch = on.report.channels
+        extra = []
+        if name == "fleet-k10000":
+            check(int(ch["ring_nonfinite"]) == 0
+                  and float(ch["ring_max_abs"]) > 0.0,
+                  f"{tag}: bf16 ring guard {ch['ring_nonfinite']} "
+                  f"non-finite, max |row| {ch['ring_max_abs']}")
+            extra.append(f"ring_nonfinite 0, ring_max_abs "
+                         f"{float(ch['ring_max_abs']):.6g}")
+        if "fault_counts" in ch:
+            extra.append(f"fault_counts {ch['fault_counts'].tolist()} = the "
+                         f"replay's")
+        if sc.selection == "eps-bandit":
+            check("reward_sum" in ch and int(ch["reward_count"].sum())
+                  == rounds, f"{tag}: bandit accumulators {sorted(ch)}")
+            extra.append(f"reward_count sum {int(ch['reward_count'].sum())}"
+                         f", reward_sum sum {float(ch['reward_sum'].sum()):.6f}")
+        if "handover_count" in ch:
+            extra.append(f"handovers per RSU {ch['handover_count'].tolist()}")
+        mem = on.report.memory
+        check({"device_bytes_in_use", "device_peak_bytes_in_use",
+               "device_bytes_limit"} <= set(mem),
+              f"{tag}: report memory keys {sorted(mem)}")
+        k1 += c_on["ring_agg"]
+        k2 += c_on["weighted_agg"]
+        m_off, m_on = np.median(ms[None]), np.median(ms["on"])
+        log(f"telemetry: {tag} rounds={rounds}: ms/round off "
+            f"{[round(x, 3) for x in ms[None]]} on "
+            f"{[round(x, 3) for x in ms['on']]} (median on/off "
+            f"{m_on / m_off:.4f}); launches equal on and off {c_on}; "
+            f"channels = the f64 replay (histogram "
+            f"{np.asarray(ch['stale_hist']).tolist()}, occupancy, gap"
+            f"{', handovers' if 'handover' in ch else ''}); trace identical, "
+            f"params max |on - off| {diff}"
+            f"{'; ' + '; '.join(extra) if extra else ''}")
+        log(f"telemetry:   {tag} memory {mem}; phases "
+            f"{ {k: round(v, 4) for k, v in on.report.phases.items()} }")
+        if rendered is None:
+            rendered = runlog.render([on.report.to_json()])
+    log("telemetry: rendered run log line:\n" + rendered)
+    profile_later_launches("fleet-k1000", 30, "jit")
+    return k1, k2
+
+
+def profile_later_launches(name, rounds, engine):
+    """Queue the profiler's count of the kernels one run launches with
+    metrics off and on: the extra launches per pop that telemetry costs."""
+    def measure():
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.scenarios import run_scenario
+        out = {}
+        for metrics in (None, "on"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_scenario(name, engine=engine, use_kernel=True,
+                             device=DEVICE, rounds=rounds,
+                             eval_every=EVAL_EVERY, metrics=metrics)
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_time_total > 0 and str(
+                        getattr(e, "device_type", "")).endswith("CUDA")]
+            out[metrics] = (sum(e.count for e in rows),
+                            sum(e.device_time_total for e in rows) / 1e3)
+        (n_off, d_off), (n_on, d_on) = out[None], out["on"]
+        log(f"profile: telemetry {name}/{engine} {rounds} rounds: device "
+            f"kernels off {n_off} launches / {d_off:.3f} ms, on {n_on} / "
+            f"{d_on:.3f} ms: {(n_on - n_off) / rounds:.2f} extra launches "
+            f"and {(d_on - d_off) / rounds * 1e3:.3f} us of device time per "
+            f"pop")
+    PROFILED.append(measure)
 
 
 # K4 decode_attention / K5 swa_attention: f32 inputs from N(0, 1) within
@@ -2475,17 +2694,6 @@ def main() -> int:
     f1_main = racy_kernel.KERNEL.launches - f1_before
     check(f1_main == 0,
           f"racy_sum launched {f1_main} times on the main paths")
-    # K2 runs on five main paths: the host engines' merges, the
-    # corridor's (EMA reconciles, serial handover merges), those under
-    # vehicle selection and under fault injection (kept merges only), and
-    # training's
-    k2["launches"] = (host_merges + corridor_merges + selection_merges
-                      + fault_merges + train_merges)
-    k2["launches_by_path"] = {"host engines": host_merges,
-                              "corridor": corridor_merges,
-                              "selection": selection_merges,
-                              "faults": fault_merges,
-                              "training": train_merges}
     phase_train_step(dev)
     mark("train step")
     phase_host("serial")
@@ -2494,6 +2702,8 @@ def main() -> int:
     phase_selection_vs_cpu()
     phase_faults_vs_cpu()
     mark("card against CPU (host, corridor, selection, faults)")
+    telemetry_chains, telemetry_merges = phase_telemetry()
+    mark("telemetry")
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
     mark("card against CPU (serve, train)")
@@ -2503,6 +2713,22 @@ def main() -> int:
     mark("check")
     f1["launches"] = f1_main
     f1["launches_by_path"]["main paths"] = f1_main
+    # K1 and K2 under telemetry: the metrics-on runs of phase_telemetry
+    # (their launches equal the metrics-off runs').  K2 runs on six main
+    # paths: the host engines' merges, the corridor's (EMA reconciles,
+    # serial handover merges), those under vehicle selection and under
+    # fault injection (kept merges only), training's, and telemetry's (none:
+    # its corridor worlds reconcile by FedAvg)
+    k1["launches"] += telemetry_chains
+    k1["launches_by_path"]["telemetry"] = telemetry_chains
+    k2["launches"] = (host_merges + corridor_merges + selection_merges
+                      + fault_merges + train_merges + telemetry_merges)
+    k2["launches_by_path"] = {"host engines": host_merges,
+                              "corridor": corridor_merges,
+                              "selection": selection_merges,
+                              "faults": fault_merges,
+                              "training": train_merges,
+                              "telemetry": telemetry_merges}
     profile_run("corridor-r8-k4000", "corridor", 40, corridor_ms * 40)
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last

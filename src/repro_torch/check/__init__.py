@@ -10,6 +10,9 @@ counterpart of ``repro.check`` (DESIGN.md §13).
 - ``dtype_flow`` / ``plan_shapes``: run probes: bf16 storage-only
   verification over a recorded fleet-engine run, and cross-seed plan-layout
   stability.
+- ``telemetry_off``: rule TEL001, every falsy ``metrics`` spelling
+  resolves to None and a metrics-off run dispatches the op sequence of the
+  run without metrics.
 
 CLI: ``python -m repro_torch.check src/repro_torch [--strict]
 [--format=json] [--list-rules] [--no-probes]``.  Findings can be waived in

@@ -18,6 +18,7 @@ ENGINE_MODULES = (
     "repro_torch/kernels/cross_entropy/ops.py",
     "repro_torch/kernels/decode_attention/ops.py",
     "repro_torch/kernels/swa_attention/ops.py",
+    "repro_torch/telemetry/device.py",
 )
 
 # Device-loop functions: the port runs eagerly, so nothing marks device code
@@ -37,6 +38,9 @@ DEVICE_LOOP_FUNCTIONS = {
         "_CorridorQueue.readmit", "_CorridorQueue.wrap",
         "_CorridorQueue.serving", "_chain_segment", "_reconcile",
         "_run_program"),
+    "repro_torch/telemetry/device.py": (
+        "stale_bin", "_fold", "fleet_pop", "corridor_pop", "RingStats.count",
+        "RingStats.wrap"),
     "repro_torch/models/transformer.py": ("decode_step",),
     "repro_torch/models/attention.py": ("attention_decode",),
     "repro_torch/launch/steps.py": (
@@ -48,10 +52,13 @@ DEVICE_LOOP_FUNCTIONS = {
 
 # Planner modules: pure f64 host numpy, no engine/kernel imports, no torch
 # (PLN001/PLN002).  selection/runtime.py is the f64 selection replay every
-# planner runs; the bad-planner fixture is linted as one.
+# planner runs; the telemetry spec and replay are plan data and the channel
+# oracle; the bad-planner fixture is linted as one.
 PLANNER_MODULES = (
     "repro_torch/corridor/plan.py",
     "repro_torch/selection/runtime.py",
+    "repro_torch/telemetry/spec.py",
+    "repro_torch/telemetry/replay.py",
     "repro_torch/check/corpus/bad_planner.py",
 )
 
@@ -78,6 +85,7 @@ PLANNER_ALLOWED_IMPORTS = (
     "repro_torch.selection",
     "repro_torch.faults",       # fault tables and the composition helpers
     "repro_torch.core.mafl",    # _Timeline: the shared f64 event-queue replay
+    "repro_torch.telemetry",    # MetricsSpec is plan data (DESIGN.md §14)
 )
 
 # The known-positive fixture corpus is deliberately broken; default scans

@@ -11,10 +11,10 @@ flagged line (or the line directly above it), in ``repro``'s syntax::
 The reason text is mandatory: an empty reason does not waive.  ``--strict``
 fails on any finding that is not waived.
 
-Rule ids and slugs are ``repro``'s where the contract is the same.  Rules
-whose subject the port does not have yet are not registered (ROADMAP queue
-1, item 14): TEL001 (telemetry, item 10) and BND005 (torch has no
-``donate_argnums``, so the port has no donating call).
+Rule ids and slugs are ``repro``'s where the contract is the same.  A rule
+whose subject the port does not have is not registered: BND005 (torch has
+no ``donate_argnums``, so the port has no donating call; ROADMAP queue 1,
+item 14).
 """
 from __future__ import annotations
 
@@ -95,6 +95,14 @@ _rule("PLN003", "plan-shape-instability",
       "tables are the declared prerequisite for the multi-world engine "
       "(ROADMAP)",
       "plan_shapes")
+
+# -- telemetry off-path probe (check/telemetry_off.py) ----------------------
+_rule("TEL001", "metrics-off-not-legacy",
+      "metrics=off ran a different path than the run without metrics: "
+      "every falsy spelling must resolve to None, and an off run must "
+      "dispatch exactly the no-metrics run's op sequence, building no "
+      "telemetry state (DESIGN.md §14)",
+      "telemetry_off")
 
 # -- fault-injection discipline (boundary lint + plan probes) ---------------
 _rule("FLT001", "fault-planner-discipline",

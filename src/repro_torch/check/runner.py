@@ -46,7 +46,8 @@ def run_checks(paths: list[str], *, probes: bool = True):
     timings["grid_race"] = time.perf_counter() - t0
 
     if probes:
-        from repro_torch.check import dtype_flow, plan_shapes
+        from repro_torch.check import (dtype_flow, plan_shapes,
+                                       telemetry_off)
 
         t0 = time.perf_counter()
         findings.extend(plan_shapes.probe_plan_shapes())
@@ -55,6 +56,10 @@ def run_checks(paths: list[str], *, probes: bool = True):
         t0 = time.perf_counter()
         findings.extend(dtype_flow.probe_dtype_flow())
         timings["dtype_flow"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        findings.extend(telemetry_off.probe_telemetry_off())
+        timings["telemetry_off"] = time.perf_counter() - t0
 
     sources = {f.as_posix(): f.read_text() for f in files}
     findings = apply_waivers(findings, sources)
@@ -103,7 +108,7 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.check",
         description="Static invariant analyzers of the PyTorch/CUDA port: "
                     "CUDA grid races, host/device boundary lint, dtype "
-                    "flow, plan shapes.")
+                    "flow, plan shapes, the telemetry off path.")
     ap.add_argument("paths", nargs="*", default=DEFAULT_PATHS,
                     help="files or directories to scan (default: "
                          "src/repro_torch)")
@@ -113,8 +118,8 @@ def main(argv=None) -> int:
     ap.add_argument("--list-rules", action="store_true",
                     help="print the rule catalog and exit")
     ap.add_argument("--no-probes", action="store_true",
-                    help="skip the run probes (dtype flow, plan shapes): "
-                         "AST and race analysis only")
+                    help="skip the run probes (dtype flow, plan shapes, "
+                         "telemetry off): AST and race analysis only")
     args = ap.parse_args(argv)
 
     if args.list_rules:

@@ -37,6 +37,11 @@ eagerly on the card.
   ``(1, 0)`` (an exact no-op inside its ``ring_agg`` chain, which keeps
   the plan's chains), and the per-cycle epoch counts feed the masked
   partial trainer.  Straggler multipliers are in the plan's train delays.
+- **Telemetry** (``metrics="on"``) is plan data too: histogram edges from
+  the f64 plan, device counters updated in place per pop
+  (``telemetry/device.py``), the occupancy and pop wait as two more trace
+  columns, the fault plan's counts table added row by row, and the bf16
+  ring guard around ``store``.  Off builds none of it.
 
 Times on the device are f32.  The timeline never depends on training, so
 an f64 host dry run (:func:`plan_fleet`) fixes the pop order, the waves and
@@ -57,7 +62,8 @@ from repro_torch.core import client as client_mod
 from repro_torch.core.aggregation import chain_coeffs
 from repro_torch.core.client import Vehicle, VehicleData
 from repro_torch.core.flat import ParamLayout
-from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
+from repro_torch.core.mafl import (SimResult, _Timeline, evaluate,
+                                   fault_report, reward_channel, unported)
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.device import resolve_device
 from repro_torch.faults import (arrival_step, fold_admission, fold_readmits,
@@ -65,6 +71,10 @@ from repro_torch.faults import (arrival_step, fold_admission, fold_readmits,
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 from repro_torch.models.cnn import init_cnn
 from repro_torch.selection import make_selection_state
+from repro_torch.telemetry import PhaseTimers, RunReport, memory_stats
+from repro_torch.telemetry import device as tel_dev
+from repro_torch.telemetry.report import wave_stats
+from repro_torch.telemetry.spec import resolve_metrics
 
 _SUPPORTED_SCHEMES = ("mafl", "afl", "fedasync")
 
@@ -233,7 +243,9 @@ class _SlotQueue:
     ``rs``/``rc``; otherwise these are None and a pop is the path without
     them.  A fault plan with a staleness cap adds the ``bool[M]`` keep
     column (``keep``), one with partial computation the ``i32[M]`` epoch
-    column (``epochs``): the event segments and the waves read them."""
+    column (``epochs``): the event segments and the waves read them.
+    ``occupancy`` (set when metrics are on) makes every pop also return
+    the live-slot count before it."""
 
     def __init__(self, p: ChannelParams, plan: FleetPlan, gains, x0,
                  device):
@@ -263,6 +275,7 @@ class _SlotQueue:
         self.inf = torch.full((1,), np.inf, dtype=torch.float32,
                               device=device)
         self.adm = self.rs = self.rc = self.keep = self.epochs = None
+        self.occupancy = False
         M = len(plan.veh)
         sel, flt = plan.sel, plan.flt
         sel_on = sel is not None and not sel.is_noop
@@ -326,8 +339,12 @@ class _SlotQueue:
         """Pop ``r``: take the earliest slot and re-schedule its vehicle
         (download now, train C_l, upload C_u) unless selection parks it.
         Returns the trace columns of the pop as one-element tensors:
-        (vehicle, time, C_u, C_l, download time, delay weight)."""
+        (vehicle, time, C_u, C_l, download time, delay weight), and with
+        ``occupancy`` the live slots before the pop writes (the popped one
+        included)."""
         i = torch.argmin(self.qt, dim=0, keepdim=True)
+        occ = (torch.isfinite(self.qt).sum(0, keepdim=True)
+               if self.occupancy else None)
         t = self.qt.index_select(0, i)
         cu = self.qcu.index_select(0, i)
         cl = self.qcl.index_select(0, i)
@@ -342,7 +359,9 @@ class _SlotQueue:
         self.qt.index_copy_(0, i, t_new)
         self.qdl.index_copy_(0, i, t)
         self.qcu.index_copy_(0, i, cu_new)
-        return i, t, cu, cl, dl_t, weight
+        if occ is None:
+            return i, t, cu, cl, dl_t, weight
+        return i, t, cu, cl, dl_t, weight, occ
 
 
 def keep_coeffs(queue: _SlotQueue, cc, dd, s: int, e: int):
@@ -358,22 +377,31 @@ def keep_coeffs(queue: _SlotQueue, cc, dd, s: int, e: int):
 
 def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
                    needed: set, store, *, scheme: str, interpretation: str,
-                   beta: float, fedasync_mix: float, readmits: dict):
+                   beta: float, fedasync_mix: float, readmits: dict,
+                   mst=None, fault_tab=None):
     """The event loop between two waves: pops ``s..e-1`` of the slot queue,
     their chain coefficients, and the ``ring_agg`` chains that merge them
     into ``g``.  The re-admissions of boundary ``b`` (``readmits[b]``, a
     device index tensor) are written between pops ``b-1`` and ``b``, at
     pop ``b-1``'s time: they split the pops, never the chains.  A
     cap-discarded pop stays in its chain as a no-op (:func:`keep_coeffs`).
-    Nothing here reads a device value on the host.  Returns the new ``g``
-    and the segment's six trace columns (``[e-s]`` each)."""
+    With metrics on, ``mst`` (``telemetry.device.fleet_state``) folds each
+    pop, with row ``r`` of the fault counts table ``fault_tab`` where one
+    is armed.  Nothing here reads a device value on the host.  Returns the
+    new ``g`` and the segment's trace columns (``[e-s]`` each): six, and
+    with metrics the occupancy and the pop wait."""
     pops = []
     for r in range(s, e):
-        pops.append(queue.pop(scheme == "mafl", r))
+        pop = queue.pop(scheme == "mafl", r)
+        if mst is not None:
+            pop += (tel_dev.fleet_pop(
+                mst, t=pop[1], dl_t=pop[4],
+                fault_row=None if fault_tab is None else fault_tab[r]),)
+        pops.append(pop)
         if r + 1 in readmits:
-            queue.readmit(readmits[r + 1], pops[-1][1])
+            queue.readmit(readmits[r + 1], pop[1])
     cols = tuple(torch.cat(c) for c in zip(*pops))
-    _, t_c, _, _, dlt_c, w_c = cols
+    _, t_c, _, _, dlt_c, w_c = cols[:6]
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
                           dl_t=dlt_c, fedasync_mix=fedasync_mix)
     cc, dd = keep_coeffs(queue, cc, dd, s, e)
@@ -434,12 +462,47 @@ def readmit_points(plan) -> dict:
                          plan.flt)
 
 
+def metrics_setup(metrics, plan, l_iters: int, bf16: bool, store, device,
+                  state):
+    """The device telemetry of one run (both device engines): the metrics
+    state from ``state`` (``fleet_state`` or ``corridor_state``), the fault
+    plan's ``i32[M, 4]`` counts table on the device when the spec arms the
+    fault counters, and under the bf16 ring guard a :class:`RingStats`
+    with the ``store`` it wraps.  Returns ``(mst, fault_tab, ring_stats,
+    store)``."""
+    mst = state(metrics, device)
+    fault_tab = ring_stats = None
+    if metrics.fault_counters and plan.flt is not None:
+        fault_tab = torch.from_numpy(
+            plan.flt.counts_table(l_iters)).to(device)
+    if metrics.ring_guard and bf16:
+        ring_stats = tel_dev.RingStats(device)
+        store = ring_stats.wrap(store)
+    return mst, fault_tab, ring_stats, store
+
+
+def metrics_channels(mst, ring_stats, occ, gap) -> dict:
+    """The device channels of a run, still on the device: the histogram,
+    the occupancy and wait columns, and the counters the state holds."""
+    out = {"stale_hist": mst.hist, "occupancy": occ, "gap": gap}
+    if mst.handover is not None:
+        out["handover_count"] = mst.handover
+    if mst.faults is not None:
+        out["fault_counts"] = mst.faults
+    if ring_stats is not None:
+        out.update(ring_stats.out())
+    return out
+
+
 def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
                  w0, imgs, labs, lr: float, *, scheme: str,
                  interpretation: str, beta: float, fedasync_mix: float,
-                 ring_dtype: str, eval_rounds: tuple):
+                 ring_dtype: str, eval_rounds: tuple, metrics=None,
+                 l_iters: int = 1):
     """The flat program: waves and event segments in plan order.  Returns
-    the final master ``[P]``, the stored rows and the trace columns."""
+    the final master ``[P]``, the stored rows, the trace columns and, with
+    ``metrics`` (a resolved ``MetricsSpec``), the device channels (else
+    None)."""
     M = len(plan.veh)
     d = plan.dl_round
     device = imgs.device
@@ -448,6 +511,11 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
     # a stored row is a new tensor (bf16) or g itself (f32): g is never
     # written in place, so sharing it by reference is safe
     store = ((lambda x: x.to(torch.bfloat16)) if bf16 else (lambda x: x))
+    mst = fault_tab = ring_stats = None
+    if metrics is not None:
+        mst, fault_tab, ring_stats, store = metrics_setup(
+            metrics, plan, l_iters, bf16, store, device, tel_dev.fleet_state)
+        queue.occupancy = True
     needed = needed_rounds(plan, eval_rounds)
 
     readmit_at = readmit_points(plan)
@@ -470,10 +538,16 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
         g, cols = _event_segment(
             queue, g, locals_buf, snaps, s, e, needed, store, scheme=scheme,
             interpretation=interpretation, beta=beta,
-            fedasync_mix=fedasync_mix, readmits=readmits)
+            fedasync_mix=fedasync_mix, readmits=readmits, mst=mst,
+            fault_tab=fault_tab)
         traces.append(cols)
-    trace = tuple(torch.cat([tr[k] for tr in traces]) for k in range(6))
-    return g, snaps, trace
+    trace = tuple(torch.cat([tr[k] for tr in traces])
+                  for k in range(len(traces[0])))
+    channels = None
+    if mst is not None:
+        trace, (occ, gap) = trace[:6], trace[6:]
+        channels = metrics_channels(mst, ring_stats, occ, gap)
+    return g, snaps, trace, channels
 
 
 def check_bandit(queue: _SlotQueue, plan, engine: str) -> None:
@@ -495,7 +569,7 @@ def check_bandit(queue: _SlotQueue, plan, engine: str) -> None:
             "host selection replay")
 
 
-def _check_jit_args(scheme, ring_dtype, flat, mesh, metrics):
+def _check_jit_args(scheme, ring_dtype, flat, mesh):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
             f"engine='jit' supports schemes {_SUPPORTED_SCHEMES}, not "
@@ -510,28 +584,36 @@ def _check_jit_args(scheme, ring_dtype, flat, mesh, metrics):
     if mesh is not None:
         raise unported("mesh sharding of the wave training",
                        "distribution (item 13)")
-    if metrics not in (None, "off", False):
-        raise unported("run metrics", "telemetry (item 10)")
 
 
 def _stage_run(vehicles_data, *, rounds, l_iters, lr, params, seed,
-               init_params, batch_size, selection, faults, device):
-    """Plan and stage one fleet run: the plan, the slot queue, the initial
-    params and one minibatch stack per round, all on ``device``."""
+               init_params, batch_size, selection, faults, metrics,
+               ring_dtype, device, timers):
+    """Plan and stage one fleet run: the plan, the resolved metrics spec
+    (None with metrics off), the slot queue, the initial params and one
+    minibatch stack per round, all on ``device``."""
     p = params or ChannelParams()
     if len(vehicles_data) != p.K:
         raise ValueError(
             f"{len(vehicles_data)} vehicle shards for K={p.K} vehicles")
     if rounds < 1:
         raise ValueError("rounds must be >= 1")
-    plan = plan_fleet(p, seed, rounds, selection, faults=faults,
-                      l_iters=l_iters)
-    w0, imgs, labs, gains = _stage_arrays(
-        vehicles_data, p, plan, l_iters=l_iters, lr=lr, seed=seed,
-        init_params=init_params, batch_size=batch_size, device=device)
-    x0 = torch.from_numpy(Mobility(p).x0.astype(np.float32)).to(device)
-    queue = _SlotQueue(p, plan, gains, x0, device)
-    return p, plan, queue, w0, imgs, labs
+    with timers.phase("plan"):
+        plan = plan_fleet(p, seed, rounds, selection, faults=faults,
+                          l_iters=l_iters)
+        # the spec is plan data: histogram edges from the dry run's f64
+        # staleness and pop times
+        met = resolve_metrics(
+            metrics, stale=plan.times - plan.download_time,
+            times=plan.times, n_rsus=1, ring_guard=(ring_dtype == "bf16"),
+            fault_counters=plan.flt is not None)
+    with timers.phase("stage"):
+        w0, imgs, labs, gains = _stage_arrays(
+            vehicles_data, p, plan, l_iters=l_iters, lr=lr, seed=seed,
+            init_params=init_params, batch_size=batch_size, device=device)
+        x0 = torch.from_numpy(Mobility(p).x0.astype(np.float32)).to(device)
+        queue = _SlotQueue(p, plan, gains, x0, device)
+    return p, plan, met, queue, w0, imgs, labs
 
 
 def _stage_arrays(vehicles_data, p: ChannelParams, plan, *, l_iters, lr,
@@ -592,29 +674,42 @@ def run_simulation_jit(
     and upload rows in bf16 around f32 master weights and accumulation.
     ``progress`` fires after the run, in round order.  ``device=None`` runs
     on the card.  ``selection`` is replayed by the host plan and folded in
-    as the admission table and re-admissions; ``result.extras["selection"]``
+    as the admission table and re-admissions; ``result.report.selection``
     holds the plan's ``summary()``.  ``faults`` is replayed by the same
     plan and folded in as well (admission table, recovery re-admissions,
     the keep fold on the chains, the partial trainer);
-    ``result.extras["faults"]`` holds its ``summary(l_iters)``.
+    ``result.extras["faults"]`` holds its ``summary(l_iters)`` and
+    ``result.report.faults`` its spec and counts.
 
-    Not ported yet, and raising: ``flat=False``, ``mesh`` and ``metrics``
-    other than None/"off"."""
-    _check_jit_args(scheme, ring_dtype, flat, mesh, metrics)
+    ``metrics="on"`` (or a ``MetricsSpec``) folds the telemetry channels
+    into the event loop on the device, with no host read inside it: the
+    staleness histogram, slot occupancy and pop-wait columns, the fault
+    counters (checked against the plan's counts after the run) and, with
+    the bf16 ring, its guard; ``result.report.channels`` holds them.  Any
+    falsy value runs the loop without telemetry, op for op.  Every result
+    carries a ``RunReport`` (phases ``plan``, ``stage``, ``run``, ``eval``,
+    memory, waves).
+
+    Not ported yet, and raising: ``flat=False`` and ``mesh``."""
+    _check_jit_args(scheme, ring_dtype, flat, mesh)
     device = resolve_device(device)
-    p, plan, queue, w0, imgs, labs = _stage_run(
+    timers = PhaseTimers()
+    p, plan, met, queue, w0, imgs, labs = _stage_run(
         vehicles_data, rounds=rounds, l_iters=l_iters, lr=lr, params=params,
         seed=seed, init_params=init_params, batch_size=batch_size,
-        selection=selection, faults=faults, device=device)
+        selection=selection, faults=faults, metrics=metrics,
+        ring_dtype=ring_dtype, device=device, timers=timers)
     layout = ParamLayout.from_tree(w0)
     eval_rounds = eval_rounds_of(rounds, eval_every)
-    g, snaps, trace = _run_program(
-        plan, queue, layout, w0, imgs, labs, lr, scheme=scheme,
-        interpretation=interpretation, beta=p.beta,
-        fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
-        eval_rounds=eval_rounds)
-    t_veh, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
-                                              for x in trace)
+    with timers.phase("run"):
+        g, snaps, trace, met_dev = _run_program(
+            plan, queue, layout, w0, imgs, labs, lr, scheme=scheme,
+            interpretation=interpretation, beta=p.beta,
+            fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
+            eval_rounds=eval_rounds, metrics=met, l_iters=l_iters)
+        # reading the trace waits for the card: the run ends here
+        t_veh, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
+                                                  for x in trace)
 
     # divergence guards: the minibatch stacks were paired to rounds by the
     # host plan, so a device pop order that disagrees fails loudly instead
@@ -642,26 +737,61 @@ def run_simulation_jit(
 
     result = SimResult(scheme=scheme, rounds=[], acc_history=[],
                        loss_history=[], final_params=layout.unpack(g))
-    if plan.sel is not None:
-        result.extras["selection"] = plan.sel.summary()
     if plan.flt is not None:
         result.extras["faults"] = plan.flt.summary(l_iters)
     test_images = torch.as_tensor(test_images, device=device)
     test_labels = torch.as_tensor(test_labels, device=device)
-    for r in range(rounds):
-        rec = RoundRecord(round=r + 1, time=float(t_time[r]),
-                          vehicle=int(t_veh[r]),
-                          upload_delay=float(t_cu[r]),
-                          train_delay=float(t_cl[r]),
-                          weight=float(t_w[r]))
-        rr = r + 1
-        if rr in eval_rounds:
-            acc, loss = evaluate(layout.unpack(snaps[rr]), test_images,
-                                 test_labels, device=device)
-            rec.accuracy, rec.loss = acc, loss
-            result.acc_history.append((rr, acc))
-            result.loss_history.append((rr, loss))
-            if progress:
-                progress(rr, acc)
-        result.rounds.append(rec)
+    with timers.phase("eval"):
+        for r in range(rounds):
+            rec = RoundRecord(round=r + 1, time=float(t_time[r]),
+                              vehicle=int(t_veh[r]),
+                              upload_delay=float(t_cu[r]),
+                              train_delay=float(t_cl[r]),
+                              weight=float(t_w[r]))
+            rr = r + 1
+            if rr in eval_rounds:
+                acc, loss = evaluate(layout.unpack(snaps[rr]), test_images,
+                                     test_labels, device=device)
+                rec.accuracy, rec.loss = acc, loss
+                result.acc_history.append((rr, acc))
+                result.loss_history.append((rr, loss))
+                if progress:
+                    progress(rr, acc)
+            result.rounds.append(rec)
+    result.report = device_report(
+        engine="jit", scheme=scheme, rounds=rounds, seed=seed, met=met,
+        met_dev=met_dev, plan=plan, queue=queue, p=p, l_iters=l_iters,
+        cu=t_cu, cl=t_cl, timers=timers, device=device)
     return result
+
+
+def device_report(*, engine, scheme, rounds, seed, met, met_dev, plan,
+                  queue, p: ChannelParams, l_iters: int, cu, cl, timers,
+                  device) -> RunReport:
+    """The device engines' :class:`RunReport`.  With metrics on: the device
+    channels read to the host once, the fault-counter divergence guard
+    (the device sums must equal the plan's counts table, else
+    ``RuntimeError``), the f64 reward trace from the recorded delays, and
+    the bandit's f32 accumulators under eps-bandit."""
+    channels = {}
+    if met is not None:
+        channels = {k: v.cpu().numpy() for k, v in met_dev.items()}
+        if "fault_counts" in channels:
+            exp = plan.flt.counts_table(l_iters).sum(axis=0)
+            if not np.array_equal(channels["fault_counts"], exp):
+                raise RuntimeError(
+                    f"{engine} engine: device fault counters diverged from "
+                    f"the host fault replay ({channels['fault_counts']} vs "
+                    f"{exp})")
+        channels["reward"] = reward_channel(p, cu, cl)
+        if queue.rs is not None:
+            channels["reward_sum"] = queue.rs.cpu().numpy()
+            channels["reward_count"] = queue.rc.cpu().numpy()
+    return RunReport(
+        engine=engine, scheme=scheme, rounds=rounds, seed=seed,
+        metrics_on=met is not None,
+        spec=None if met is None else met.to_json(),
+        phases=timers.snapshot(), memory=memory_stats(device),
+        selection=None if plan.sel is None else plan.sel.summary(),
+        faults=fault_report(plan.flt, l_iters),
+        waves=wave_stats(plan.waves, p.K), channels=channels)

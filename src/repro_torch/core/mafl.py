@@ -26,6 +26,7 @@ model, local training, aggregation and eval run on ``device``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
@@ -44,6 +45,9 @@ from repro_torch.faults import (arrival_step, initial_vehicles,
                                 make_fault_state)
 from repro_torch.models.cnn import cnn_forward, init_cnn
 from repro_torch.selection import make_selection_state
+from repro_torch.telemetry import (PhaseTimers, RunReport, memory_stats,
+                                   metrics_requested, resolve_metrics)
+from repro_torch.telemetry.spec import stale_histogram
 
 # accepted run_simulation engine names ('unbatched' is a legacy alias for
 # 'serial')
@@ -58,7 +62,8 @@ class SimResult:
     loss_history: list         # (round, loss)
     final_params: object = None
     extras: dict = field(default_factory=dict)
-    # repro's RunReport; stays None until the port's telemetry slice
+    # the run's RunReport (repro_torch.telemetry.report): phase timers,
+    # memory and plan statics always; channels when metrics are on
     report: object = None
 
     def final_accuracy(self) -> float:
@@ -149,19 +154,25 @@ def run_simulation(
 
     ``selection`` (None | policy name | ``SelectionSpec``) parks the
     vehicles a policy does not admit at (re-)schedule time and re-scores
-    every ``spec.resel_every`` arrivals; ``result.extras["selection"]``
-    holds the plan's ``summary()`` (``repro`` keeps it in
-    ``result.report.selection``).
+    every ``spec.resel_every`` arrivals; ``result.report.selection`` holds
+    the plan's ``summary()``.
 
     ``faults`` (None/"off" | profile name | ``FaultSpec``) injects
     seeded stochastic dropout, blackout, partial computation, straggler
     inflation and staleness-cap discard, decided by one host
     ``FaultState`` and identical decision for decision on every engine;
-    ``result.extras["faults"]`` holds its plan's ``summary(l_iters)``.
-    Off is bitwise the run without faults.
+    ``result.extras["faults"]`` holds its plan's ``summary(l_iters)`` and
+    ``result.report.faults`` its spec and counts.  Off is bitwise the run
+    without faults.
 
-    Not ported yet, and raising: ``flat=False`` and ``metrics`` other than
-    None/"off"."""
+    ``metrics`` (None/False/"off" | True/"on" | ``MetricsSpec``) asks for
+    the telemetry channels (DESIGN.md §14): the host engines record them
+    in f64 beside the event loop, the fleet engine on the card.  Every
+    result carries a ``RunReport`` in ``result.report`` (phase timers,
+    memory, plan statics; the channels when metrics are on).  Off is the
+    path without telemetry; an unknown setting raises ``ValueError``.
+
+    Not ported yet, and raising: ``flat=False`` on ``engine="jit"``."""
     if engine == "jit":
         from repro_torch.core.jit_engine import run_simulation_jit
         return run_simulation_jit(
@@ -179,8 +190,7 @@ def run_simulation(
         raise ValueError(
             f"ring_dtype={ring_dtype!r} requires engine='jit'; the host "
             "engines keep full-precision params")
-    if metrics not in (None, "off"):
-        raise unported("run metrics", "telemetry (item 10)")
+    met_req = metrics_requested(metrics)
     device = resolve_device(device)
     p = params or ChannelParams()
     if len(vehicles_data) != p.K:
@@ -198,6 +208,14 @@ def run_simulation(
     test_images = torch.as_tensor(test_images, device=device)
     test_labels = torch.as_tensor(test_labels, device=device)
 
+    timers = PhaseTimers()
+    # the host engines record the channels in f64 beside the event loop:
+    # it sees every value the device accumulators fold
+    ch_stale: list = []
+    ch_occ: list = []
+    ch_gap: list = []
+    ch_times: list = []
+
     sel = make_selection_state(selection, p, Mobility(p), seed, rounds)
     flt = make_fault_state(faults, p, seed, rounds, l_iters)
     timeline = _Timeline(p, seed,
@@ -213,8 +231,9 @@ def run_simulation(
         # the wave engine trains nothing else.  The replay carries its own
         # SelectionState and FaultState, so admission and fault decisions
         # are reproduced exactly.
-        consumed = _consumed_events(p, seed, rounds, selection,
-                                    faults=faults, l_iters=l_iters)
+        with timers.phase("plan"):
+            consumed = _consumed_events(p, seed, rounds, selection,
+                                        faults=faults, l_iters=l_iters)
 
     def schedule(vehicle: int, t_download: float):
         timeline.schedule(vehicle, t_download, server.global_params)
@@ -231,6 +250,13 @@ def run_simulation(
         ``ev.local_params`` must already hold the local update trained from
         the stale payload snapshot."""
         r = server.round                    # 0-based index of this pop
+        if met_req:
+            # the pop happened (+1) and the re-schedule has not: the
+            # instant the device engines count isfinite slots at
+            ch_occ.append(len(queue) + 1)
+            ch_stale.append(ev.time - ev.download_time)
+            ch_gap.append(ev.time - (ch_times[-1] if ch_times else 0.0))
+            ch_times.append(ev.time)
         # staleness-cap verdict before aggregation: a discarded arrival
         # still counts as a round, only the model update is skipped
         keep = True if flt is None else flt.on_pop(ev.vehicle, r)[0]
@@ -240,8 +266,9 @@ def run_simulation(
             download_time=ev.download_time, discard=not keep)
         ev.local_params = ev.payload = None
         if server.round % eval_every == 0 or server.round == rounds:
-            acc, loss = evaluate(server.global_params, test_images,
-                                 test_labels, device=device)
+            with timers.phase("eval"):
+                acc, loss = evaluate(server.global_params, test_images,
+                                     test_labels, device=device)
             rec.accuracy, rec.loss = acc, loss
             result.acc_history.append((server.round, acc))
             result.loss_history.append((server.round, loss))
@@ -257,58 +284,121 @@ def run_simulation(
         timeline.prune()
 
     if engine in ("serial", "unbatched"):
-        while server.round < rounds and len(queue):
-            ev = queue.pop()
-            # local training from the model the vehicle downloaded (the
-            # stale snapshot in the payload); the compute runs now, but the
-            # ordering and delays follow the event times (DESIGN.md §2)
-            ev.local_params, _ = clients[ev.vehicle].local_update(
-                ev.payload, l_iters,
-                n_ep=flt.epoch_of(ev.vehicle) if partial else None)
-            consume(ev)
+        with timers.phase("run"):
+            while server.round < rounds and len(queue):
+                ev = queue.pop()
+                # local training from the model the vehicle downloaded (the
+                # stale snapshot in the payload); the compute runs now, but
+                # the ordering and delays follow the event times
+                # (DESIGN.md §2)
+                ev.local_params, _ = clients[ev.vehicle].local_update(
+                    ev.payload, l_iters,
+                    n_ep=flt.epoch_of(ev.vehicle) if partial else None)
+                consume(ev)
     else:
-        while server.round < rounds and len(queue):
-            # Wave: train every pending upload that the dry run proved will
-            # be consumed and whose result is missing.  Payload snapshots
-            # are frozen at schedule time, so these trainings are mutually
-            # independent and none is wasted.
-            untrained = sorted(
-                (ev for ev in queue.pending()
-                 if ev.local_params is None
-                 and (ev.vehicle, ev.cycle) in consumed),
-                key=lambda ev: (ev.time, ev.seq))
-            batches = [clients[ev.vehicle].sample_batches(l_iters)
-                       for ev in untrained]
-            n_eps = ([flt.epoch_of(ev.vehicle) for ev in untrained]
-                     if partial else None)
-            outs, losses = local_update_many(
-                [ev.payload for ev in untrained], batches, lr,
-                chunk=wave_chunk, n_eps=n_eps)
-            for ev, out, lo in zip(untrained, outs, losses):
-                ev.local_params, ev.local_loss = out, lo
-            # Drain in time order until an event without a precomputed
-            # result (freshly re-scheduled) reaches the front — identical
-            # arrival semantics to the serial engine.
-            while (server.round < rounds and len(queue)
-                   and queue.peek().local_params is not None):
-                consume(queue.pop())
-            if (not untrained and server.round < rounds and len(queue)
-                    and queue.peek().local_params is None):
-                # the dry run said the front event is never consumed, yet
-                # rounds remain — the timelines have diverged; fail loudly
-                raise RuntimeError(
-                    "batched engine: dry-run consumed-set diverged "
-                    f"from live timeline at round {server.round} "
-                    f"(front event vehicle={queue.peek().vehicle} "
-                    f"cycle={queue.peek().cycle})")
+        with timers.phase("run"):
+            while server.round < rounds and len(queue):
+                # Wave: train every pending upload that the dry run proved
+                # will be consumed and whose result is missing.  Payload
+                # snapshots are frozen at schedule time, so these trainings
+                # are mutually independent and none is wasted.
+                untrained = sorted(
+                    (ev for ev in queue.pending()
+                     if ev.local_params is None
+                     and (ev.vehicle, ev.cycle) in consumed),
+                    key=lambda ev: (ev.time, ev.seq))
+                batches = [clients[ev.vehicle].sample_batches(l_iters)
+                           for ev in untrained]
+                n_eps = ([flt.epoch_of(ev.vehicle) for ev in untrained]
+                         if partial else None)
+                outs, losses = local_update_many(
+                    [ev.payload for ev in untrained], batches, lr,
+                    chunk=wave_chunk, n_eps=n_eps)
+                for ev, out, lo in zip(untrained, outs, losses):
+                    ev.local_params, ev.local_loss = out, lo
+                # Drain in time order until an event without a precomputed
+                # result (freshly re-scheduled) reaches the front —
+                # identical arrival semantics to the serial engine.
+                while (server.round < rounds and len(queue)
+                       and queue.peek().local_params is not None):
+                    consume(queue.pop())
+                if (not untrained and server.round < rounds and len(queue)
+                        and queue.peek().local_params is None):
+                    # the dry run said the front event is never consumed,
+                    # yet rounds remain — the timelines have diverged; fail
+                    # loudly
+                    raise RuntimeError(
+                        "batched engine: dry-run consumed-set diverged "
+                        f"from live timeline at round {server.round} "
+                        f"(front event vehicle={queue.peek().vehicle} "
+                        f"cycle={queue.peek().cycle})")
 
     result.rounds = server.rounds
     result.final_params = server.global_params
-    if sel is not None:
-        result.extras["selection"] = sel.plan().summary()
-    if flt is not None:
-        result.extras["faults"] = flt.plan().summary(l_iters)
+    flt_plan = None if flt is None else flt.plan()
+    if flt_plan is not None:
+        result.extras["faults"] = flt_plan.summary(l_iters)
+    result.report = host_report(
+        engine=engine, scheme=scheme, rounds=rounds, seed=seed,
+        metrics=metrics, met_req=met_req, p=p, timers=timers,
+        device=device,
+        selection=None if sel is None else sel.plan().summary(),
+        records=result.rounds, stale=ch_stale, occ=ch_occ, gap=ch_gap,
+        times=ch_times, faults=flt_plan, l_iters=l_iters)
     return result
+
+
+def fault_report(flt_plan, l_iters: int):
+    """``RunReport.faults``: the fault spec and its decision counts (None
+    without a fault model)."""
+    if flt_plan is None:
+        return None
+    return {"spec": dataclasses.asdict(flt_plan.spec),
+            "counts": flt_plan.counts(l_iters)}
+
+
+def reward_channel(p: ChannelParams, cu, cl) -> np.ndarray:
+    """The per-pop reward trace (the paper's delay weight, Eqs. 7, 9) in
+    f64 from the recorded delays, published for every scheme."""
+    return (p.gamma ** (np.asarray(cu, np.float64) - 1.0)
+            * p.zeta ** (np.asarray(cl, np.float64) - 1.0))
+
+
+def host_report(*, engine, scheme, rounds, seed, metrics, met_req, p,
+                timers, device, selection, records, stale, occ, gap, times,
+                n_rsus=1, up_rsu=None, handover=None, handover_count=None,
+                faults=None, l_iters=1):
+    """The host engines' :class:`RunReport` (``repro``'s ``_host_report``):
+    f64 channels collected beside the event loop, bucketed through the
+    planner's edges (identical by construction: the host values are the
+    planner's replay)."""
+    report = RunReport(engine=engine, scheme=scheme, rounds=rounds,
+                       seed=seed, metrics_on=met_req,
+                       phases=timers.snapshot(), memory=memory_stats(device),
+                       selection=selection,
+                       faults=fault_report(faults, l_iters))
+    if met_req:
+        st = np.asarray(stale)
+        spec = resolve_metrics(metrics, stale=st, times=np.asarray(times),
+                               n_rsus=n_rsus,
+                               fault_counters=faults is not None)
+        report.spec = spec.to_json()
+        channels = {
+            "stale_hist": stale_histogram(spec.edges, st, rsu=up_rsu,
+                                          n_rsus=n_rsus),
+            "occupancy": np.asarray(occ, np.int64),
+            "gap": np.asarray(gap),
+        }
+        if records:
+            channels["reward"] = reward_channel(
+                p, [r.upload_delay for r in records],
+                [r.train_delay for r in records])
+        if handover is not None:
+            channels["handover"] = np.asarray(handover, np.int64)
+            channels["handover_count"] = np.asarray(handover_count,
+                                                    np.int64)
+        report.channels = channels
+    return report
 
 
 class _Timeline:

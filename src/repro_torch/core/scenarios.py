@@ -315,7 +315,8 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
     raises.  ``record_cohorts`` reaches the corridor engine only; ``flat``
     reaches the device engines (``None`` = their default, flat on).  The
     world's fault profile (``faults`` with ``faults_overrides``) is
-    resolved once and handed to every engine."""
+    resolved once and handed to every engine.  ``metrics`` reaches every
+    engine; the result's ``report`` carries the scenario's name."""
     device = resolve_device(device)
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if overrides:
@@ -357,21 +358,27 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                 raise ValueError(
                     "record_cohorts requires engine='corridor'; the serial "
                     "reference keeps no cohort snapshots")
-            return run_handover_simulation(
+            return _stamp(run_handover_simulation(
                 sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
                 use_kernel=use_kernel, progress=progress,
                 selection=sc.selection_spec(), metrics=metrics,
-                faults=flt, device=device)
-        return run_corridor_simulation(
+                faults=flt, device=device), sc)
+        return _stamp(run_corridor_simulation(
             sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
             use_kernel=use_kernel, record_cohorts=record_cohorts,
             progress=progress, selection=sc.selection_spec(), flat=flat,
-            metrics=metrics, faults=flt, device=device)
+            metrics=metrics, faults=flt, device=device), sc)
     kw = {} if flat is None else {"flat": flat}
-    return run_simulation(
+    return _stamp(run_simulation(
         veh, te_i, te_l, scheme=sc.scheme,
         rounds=sc.rounds, l_iters=sc.l_iters, lr=sc.lr,
         params=p, seed=seed, eval_every=eval_every,
         use_kernel=use_kernel, engine=eng, progress=progress,
         selection=sc.selection_spec(), ring_dtype=sc.ring_dtype,
-        metrics=metrics, faults=flt, device=device, **kw)
+        metrics=metrics, faults=flt, device=device, **kw), sc)
+
+
+def _stamp(result: SimResult, sc: Scenario) -> SimResult:
+    """Stamp the scenario name onto the run's telemetry report."""
+    result.report.scenario = sc.name
+    return result

@@ -33,6 +33,9 @@
   with the re-admissions of their reconcile boundary, the keep fold on the
   per-RSU chains' coefficients and the partial trainer in the waves.
   Timeline faults under the EMA reconcile raise, as selection does.
+- **Telemetry** is the fleet engine's too, per RSU: the histogram row of
+  the RSU an upload landed on, the occupancy of each RSU row, and the
+  handover flag of each admitted re-schedule counted at its source RSU.
 
 Wave-hoisted training is the fleet engine's (``core/jit_engine.py``).
 Times on the device are f32; the f64 host plan (``corridor/plan.py``)
@@ -52,8 +55,10 @@ from repro_torch.core.client import VehicleData
 from repro_torch.core.flat import ParamLayout
 from repro_torch.core.jit_engine import (_SlotQueue, _stage_arrays,
                                          _train_wave, check_bandit,
-                                         eval_rounds_of, keep_coeffs,
-                                         readmit_points, upload_indices)
+                                         device_report, eval_rounds_of,
+                                         keep_coeffs, metrics_channels,
+                                         metrics_setup, readmit_points,
+                                         upload_indices)
 from repro_torch.core.mafl import SimResult, evaluate, unported
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.corridor.plan import (CorridorPlan, plan_corridor,
@@ -62,6 +67,9 @@ from repro_torch.device import resolve_device
 from repro_torch.faults import check_faults_reconcile
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 from repro_torch.selection import check_reconcile_mode, scenario_spec
+from repro_torch.telemetry import PhaseTimers
+from repro_torch.telemetry import device as tel_dev
+from repro_torch.telemetry.spec import resolve_metrics
 
 _SUPPORTED_SCHEMES = ("mafl", "afl", "fedasync")
 
@@ -178,8 +186,12 @@ class _CorridorQueue(_SlotQueue):
         unless selection parks it, and migrate the slot to the row of the
         RSU serving the vehicle at its next arrival.  Returns one-element
         tensors: (vehicle, RSU, time, C_u, C_l, download time, delay
-        weight)."""
+        weight); with ``occupancy`` also the live slots of each RSU row
+        before the pop writes (``[1, R]``) and the handover flag (the
+        re-schedule lands on another RSU; never for a parked vehicle)."""
         flat = torch.argmin(self.qt, dim=0, keepdim=True)
+        occ = (torch.isfinite(self.qt.view(self.R, self.K)).sum(1)[None]
+               if self.occupancy else None)
         j = torch.div(flat, self.K, rounding_mode="floor")
         i = flat - j * self.K
         t = self.qt.index_select(0, flat)
@@ -202,7 +214,12 @@ class _CorridorQueue(_SlotQueue):
         self.qt.index_copy_(0, j_new * self.K + i, t_new)
         self.qdl.index_copy_(0, i, t)
         self.qcu.index_copy_(0, i, cu_new)
-        return i, j, t, cu, cl, dl_t, weight
+        if occ is None:
+            return i, j, t, cu, cl, dl_t, weight
+        handover = j_new != j
+        if self.adm is not None:
+            handover &= self.adm[r].index_select(0, i)
+        return i, j, t, cu, cl, dl_t, weight, occ, handover
 
 
 def _loop_indices(schedule: list, readmit_at: dict) -> list:
@@ -222,17 +239,28 @@ def _loop_indices(schedule: list, readmit_at: dict) -> list:
 def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
                    a: int, b: int, groups: list, chunk_idx, needed: set,
                    store, *, scheme: str, interpretation: str, beta: float,
-                   fedasync_mix: float):
+                   fedasync_mix: float, mst=None, fault_tab=None):
     """Pops ``a..b-1``, their chain coefficients, and one ``ring_agg``
     chain per chunk on each active RSU's row of ``G`` (written in place at
     the chain's end).  A chunk ending at a round in ``needed`` stores its
     output (a new tensor) as that ring row.  ``chunk_idx`` yields each
     chunk's rounds as a device tensor.  A cap-discarded pop stays in its
-    chunk as a no-op (``keep_coeffs``).  Nothing here reads a device value
-    on the host.  Returns the segment's seven trace columns."""
-    pops = [queue.pop(scheme == "mafl", r) for r in range(a, b)]
+    chunk as a no-op (``keep_coeffs``).  With metrics on, ``mst``
+    (``telemetry.device.corridor_state``) folds each pop, with row ``r``
+    of the fault counts table ``fault_tab`` where one is armed.  Nothing
+    here reads a device value on the host.  Returns the segment's trace
+    columns: seven, and with metrics the occupancy, the handover flag and
+    the pop wait."""
+    pops = []
+    for r in range(a, b):
+        pop = queue.pop(scheme == "mafl", r)
+        if mst is not None:
+            pop += (tel_dev.corridor_pop(
+                mst, t=pop[2], dl_t=pop[5], j=pop[1], handover=pop[8],
+                fault_row=None if fault_tab is None else fault_tab[r]),)
+        pops.append(pop)
     cols = tuple(torch.cat(c) for c in zip(*pops))
-    _, _, t_c, _, _, dlt_c, w_c = cols
+    _, _, t_c, _, _, dlt_c, w_c = cols[:7]
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
                           dl_t=dlt_c, fedasync_mix=fedasync_mix)
     cc, dd = keep_coeffs(queue, cc, dd, a, b)
@@ -273,11 +301,12 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                  scheme: str, interpretation: str, beta: float,
                  fedasync_mix: float, ring_dtype: str, eval_rounds: tuple,
                  reconcile_every: int, tau: float, use_kernel: bool,
-                 record_cohorts: bool):
+                 record_cohorts: bool, metrics=None, l_iters: int = 1):
     """The flat program: waves, segments and reconciles in plan order.
     Returns the final ``[R, P]`` stack, the consensus rows of the eval
-    rounds, the stack copies of the eval rounds (``record_cohorts``) and
-    the trace columns."""
+    rounds, the stack copies of the eval rounds (``record_cohorts``), the
+    trace columns and, with ``metrics`` (a resolved ``MetricsSpec``), the
+    device channels (else None)."""
     M = len(plan.veh)
     R = plan.n_rsus
     d = plan.dl_round
@@ -286,6 +315,12 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     store_dtype = torch.bfloat16 if bf16 else torch.float32
     # chain outputs are new tensors, stored as they are in f32
     store = ((lambda x: x.to(torch.bfloat16)) if bf16 else (lambda x: x))
+    mst = fault_tab = ring_stats = None
+    if metrics is not None:
+        mst, fault_tab, ring_stats, store = metrics_setup(
+            metrics, plan, l_iters, bf16, store, device,
+            tel_dev.corridor_state)
+        queue.occupancy = True
     needed = needed_rounds(plan)
     reconciles = reconcile_rounds(M, reconcile_every)
     schedule = corridor_schedule(plan, eval_rounds, reconcile_every)
@@ -308,7 +343,8 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
             traces.append(_chain_segment(
                 queue, G, locals_buf, ring, a, b, groups, indices, needed,
                 store, scheme=scheme, interpretation=interpretation,
-                beta=beta, fedasync_mix=fedasync_mix))
+                beta=beta, fedasync_mix=fedasync_mix, mst=mst,
+                fault_tab=fault_tab))
             if b in reconciles:
                 G = _reconcile(G, tau, use_kernel)
                 if b in needed:
@@ -316,6 +352,8 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                     # copy of the reconciled row its upload landed on
                     row = G[int(plan.up_rsu[b - 1])]
                     ring[b] = row.to(store_dtype, copy=True)
+                    if ring_stats is not None:
+                        ring_stats.count(ring[b])
             if b in readmit_at:
                 # after the reconcile: a re-admitted (or recovered) vehicle
                 # downloads ring[b], at pop b-1's time
@@ -324,11 +362,17 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                 cons.append(G.mean(dim=0))
                 if record_cohorts:
                     cohorts.append(G.clone())
-    trace = tuple(torch.cat([tr[k] for tr in traces]) for k in range(7))
-    return G, cons, cohorts, trace
+    trace = tuple(torch.cat([tr[k] for tr in traces])
+                  for k in range(len(traces[0])))
+    channels = None
+    if mst is not None:
+        trace, (occ, handover, gap) = trace[:7], trace[7:]
+        channels = metrics_channels(mst, ring_stats, occ, gap)
+        channels["handover"] = handover
+    return G, cons, cohorts, trace, channels
 
 
-def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics):
+def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
             f"engine='corridor' supports schemes {_SUPPORTED_SCHEMES}, not "
@@ -340,8 +384,6 @@ def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics):
     if ring_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown ring_dtype {ring_dtype!r}; "
                          "expected 'f32' or 'bf16'")
-    if metrics not in (None, "off", False):
-        raise unported("run metrics", "telemetry (item 10)")
     if mesh is not None:
         raise unported("the 'rsu'-sharded corridor (mesh)",
                        "distribution (item 13)")
@@ -382,26 +424,33 @@ def run_corridor_simulation(
     in bf16 around the f32 stack.  ``result.extras`` holds ``n_rsus``, the
     serving-RSU trace ``up_rsu``, ``eval_rounds``, ``final_cohorts`` (the
     ``[R, ...]`` stack as a param dict) and, with ``record_cohorts``,
-    ``cohort_snapshots`` per eval round, and under ``selection`` (or the
-    scenario's policy) ``selection``, the plan's ``summary()``.
-    Selection re-scores at every reconcile boundary and raises
-    ``ValueError`` with the EMA reconcile.  ``faults`` (a profile name or
-    ``FaultSpec``) is replayed by the plan with recovery sweeps at the
-    reconcile boundaries, and ``extras["faults"]`` holds its
-    ``summary(sc.l_iters)``; faults that suppress re-schedules raise
-    ``ValueError`` with the EMA reconcile.  ``progress`` fires after the
-    run, in round order.  ``device=None`` runs on the card.
+    ``cohort_snapshots`` per eval round.  Under ``selection`` (or the
+    scenario's policy) ``result.report.selection`` holds the plan's
+    ``summary()``; selection re-scores at every reconcile boundary and
+    raises ``ValueError`` with the EMA reconcile.  ``faults`` (a profile
+    name or ``FaultSpec``) is replayed by the plan with recovery sweeps at
+    the reconcile boundaries; ``extras["faults"]`` holds its
+    ``summary(sc.l_iters)`` and ``result.report.faults`` its spec and
+    counts; faults that suppress re-schedules raise ``ValueError`` with
+    the EMA reconcile.  ``progress`` fires after the run, in round order.
+    ``device=None`` runs on the card.
 
-    Not ported yet, and raising: ``flat=False``, ``mesh`` and ``metrics``
-    other than None/"off"."""
+    ``metrics="on"`` folds the fleet engine's channels per RSU into the
+    event loop on the device (``[R, B]`` histogram, ``[M, R]`` occupancy,
+    the handover flag and its per-RSU count, fault counters, ring guard);
+    ``result.report`` (engine ``"corridor"``) holds them.  Any falsy value
+    runs the loop without telemetry, op for op.
+
+    Not ported yet, and raising: ``flat=False`` and ``mesh``."""
     scheme = sc.scheme
     mode = getattr(sc, "reconcile_mode", "fedavg")
     spec = selection if selection is not None else scenario_spec(sc)
     check_reconcile_mode(spec, mode)
     check_faults_reconcile(faults, mode)
     ring_dtype = getattr(sc, "ring_dtype", "f32")
-    _check_corridor_args(scheme, mode, ring_dtype, flat, mesh, metrics)
+    _check_corridor_args(scheme, mode, ring_dtype, flat, mesh)
     device = resolve_device(device)
+    timers = PhaseTimers()
     p = p if p is not None else sc.channel()
     if len(vehicles_data) != p.K:
         raise ValueError(
@@ -411,26 +460,35 @@ def run_corridor_simulation(
         raise ValueError("rounds must be >= 1")
     R = sc.n_rsus
     entry = getattr(sc, "corridor_entry", "uniform")
-    plan = plan_corridor(p, R, seed, M, entry=entry, selection=spec,
-                         reconcile_every=sc.reconcile_every,
-                         faults=faults, l_iters=sc.l_iters)
-    w0, imgs, labs, gains = _stage_arrays(
-        vehicles_data, p, plan, l_iters=sc.l_iters, lr=sc.lr, seed=seed,
-        init_params=init_params, batch_size=batch_size, device=device)
-    x0 = torch.from_numpy(CorridorMobility(p, R, entry=entry).x0
-                          .astype(np.float32)).to(device)
-    queue = _CorridorQueue(p, plan, gains, x0, device)
+    with timers.phase("plan"):
+        plan = plan_corridor(p, R, seed, M, entry=entry, selection=spec,
+                             reconcile_every=sc.reconcile_every,
+                             faults=faults, l_iters=sc.l_iters)
+        met = resolve_metrics(
+            metrics, stale=plan.times - plan.download_time,
+            times=plan.times, n_rsus=R, ring_guard=(ring_dtype == "bf16"),
+            fault_counters=plan.flt is not None)
+    with timers.phase("stage"):
+        w0, imgs, labs, gains = _stage_arrays(
+            vehicles_data, p, plan, l_iters=sc.l_iters, lr=sc.lr, seed=seed,
+            init_params=init_params, batch_size=batch_size, device=device)
+        x0 = torch.from_numpy(CorridorMobility(p, R, entry=entry).x0
+                              .astype(np.float32)).to(device)
+        queue = _CorridorQueue(p, plan, gains, x0, device)
     layout = ParamLayout.from_tree(w0)
     eval_rounds = eval_rounds_of(M, eval_every)
     tau = float(getattr(sc, "reconcile_tau", 0.5)) if mode == "ema" else 1.0
-    G, cons, cohorts, trace = _run_program(
-        plan, queue, layout, w0, imgs, labs, sc.lr, scheme=scheme,
-        interpretation=interpretation, beta=p.beta,
-        fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
-        eval_rounds=eval_rounds, reconcile_every=sc.reconcile_every,
-        tau=tau, use_kernel=use_kernel, record_cohorts=record_cohorts)
-    t_veh, t_rsu, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
-                                                     for x in trace)
+    with timers.phase("run"):
+        G, cons, cohorts, trace, met_dev = _run_program(
+            plan, queue, layout, w0, imgs, labs, sc.lr, scheme=scheme,
+            interpretation=interpretation, beta=p.beta,
+            fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
+            eval_rounds=eval_rounds, reconcile_every=sc.reconcile_every,
+            tau=tau, use_kernel=use_kernel, record_cohorts=record_cohorts,
+            metrics=met, l_iters=sc.l_iters)
+        # reading the trace waits for the card: the run ends here
+        t_veh, t_rsu, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
+                                                         for x in trace)
 
     # divergence guards: minibatches and the cohort/ring pairing were
     # planned on the host, so a device pop order or serving cell that
@@ -467,24 +525,26 @@ def run_corridor_simulation(
     test_labels = torch.as_tensor(test_labels, device=device)
     per_rsu_round = np.zeros(R, np.int64)
     eval_idx = {rr: k for k, rr in enumerate(eval_rounds)}
-    for r in range(M):
-        j = int(t_rsu[r])
-        per_rsu_round[j] += 1
-        rec = RoundRecord(round=int(per_rsu_round[j]),
-                          time=float(t_time[r]), vehicle=int(t_veh[r]),
-                          upload_delay=float(t_cu[r]),
-                          train_delay=float(t_cl[r]),
-                          weight=float(t_w[r]), rsu=j)
-        rr = r + 1
-        if rr in eval_idx:
-            acc, loss = evaluate(layout.unpack(cons[eval_idx[rr]]),
-                                 test_images, test_labels, device=device)
-            rec.accuracy, rec.loss = acc, loss
-            result.acc_history.append((rr, acc))
-            result.loss_history.append((rr, loss))
-            if progress:
-                progress(rr, acc)
-        result.rounds.append(rec)
+    with timers.phase("eval"):
+        for r in range(M):
+            j = int(t_rsu[r])
+            per_rsu_round[j] += 1
+            rec = RoundRecord(round=int(per_rsu_round[j]),
+                              time=float(t_time[r]), vehicle=int(t_veh[r]),
+                              upload_delay=float(t_cu[r]),
+                              train_delay=float(t_cl[r]),
+                              weight=float(t_w[r]), rsu=j)
+            rr = r + 1
+            if rr in eval_idx:
+                acc, loss = evaluate(layout.unpack(cons[eval_idx[rr]]),
+                                     test_images, test_labels,
+                                     device=device)
+                rec.accuracy, rec.loss = acc, loss
+                result.acc_history.append((rr, acc))
+                result.loss_history.append((rr, loss))
+                if progress:
+                    progress(rr, acc)
+            result.rounds.append(rec)
     result.final_params = layout.unpack(cons[eval_idx[M]])
     result.extras = {
         "n_rsus": R,
@@ -495,8 +555,10 @@ def run_corridor_simulation(
     if record_cohorts:
         result.extras["cohort_snapshots"] = [layout.unpack(c)
                                              for c in cohorts]
-    if plan.sel is not None:
-        result.extras["selection"] = plan.sel.summary()
     if plan.flt is not None:
         result.extras["faults"] = plan.flt.summary(sc.l_iters)
+    result.report = device_report(
+        engine="corridor", scheme=f"{scheme}+corridor", rounds=M, seed=seed,
+        met=met, met_dev=met_dev, plan=plan, queue=queue, p=p,
+        l_iters=sc.l_iters, cu=t_cu, cl=t_cl, timers=timers, device=device)
     return result

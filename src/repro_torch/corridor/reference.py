@@ -10,12 +10,13 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.channel import ChannelParams, CorridorMobility
 from repro_torch.core.client import Vehicle
 from repro_torch.core.hierarchical import ema_toward, reconcile_models
-from repro_torch.core.mafl import SimResult, _Timeline, evaluate, unported
+from repro_torch.core.mafl import SimResult, _Timeline, evaluate, host_report
 from repro_torch.core.server import RSUServer
 from repro_torch.device import resolve_device
 from repro_torch.faults import (arrival_step, check_faults_reconcile,
@@ -23,6 +24,7 @@ from repro_torch.faults import (arrival_step, check_faults_reconcile,
 from repro_torch.models.cnn import init_cnn
 from repro_torch.selection import (check_reconcile_mode, make_selection_state,
                                    scenario_spec)
+from repro_torch.telemetry import PhaseTimers, metrics_requested
 
 
 def run_handover_simulation(sc, vehicles_data: Sequence,
@@ -48,27 +50,30 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     reconcile_tau, corridor_entry, selection fields).  ``selection`` (or
     the scenario's policy) parks unadmitted vehicles at re-schedule and
     re-scores at every reconcile boundary; it raises ``ValueError`` with
-    the EMA reconcile, and ``result.extras["selection"]`` holds the plan's
+    the EMA reconcile, and ``result.report.selection`` holds the plan's
     ``summary()``.  ``faults`` drives one ``FaultState`` with recovery
     sweeps at the reconcile boundaries: a cap-discarded arrival counts its
     round but leaves its cohort as it is, a partial cycle trains its
     first ``n_ep`` steps; ``result.extras["faults"]`` holds the plan's
-    ``summary(sc.l_iters)``, and faults that suppress re-schedules raise
-    ``ValueError`` with the EMA reconcile.  ``init_params`` is a param
-    dict (e.g. ``repro``'s init through
-    :func:`repro_torch.convert.params_from_jax`); without it the model is
-    drawn by :func:`init_cnn` from a generator seeded with ``seed``.
-    ``use_kernel`` routes every mafl merge through ``weighted_agg`` (the
-    reconcile stays plain, as in ``repro``).
-    ``device=None`` runs on the card.  ``result.report`` stays None.
+    ``summary(sc.l_iters)`` and ``result.report.faults`` its spec and
+    counts; faults that suppress re-schedules raise ``ValueError`` with
+    the EMA reconcile.  ``init_params`` is a param dict (e.g. ``repro``'s
+    init through :func:`repro_torch.convert.params_from_jax`); without it
+    the model is drawn by :func:`init_cnn` from a generator seeded with
+    ``seed``.  ``use_kernel`` routes every mafl merge through
+    ``weighted_agg`` (the reconcile stays plain, as in ``repro``).
+    ``device=None`` runs on the card.
 
-    Not ported yet, and raising: ``metrics`` other than None/"off"."""
+    ``metrics`` (None/False/"off" | True/"on" | ``MetricsSpec``): on, the
+    loop records the channels in f64 beside it, with the per-RSU
+    occupancy, the serving RSU of each upload and the handover flag of
+    each admitted re-schedule.  ``result.report`` (engine ``"serial"``,
+    scheme ``"<scheme>+handover"``) is attached either way."""
     mode = getattr(sc, "reconcile_mode", "fedavg")
     spec = selection if selection is not None else scenario_spec(sc)
     check_reconcile_mode(spec, mode)
     check_faults_reconcile(faults, mode)
-    if metrics not in (None, "off"):
-        raise unported("run metrics", "telemetry (item 10)")
+    met_req = metrics_requested(metrics)
     device = resolve_device(device)
     tau = getattr(sc, "reconcile_tau", 0.5)
     entry = getattr(sc, "corridor_entry", "uniform")
@@ -108,59 +113,106 @@ def run_handover_simulation(sc, vehicles_data: Sequence,
     for k in initial_vehicles(sel, flt, p.K):
         schedule(k, 0.0)
 
+    timers = PhaseTimers()
+    ch_stale, ch_occ, ch_gap, ch_times = [], [], [], []
+    ch_rsu, ch_ho = [], []
+
     result = SimResult(scheme=f"{sc.scheme}+handover", rounds=[],
                        acc_history=[], loss_history=[])
     total = 0
-    while total < sc.rounds and len(queue):
-        ev = queue.pop()
-        # the staleness-cap verdict and this cycle's epoch count, fixed
-        # before the gate in arrival_step draws the next cycle's block
-        keep = True if flt is None else flt.on_pop(ev.vehicle, total)[0]
-        local_params, _ = clients[ev.vehicle].local_update(
-            ev.payload, sc.l_iters,
-            n_ep=flt.epoch_of(ev.vehicle) if partial else None)
-        rsu = int(corridor.serving_rsu(ev.vehicle, ev.time))  # handover target
-        rec = servers[rsu].receive(
-            local_params, time=ev.time, vehicle=ev.vehicle,
-            upload_delay=ev.upload_delay, train_delay=ev.train_delay,
-            download_time=ev.download_time, discard=not keep)
-        rec.rsu = rsu
-        total += 1
-        consensus = None
-        if total % sc.reconcile_every == 0:
-            consensus = reconcile_models([s.global_params for s in servers])
-            if mode == "ema":
-                for s in servers:
-                    s.global_params = ema_toward(s.global_params, consensus,
-                                                 tau)
-            else:
-                for s in servers:
-                    s.global_params = consensus
-        if total % eval_every == 0 or total == sc.rounds:
-            if consensus is None or mode == "ema":
+    with timers.phase("run"):
+        while total < sc.rounds and len(queue):
+            if met_req:
+                # per-RSU live slots before the pop: a pending slot's row
+                # is the RSU serving its vehicle at arrival time (the
+                # device's slot-migration rule)
+                pend = list(queue.pending())
+                vs = np.array([pe.vehicle for pe in pend], np.int64)
+                ts = np.array([pe.time for pe in pend])
+                ch_occ.append(np.bincount(
+                    np.asarray(corridor.serving_rsu(vs, ts), np.int64),
+                    minlength=sc.n_rsus))
+            ev = queue.pop()
+            # the staleness-cap verdict and this cycle's epoch count,
+            # fixed before the gate in arrival_step draws the next
+            # cycle's block
+            keep = True if flt is None else flt.on_pop(ev.vehicle,
+                                                        total)[0]
+            local_params, _ = clients[ev.vehicle].local_update(
+                ev.payload, sc.l_iters,
+                n_ep=flt.epoch_of(ev.vehicle) if partial else None)
+            # handover target
+            rsu = int(corridor.serving_rsu(ev.vehicle, ev.time))
+            if met_req:
+                ch_stale.append(ev.time - ev.download_time)
+                ch_gap.append(ev.time - (ch_times[-1] if ch_times else 0.0))
+                ch_times.append(ev.time)
+                ch_rsu.append(rsu)
+            rec = servers[rsu].receive(
+                local_params, time=ev.time, vehicle=ev.vehicle,
+                upload_delay=ev.upload_delay, train_delay=ev.train_delay,
+                download_time=ev.download_time, discard=not keep)
+            rec.rsu = rsu
+            total += 1
+            consensus = None
+            if total % sc.reconcile_every == 0:
                 consensus = reconcile_models(
                     [s.global_params for s in servers])
-            acc, loss = evaluate(consensus, test_images, test_labels,
-                                 device=device)
-            rec.accuracy, rec.loss = acc, loss
-            result.acc_history.append((total, acc))
-            result.loss_history.append((total, loss))
-            if progress:
-                progress(total, acc)
-        result.rounds.append(rec)
-        # the re-download reads the post-reconcile cohort of the RSU the
-        # upload landed on; selection parks unadmitted vehicles, faults
-        # park dropped and dark ones, and both re-admit at reconcile
-        # boundaries
-        arrival_step(sel, flt, r=total - 1, vehicle=ev.vehicle,
-                     time=ev.time, upload_delay=ev.upload_delay,
-                     train_delay=ev.train_delay, pending=len(queue),
-                     schedule=lambda v, t=ev.time: schedule(v, t))
-        timeline.prune()
+                if mode == "ema":
+                    for s in servers:
+                        s.global_params = ema_toward(s.global_params,
+                                                     consensus, tau)
+                else:
+                    for s in servers:
+                        s.global_params = consensus
+            if total % eval_every == 0 or total == sc.rounds:
+                if consensus is None or mode == "ema":
+                    consensus = reconcile_models(
+                        [s.global_params for s in servers])
+                with timers.phase("eval"):
+                    acc, loss = evaluate(consensus, test_images, test_labels,
+                                         device=device)
+                rec.accuracy, rec.loss = acc, loss
+                result.acc_history.append((total, acc))
+                result.loss_history.append((total, loss))
+                if progress:
+                    progress(total, acc)
+            result.rounds.append(rec)
+            # the re-download reads the post-reconcile cohort of the RSU
+            # the upload landed on; selection parks unadmitted vehicles,
+            # faults park dropped and dark ones, and both re-admit at
+            # reconcile boundaries
+            res = {}
+            arrival_step(sel, flt, r=total - 1, vehicle=ev.vehicle,
+                         time=ev.time, upload_delay=ev.upload_delay,
+                         train_delay=ev.train_delay, pending=len(queue),
+                         schedule=lambda v, t=ev.time: res.__setitem__(
+                             "nev", schedule(v, t)),
+                         readmit=lambda v, t=ev.time: schedule(v, t))
+            if met_req:
+                # a handover: the admitted re-schedule lands on another
+                # RSU (a parked vehicle and a re-admission never count)
+                nev = res.get("nev")
+                ch_ho.append(nev is not None and int(
+                    corridor.serving_rsu(ev.vehicle, nev.time)) != rsu)
+            timeline.prune()
 
     result.final_params = reconcile_models([s.global_params for s in servers])
-    if sel is not None:
-        result.extras["selection"] = sel.plan().summary()
-    if flt is not None:
-        result.extras["faults"] = flt.plan().summary(sc.l_iters)
+    flt_plan = None if flt is None else flt.plan()
+    if flt_plan is not None:
+        result.extras["faults"] = flt_plan.summary(sc.l_iters)
+    up_rsu = np.asarray(ch_rsu, np.int64)
+    ho = np.asarray(ch_ho, bool)
+    result.report = host_report(
+        engine="serial", scheme=f"{sc.scheme}+handover", rounds=total,
+        seed=seed, metrics=metrics, met_req=met_req, p=p, timers=timers,
+        device=device,
+        selection=None if sel is None else sel.plan().summary(),
+        records=result.rounds, stale=ch_stale, occ=ch_occ, gap=ch_gap,
+        times=ch_times, n_rsus=sc.n_rsus,
+        up_rsu=up_rsu if met_req else None,
+        handover=ho if met_req else None,
+        handover_count=(np.bincount(up_rsu[ho], minlength=sc.n_rsus)
+                        if met_req else None),
+        faults=flt_plan, l_iters=sc.l_iters)
     return result

@@ -89,7 +89,7 @@ class SelectionPlan:
         return {"mask": mask, "readmit": readmit}
 
     def summary(self) -> dict:
-        """The ``SimResult.extras['selection']`` payload — identical
+        """The ``RunReport.selection`` payload — identical
         across engines by construction (conformance asserts it), plain
         JSON-serializable types only."""
         import dataclasses

@@ -416,7 +416,7 @@ def test_selection_event_loop_never_waits_for_the_card(cuda_device,
     res = run_scenario("quick-k5", engine="jit", rounds=12, eval_every=4,
                        device=cuda_device, **FLEET_BANDIT)
     plan = _fleet_selection_plan(12, **FLEET_BANDIT)
-    assert res.extras["selection"] == plan.sel.summary()
+    assert res.report.selection == plan.sel.summary()
     assert [r.vehicle for r in res.rounds] == plan.veh.tolist()
     inside = [b for s, e, bs in segments for b in bs if s < b < e]
     assert inside == [3, 6]
@@ -454,7 +454,7 @@ def test_corridor_selection_loop_never_waits_for_the_card(cuda_device,
                        **CORRIDOR_BANDIT)
     assert sum(cols[0].numel() for cols in segments) == len(res.rounds)
     assert len(readmits) == sum(
-        1 for _, newly, _ in res.extras["selection"]["decisions"] if newly)
+        1 for _, newly, _ in res.report.selection["decisions"] if newly)
     assert readmits
 
 
@@ -489,7 +489,7 @@ def test_selection_on_card_launches_the_plan(cuda_device, world):
     assert kernels.launch_counts() == {
         "weighted_agg": 0, "ring_agg": want, "decode_attention": 0,
         "swa_attention": 0, "cross_entropy": 0}
-    assert res.extras["selection"] == plan.sel.summary()
+    assert res.report.selection == plan.sel.summary()
     assert all(v.is_cuda and bool(torch.isfinite(v).all())
                for v in res.final_params.values())
 
@@ -561,8 +561,8 @@ def test_selection_on_card_matches_cpu(cuda_device, engine_name):
             return fn(sc, veh, ti, tl, p, eval_every=4, use_kernel=True,
                       init_params=params_from_jax(init, dev), device=dev)
     gpu, cpu = run(cuda_device), run("cpu")
-    assert gpu.extras["selection"] == cpu.extras["selection"]
-    assert not all(cpu.extras["selection"]["admit0"])
+    assert gpu.report.selection == cpu.report.selection
+    assert not all(cpu.report.selection["admit0"])
     assert ([(r.round, r.vehicle, r.rsu) for r in gpu.rounds]
             == [(r.round, r.vehicle, r.rsu) for r in cpu.rounds])
     np.testing.assert_allclose([r.time for r in gpu.rounds],
@@ -1067,3 +1067,106 @@ def test_fleet_k1000_flaky_on_card_matches_its_replay(cuda_device):
     assert [r.vehicle for r in res.rounds] == plan.veh.tolist()
     assert all(v.is_cuda and bool(torch.isfinite(v).all())
                for v in res.final_params.values())
+
+
+def _channels_equal_replay(res, name, rounds, **fields):
+    """The run's channels against the port's own f64 replay: histogram,
+    occupancy, handovers exactly, the pop wait within rtol 1e-4 / atol
+    1e-3."""
+    import dataclasses
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.faults import scenario_faults
+    from repro_torch.telemetry.replay import (replay_corridor_channels,
+                                              replay_fleet_channels)
+    from repro_torch.telemetry.spec import resolve_metrics, stale_histogram
+    sc = dataclasses.replace(get_scenario(name), **fields)
+    kw = dict(selection=sc.selection_spec(), faults=scenario_faults(sc),
+              l_iters=sc.l_iters)
+    if sc.n_rsus > 1:
+        rep = replay_corridor_channels(
+            sc.channel(), sc.n_rsus, 0, rounds, entry=sc.corridor_entry,
+            reconcile_every=sc.reconcile_every, **kw)
+    else:
+        rep = replay_fleet_channels(sc.channel(), 0, rounds, **kw)
+    spec = resolve_metrics("on", stale=rep["stale"], times=rep["times"],
+                           n_rsus=sc.n_rsus)
+    ch = res.report.channels
+    assert res.report.spec["edges"] == list(spec.edges)
+    assert np.array_equal(ch["stale_hist"], stale_histogram(
+        spec.edges, rep["stale"], rsu=rep.get("up_rsu"), n_rsus=sc.n_rsus))
+    assert np.array_equal(ch["occupancy"], rep["occupancy"])
+    np.testing.assert_allclose(ch["gap"], rep["gap"], rtol=1e-4, atol=1e-3)
+    if sc.n_rsus > 1:
+        assert np.array_equal(np.asarray(ch["handover"], bool),
+                              rep["handover"])
+        assert np.array_equal(ch["handover_count"], rep["handover_count"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine_name", ["jit", "corridor"])
+def test_metrics_event_loop_never_waits_for_the_card(cuda_device,
+                                                     monkeypatch,
+                                                     engine_name):
+    """With metrics on, the device engines' segments (pops with the
+    telemetry fold, chain coefficients, ring_agg chains) run with CUDA
+    synchronisation made an error; the channels equal the f64 replay and
+    the bf16 ring guard counts no non-finite row."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import run_scenario
+    from repro_torch.corridor import engine
+    module, fn = ((jit_engine, "_event_segment") if engine_name == "jit"
+                  else (engine, "_chain_segment"))
+    real = getattr(module, fn)
+    segments = []
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        segments.append(kw["mst"] is not None)
+        return out
+
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    monkeypatch.setattr(module, fn, strict)
+    name = "quick-k5" if engine_name == "jit" else "corridor-quick-r2-k8"
+    res = run_scenario(name, engine=engine_name, rounds=8, eval_every=4,
+                       ring_dtype="bf16", metrics="on", device=cuda_device)
+    assert segments and all(segments)
+    _channels_equal_replay(res, name, 8)
+    assert int(res.report.channels["ring_nonfinite"]) == 0
+    assert {"device_bytes_in_use", "device_peak_bytes_in_use",
+            "device_bytes_limit"} <= set(res.report.memory)
+
+
+@pytest.mark.cuda
+def test_fleet_k1000_flaky_fault_counts_on_card(cuda_device):
+    """fleet-k1000-flaky at its registered size on the fleet engine with
+    metrics on: the device's fault counters pass the engine's guard and
+    equal the host replay's counts; the launches, trace and params are the
+    metrics-off run's."""
+    from repro_torch.core.scenarios import get_scenario, run_scenario
+    from repro_torch.faults import replay_fleet_faults, scenario_faults
+    sc = get_scenario("fleet-k1000-flaky")
+    runs = []
+    for metrics in (None, "on"):
+        kernels.reset_launches()
+        res = run_scenario("fleet-k1000-flaky", engine="jit", eval_every=10,
+                           use_kernel=True, device=cuda_device,
+                           metrics=metrics)
+        runs.append((res, kernels.launch_counts()))
+    (off, c_off), (on, c_on) = runs
+    assert c_on == c_off
+    replay = replay_fleet_faults(sc.channel(), 0, sc.rounds,
+                                 scenario_faults(sc), l_iters=sc.l_iters)
+    want = replay.counts_table(sc.l_iters).sum(0)
+    assert np.array_equal(on.report.channels["fault_counts"], want)
+    assert want[3] > 0
+    assert ([(r.vehicle, r.time) for r in on.rounds]
+            == [(r.vehicle, r.time) for r in off.rounds])
+    assert all(torch.allclose(on.final_params[k], off.final_params[k],
+                              rtol=0.0, atol=1e-6) for k in off.final_params)
+    _channels_equal_replay(on, "fleet-k1000-flaky", sc.rounds)

@@ -24,7 +24,7 @@ def test_list_rules(capsys):
     assert main(["--list-rules"]) == 0
     out = capsys.readouterr().out
     assert all(rid in out for rid in findings.RULES)
-    assert "TEL001" not in out and "BND005" not in out
+    assert "TEL001" in out and "BND005" not in out
 
 
 def test_json_keys_equal_repro(capsys):
@@ -73,7 +73,8 @@ def test_strict_exits_0_on_the_port_with_probes():
     payload = json.loads(report)
     assert not [f for f in payload["findings"] if not f["waived"]]
     assert set(payload["timings_s"]) == {"boundary", "grid_race",
-                                         "plan_shapes", "dtype_flow"}
+                                         "plan_shapes", "dtype_flow",
+                                         "telemetry_off"}
 
 
 def test_fixture_corpus_is_excluded_from_default_scans():

@@ -63,7 +63,10 @@ def _pair(name, engine, init, eval_every, **overrides):
            else run_corridor_simulation)
     tres = run(sc, veh, ti, tl, p, eval_every=eval_every, use_kernel=True,
                init_params=params_from_jax(init, "cpu"), device="cpu")
-    assert len(tres.rounds) == sc.rounds and tres.report is None
+    assert len(tres.rounds) == sc.rounds
+    assert ([getattr(tres.report, f) for f in ("engine", "scheme", "rounds")]
+            == [getattr(jres.report, f) for f in ("engine", "scheme",
+                                                  "rounds")])
     return jres, tres
 
 
@@ -198,12 +201,12 @@ def test_ring_rows_stay_as_stored_on_a_selection_world(init, monkeypatch):
     kw = dict(rounds=16, selection="eps-bandit", selection_k=2,
               selection_eps=0.4)
     reads, res = _ring_reads(init, monkeypatch, kw)
-    decisions = res.extras["selection"]["decisions"]
+    decisions = res.report.selection["decisions"]
     assert {b for b, newly, _ in decisions if newly} & reads
     jres = jsc.run_scenario(QUICK, engine="corridor", eval_every=4,
                             use_kernel=True, **kw)
     _assert_engine_conforms(jres, res)
-    assert res.extras["selection"] == jres.report.selection
+    assert res.report.selection == jres.report.selection
 
 
 def test_engine_matches_serial_in_the_port(init):
@@ -261,7 +264,7 @@ def test_chains_and_reconciles_follow_the_plan(monkeypatch, kw, merges):
 @pytest.mark.parametrize("kw, err, match", [
     (dict(flat=False), NotImplementedError, "item 15"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
-    (dict(metrics="on"), NotImplementedError, "item 10"),
+    (dict(metrics="sometimes"), ValueError, "unknown metrics setting"),
     (dict(faults="deadzone", reconcile_mode="ema"), ValueError,
      "fault injection"),
     (dict(scheme="fedbuff"), ValueError, "fedbuff"),
@@ -290,7 +293,7 @@ def test_corridor_engine_runs_a_selection_policy():
     res = run_corridor_simulation(sc, veh, ti, tl, p, device="cpu",
                                   selection=SelectionSpec("eps-bandit", k=1))
     assert len(res.rounds) == 6
-    summary = res.extras["selection"]
+    summary = res.report.selection
     assert summary["policy"] == "eps-bandit"
     assert [b for b, _, _ in summary["decisions"]] == [4]
     assert sum(summary["admit0"]) == 2          # k = 1 on each of 2 RSUs

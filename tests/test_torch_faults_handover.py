@@ -1,0 +1,37 @@
+"""The port's serial handover loop under fault injection against
+``repro``'s, on the CPU, from one (JAX-drawn) init with the kernel path on
+(``_torch_engines.py``): corridor-quick-r2-k8 with ``repro``'s HEAVY spec
+for 24 rounds of 2 local steps (``extras["faults"]`` equal to ``repro``'s,
+the same (round, vehicle, rsu) trace, times within rtol 1e-9, params
+within ``PARAM_TOL``), and faults off bitwise the run without faults."""
+from __future__ import annotations
+
+import pytest
+
+from _torch_engines import (HEAVY, assert_corridor_conforms,  # noqa: F401
+                            assert_faults_off, corridor_pair, init)
+
+
+@pytest.mark.parametrize("engine", ["serial"])
+def test_corridor_engines_under_heavy_churn(init, engine):
+    """corridor-quick-r2-k8 with ``repro``'s HEAVY spec, 24 rounds of 2
+    local steps: dropouts, blackouts, recoveries at the reconcile
+    boundaries, partial cycles, cap discards and stragglers."""
+    cut = dict(rounds=24, l_iters=2, faults="flaky",
+               faults_overrides=tuple(HEAVY.items()))
+    jres, tres = corridor_pair("corridor-quick-r2-k8", engine, init, 8,
+                               **cut)
+    summary = tres.extras["faults"]
+    assert summary == jres.extras["faults"]
+    c = summary["counts"]
+    assert summary["readmits"] and c["partial_rounds"] and \
+        c["discarded_uploads"] and summary["n_stragglers"]
+    assert_corridor_conforms(jres, tres, engine)
+
+
+@pytest.mark.parametrize("name, engine", [("corridor-quick-r2-k8",
+                                           "serial")])
+def test_faults_off_is_bitwise_the_run_without_faults(name, engine):
+    """Every off spelling runs the path without faults: the same trace,
+    bitwise the same params, no fault summary."""
+    assert_faults_off(name, engine)

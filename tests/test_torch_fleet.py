@@ -59,7 +59,9 @@ def test_plan_fleet_equals_repro(name):
         "quick-k5-fedasync", "quick-k5-literal"])
 def test_jit_matches_repro_jit(init, name, rounds, kw):
     jres, tres = run_both(name, init, rounds=rounds, engine="jit", **kw)
-    assert len(tres.rounds) == rounds and tres.report is None
+    assert len(tres.rounds) == rounds
+    assert ((tres.report.engine, tres.report.waves, tres.report.metrics_on)
+            == (jres.report.engine, jres.report.waves, False))
     assert_fleet_conforms(jres, tres, bf16=kw.get("ring_dtype") == "bf16")
 
 
@@ -132,7 +134,7 @@ def test_run_scenario_selects_jit_for_a_bf16_world(monkeypatch):
     (dict(ring_dtype="f16"), ValueError, "ring_dtype"),
     (dict(flat=False), NotImplementedError, "pytree"),
     (dict(mesh=object()), NotImplementedError, "distribution"),
-    (dict(metrics="on"), NotImplementedError, "telemetry"),
+    (dict(metrics="sometimes"), ValueError, "unknown metrics setting"),
     (dict(faults="no-such-profile"), KeyError, "unknown fault profile"),
 ])
 def test_run_simulation_jit_rejects(kw, err, match):
@@ -152,6 +154,6 @@ def test_run_simulation_jit_runs_a_selection_policy():
     res = tjit.run_simulation_jit(veh, ti, tl, params=p, rounds=2,
                                   device="cpu", selection="admit-all")
     assert len(res.rounds) == 2
-    assert res.extras["selection"] == tjit.plan_fleet(
+    assert res.report.selection == tjit.plan_fleet(
         p, 0, 2, SelectionSpec()).sel.summary()
-    assert res.extras["selection"]["admit0"] == [True] * 5
+    assert res.report.selection["admit0"] == [True] * 5

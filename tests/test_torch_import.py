@@ -152,14 +152,14 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [
-    (dict(scenario="corridor-quick-r2-k8", metrics="on"), "telemetry"),
+    (dict(scenario="corridor-quick-r2-k8", flat=False), "pytree"),
     (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
     (dict(scenario="quick-k5", engine="jit", mesh=object()),
      "distribution"),
     (dict(scenario="quick-k5", engine="vmap"), "sweep"),
-    (dict(scenario="quick-k5", engine="serial", metrics="on"),
-     "telemetry"),
-    (dict(scenario="quick-k5", metrics="on"), "telemetry"),
+    (dict(scenario="corridor-quick-r2-k8", mesh=object()),
+     "distribution"),
+    (dict(scenario="corridor-quick-r2-k8", engine="vmap"), "sweep"),
 ])
 def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -177,7 +177,7 @@ def test_selection_worlds_run_on_the_port(kwargs, policy):
     res = run_scenario(device="cpu", K=40, rounds=10, eval_every=10,
                        selection_k=5, n_train=1200, n_test=120, **kwargs)
     assert len(res.rounds) == 10
-    summary = res.extras["selection"]
+    summary = res.report.selection
     assert summary["policy"] == policy and len(summary["admit0"]) == 40
     admitted = {v for v, m in enumerate(summary["admit0"]) if m}
     assert len(admitted) < 40

@@ -58,4 +58,6 @@ def test_run_scenario_trace_matches_repro():
                             use_kernel=True)
     assert ([(r.round, r.vehicle, r.time) for r in tres.rounds]
             == [(r.round, r.vehicle, r.time) for r in jres.rounds])
-    assert tres.report is None and len(tres.acc_history) == 1
+    assert len(tres.acc_history) == 1
+    assert ((tres.report.engine, tres.report.scheme, tres.report.scenario)
+            == (jres.report.engine, jres.report.scheme, "quick-k5"))
