@@ -17,11 +17,14 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    one launch per 112 leaves of a dtype; ``ring_agg`` at U in {0, 1, 2, 7,
    9, 10, 30, 60}, f32 and bf16 uploads, P = 422,016, 128*300, 128*1031
    (a pack count the 132-multiple grid does not divide) and 128 (blocks
-   with no pack), with -0.0 and a (1, 0) step), and time kernel, plain
-   version and one library call against the card's bound (a CNN merge and
-   a smollm-360m merge for ``weighted_agg``, against
+   with no pack), with -0.0 and a (1, 0) step; with a world axis at P =
+   422,016, U = 10, W = 5 and 15, the upload rows a view of a [W, 40, P]
+   buffer, bitwise the plain version and W one-world launches), and time
+   kernel, plain version and one library call against the card's bound (a
+   CNN merge and a smollm-360m merge for ``weighted_agg``, against
    ``torch._foreach_lerp``; ``ring_agg`` also by the wrapper's host time
-   per call).
+   per call, and with a world axis beside W one-world launches and one
+   ``torch.baddbmm``).
 3. host-engine path: ``run_scenario`` on paper-k10 (serial and batched, 40
    rounds) and fleet-k100 (batched, 120 rounds) with ``use_kernel=True``;
    every merge is ``weighted_agg`` (one launch per merge: the CNN's 8
@@ -91,6 +94,19 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    memory keys present; ms/round on and off printed, with one rendered run
    log line; a profiler reading of the extra launches per pop on
    fleet-k1000 is queued.
+6e. sweep (after phase 6d): ``run_sweep`` (``engine="vmap"``) at
+   registered sizes: the Fig. 5 grid (paper-k10, betas 0.1-0.9 x seeds
+   0-2: W 15 in 3 shared-timeline groups, 40 rounds), fleet-k1000 at
+   seeds 0-2 (W 3 singleton groups, 30 rounds) and fleet-k1000 admit-all
+   beside weighted-topk k 250 (30 rounds): ``ring_agg`` launches = the
+   union plan's chains (one launch for all W worlds), ``weighted_agg``
+   none, every world's pop order and times bitwise its solo ``jit`` run on
+   the card, params and accuracy bitwise for a singleton group, params
+   within atol 1e-2 for a shared one (``SWEEP_GROUP_ATOL``); accuracy, ms
+   per world-round beside the solo runs' ms/round, set-up seconds and the
+   device peak printed.  Then
+   quick-k5, 2 betas x 2 seeds (8 rounds) as one batch on the card and on
+   the CPU from one numpy-made init per seed, within phase 5's bands.
 7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
@@ -179,6 +195,10 @@ EVAL_EVERY = 10
 RING_U = (0, 1, 2, 7, 9, 10, 30, 60)
 RING_P = (422016, 128 * 300, 128 * 1031, 128)
 RING_TIMED_U = 10
+# ring_agg with a world axis: the sweep's batches (W 15: the Fig. 5 grid;
+# W 5: one seed's betas), locs a view of a [W, 40, P] upload buffer
+RING_WORLDS = (5, 15)
+RING_WORLD_ROWS = 40
 L2_BYTES = 50 * 2 ** 20
 DEVICE = "cuda"
 # card vs CPU after 8 paper-k10 rounds (40 SGD steps per vehicle chain):
@@ -655,15 +675,121 @@ def phase_ring_kernel(dev):
         device_time_later(f"ring_agg U={U} P={P} {tag} uploads per chain",
                           timings[tag], rotating(ops.ring_agg, sets),
                           "ring_agg_kernel")
+        del sets, runs
+    worlds, world_err = ring_world_cases(dev, gen)
     return {
         "name": "ring_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ring_agg.cu",
         "replaces": "src/repro/kernels/weighted_agg/kernel.py:113",
-        "max_abs_err": max_err, **timings["f32"],
+        "max_abs_err": max(max_err, world_err), **timings["f32"],
         "shape": f"U={U} P={P} f32 uploads",
-        "geometries": {f"U={U} P={P} {tag} uploads": row
-                       for tag, row in timings.items()},
+        "geometries": {**{f"U={U} P={P} {tag} uploads": row
+                          for tag, row in timings.items()}, **worlds},
     }
+
+
+def ring_world_cases(dev, gen):
+    """K1 with a world axis (the sweep tier's chain): at P = 422,016, U =
+    10 and W in ``RING_WORLDS``, f32 and bf16 uploads, ``locs`` the
+    ``[:, a:a+U]`` view of a ``[W, 40, P]`` upload buffer (world stride
+    40 P, as paper-k10's sweep passes it): one launch, bitwise the plain
+    version and W one-world launches on the slices; then the launch, the
+    plain version, W one-world launches and (f32) one ``torch.baddbmm`` on
+    the prefix weights with the ``g`` term, timed in turns against the
+    bound ``W (8 + U s) P`` bytes.  Returns ``({shape: row}, max
+    |kernel - plain|)``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.weighted_agg import ops, ref
+
+    P, U, M, a = RING_P[0], RING_TIMED_U, RING_WORLD_ROWS, 10
+    rows, max_err = {}, 0.0
+    for dtype, s in ((torch.float32, 4), (torch.bfloat16, 2)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for W in RING_WORLDS:
+            def inputs():
+                g = torch.randn(W, P, generator=gen, device=dev)
+                buf = torch.randn(W, M, P, generator=gen,
+                                  device=dev).to(dtype)
+                c = torch.rand(W, U, generator=gen, device=dev) * 0.5 + 0.5
+                coeffs = torch.stack([c, 1.0 - c], dim=2).contiguous()
+                return g, buf[:, a:a + U], coeffs
+            bytes_moved = W * ((8 + U * s) * P + 8 * U)
+            n_sets = int(np.ceil(2 * L2_BYTES / bytes_moved))
+            sets = [inputs() for _ in range(n_sets)]
+            g, locs, coeffs = sets[0]
+            kernels.reset_launches()
+            out = ops.ring_agg(g, locs, coeffs)
+            launched = kernels.launch_counts()["ring_agg"]
+            want = ref.ring_agg(g, locs, coeffs)
+            ones = [ops.ring_agg(g[w], locs[w], coeffs[w]) for w in range(W)]
+            torch.cuda.synchronize()
+            label = f"U={U} P={P} W={W} {tag} uploads"
+            check(launched == 1, f"ring_agg {label}: {launched} launches")
+            check(torch.equal(bits(out), bits(want)),
+                  f"ring_agg {label} differs from its plain version")
+            check(all(torch.equal(bits(out[w]), bits(ones[w]))
+                      for w in range(W)),
+                  f"ring_agg {label} differs from {W} one-world launches")
+            max_err = max(max_err, (out - want).abs().max().item())
+
+            def separate(g, locs, coeffs, W=W):
+                return [ops.ring_agg(g[w], locs[w], coeffs[w])
+                        for w in range(W)]
+            runs = {"kernel": rotating(ops.ring_agg, sets),
+                    "plain": rotating(ref.ring_agg, sets),
+                    "separate": rotating(separate, sets)}
+            if dtype == torch.float32:
+                # the yardstick: each world's closed form as one batched
+                # gemv with the g term; the port never calls it
+                lib_sets = []
+                for g, locs, coeffs in sets:
+                    wts = torch.tensor(np.stack(
+                        [ops.prefix_weights(coeffs[w].cpu())
+                         for w in range(W)]), dtype=torch.float32,
+                        device=dev)
+                    lib_sets.append((g, locs, wts[:, None, 1:].contiguous(),
+                                     wts[:, :1].contiguous()))
+                runs["library"] = rotating(
+                    lambda g, l, w, w0: torch.baddbmm(
+                        (w0 * g)[:, None, :], w, l)[:, 0], lib_sets)
+                diff = (runs["library"]() - runs["kernel"]()).abs().max()
+                check(diff.item() <= 1e-4,
+                      f"baddbmm yardstick differs by {diff.item()}")
+            samples = {k: [] for k in runs}
+            for rep in range(6):                 # in turns, order alternating
+                order = list(runs) if rep % 2 == 0 else list(runs)[::-1]
+                for name in order:
+                    samples[name].append(time_ms(runs[name], iters=50,
+                                                 warmup=5))
+            ms = {k: float(np.median(v)) for k, v in samples.items()}
+            # fewer calls than the launch queue holds: the host's own time
+            host = host_ms_per_call(runs["kernel"], n=300)
+            bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+            bound_ops = 3 * W * U * P / FP32_FLOP_PER_S * 1e3
+            lib = (f"baddbmm {ms['library']:.6f} ms" if "library" in ms
+                   else "no library call (none mixes bf16 rows with f32 "
+                   "weights into f32)")
+            log(f"kernels: ring_agg {label} (locs a [:, {a}:{a + U}] view "
+                f"of [{W}, {M}, {P}]; {n_sets} input sets, {bytes_moved} "
+                f"bytes per call): one launch bitwise its plain version and "
+                f"{W} one-world launches; kernel {ms['kernel']:.6f} ms (host "
+                f"{host:.6f} ms per call), {W} one-world launches "
+                f"{ms['separate']:.6f} ms, plain {ms['plain']:.6f} ms, {lib}; "
+                f"bound {max(bound_bytes, bound_ops):.6f} ms; samples "
+                f"{samples}")
+            rows[label] = {
+                "ms": ms["kernel"], "host_ms": host,
+                "separate_ms": ms["separate"], "plain_ms": ms["plain"],
+                "bound_ms": max(bound_bytes, bound_ops),
+                "bound_by": ("bytes" if bound_bytes >= bound_ops
+                             else "operations"),
+                "library_ms": ms.get("library")}
+            device_time_later(f"ring_agg {label} per call", rows[label],
+                              rotating(ops.ring_agg, sets),
+                              "ring_agg_kernel")
+            del sets, runs, out, want, ones
+    return rows, max_err
 
 
 def run_main(name, engine, rounds):
@@ -1579,6 +1705,219 @@ def profile_later_launches(name, rounds, engine):
 # 2e-5 of the plain version (the online softmax sums in another order than
 # the dense softmax), bf16 within 3e-2 (the plain version rounds scores and
 # weights to bf16; the band of repro's own bf16 kernel test)
+# the sweep tier (engine="vmap") at registered sizes, eval every 10
+SWEEP_BETAS = (0.1, 0.3, 0.5, 0.7, 0.9)
+SWEEP_SEEDS = (0, 1, 2)
+# a world of a shared timeline group (one seed at several betas) trains in
+# one batched call: vmap over stacked params makes cuDNN run grouped
+# convolutions where its solo run broadcasts one payload, another f32 sum
+# order per step that 40 rounds of 5 SGD steps carry forward and amplify.
+# The same solo world differs by 1.8e-3 between an H100 and the CPU at
+# that length (paper-k10 seed 1, beta 0.1), so the band is the distance
+# such a reordering reaches, not phase 5's 8-round one: atol 1e-2 (the
+# largest reading on an H100, 4.9e-3, is half of it).  Printed beside it: how far the
+# world is from its group's other solo runs (other betas), which a mixed-up
+# payload row or minibatch would bring it towards.  Accuracy is printed,
+# not held: at 0.1-0.35 on 800 test images it moves by up to 0.07 with
+# such drift.
+SWEEP_GROUP_ATOL = 1e-2
+
+
+def sweep_batches():
+    """The three batches of ``phase_sweep``: (label, ``SweepSpec``)."""
+    from repro_torch.core.scenarios import SweepSpec
+    beta = tuple((("channel_overrides", (("beta", b),)),)
+                 for b in SWEEP_BETAS)
+    return (
+        ("Fig. 5 grid: paper-k10, 5 betas x 3 seeds", SweepSpec(
+            scenario="paper-k10", seeds=SWEEP_SEEDS, variants=beta,
+            eval_every=EVAL_EVERY)),
+        ("fleet-k1000, 3 seeds", SweepSpec(
+            scenario="fleet-k1000", seeds=SWEEP_SEEDS,
+            eval_every=EVAL_EVERY)),
+        ("fleet-k1000 admit-all + weighted-topk k 250", SweepSpec(
+            scenario="fleet-k1000", seeds=(0,), variants=((), (
+                ("selection", "weighted-topk"), ("selection_k", 250))),
+            eval_every=EVAL_EVERY)))
+
+
+def sweep_record(r):
+    return (r.round, r.vehicle, r.time, r.upload_delay, r.train_delay,
+            r.weight)
+
+
+def phase_sweep():
+    """The sweep tier on the card at the paper CNN's full width: the Fig. 5
+    grid (paper-k10, W 15 in 3 shared-timeline groups), fleet-k1000 at 3
+    seeds (W 3 singleton groups) and fleet-k1000 admit-all beside
+    weighted-topk (the ``[W, M, K]`` admission fold).  Each batch runs once
+    to warm up and once timed with the launch counts zeroed: ``ring_agg``
+    launches = the union plan's chains (written down before the run),
+    ``weighted_agg`` none; then each world solo on ``jit``: the same pop
+    order and times bit for bit, params and accuracy bitwise for a
+    singleton group, params within ``SWEEP_GROUP_ATOL`` for a shared
+    one.  Logs each world's accuracy,
+    ms per world-round beside the solo runs' ms/round, the batch's set-up
+    seconds and the device peak memory.  Returns the ``ring_agg`` launches
+    of the timed batches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import jit_engine, sweep
+    from repro_torch.core.scenarios import run_scenario, run_sweep
+
+    total = 0
+    for label, spec in sweep_batches():
+        worlds = spec.worlds()
+        W, M = len(worlds), worlds[0][0].rounds
+        plans = [jit_engine.plan_fleet(sc.channel(), seed, M,
+                                       sc.selection_spec(),
+                                       l_iters=sc.l_iters)
+                 for sc, seed in worlds]
+        want = len(sweep.chain_ends(plans, jit_engine.eval_rounds_of(
+            M, spec.eval_every)))
+        log(f"sweep: {label}: W={W}, {M} rounds: the union plan has {want} "
+            f"chains, so ring_agg should launch {want} times for all "
+            f"{W} worlds")
+        t0 = time.perf_counter()
+        run_sweep(spec, device=DEVICE)                # warm-up, untimed
+        warm = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # what earlier phases hold
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        vm = run_sweep(spec, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(counts["ring_agg"] == want,
+              f"sweep {label}: {counts['ring_agg']} ring_agg launches for "
+              f"the union plan's {want} chains")
+        check(counts["weighted_agg"] == 0,
+              f"sweep {label}: {counts['weighted_agg']} weighted_agg "
+              "launches")
+        total += counts["ring_agg"]
+        groups = [r.report.channels["group"] for r in vm]
+        solos, solo_ms = [], []
+        for (sc, seed), v in zip(worlds, vm):
+            t0 = time.perf_counter()
+            solos.append(run_scenario(sc, engine="jit", seed=seed,
+                                      eval_every=spec.eval_every,
+                                      device=DEVICE))
+            torch.cuda.synchronize()
+            solo_ms.append((time.perf_counter() - t0) / M * 1e3)
+
+        def dist(x, y):
+            return max((x.final_params[k] - y.final_params[k]).abs().max()
+                       .item() for k in x.final_params)
+        drift, apart, acc_diff = [], [], 0.0
+        for w, (v, s) in enumerate(zip(vm, solos)):
+            check([sweep_record(r) for r in v.rounds]
+                  == [sweep_record(r) for r in s.rounds],
+                  f"sweep {label} world {w}: pop order or times differ "
+                  f"from its solo jit run")
+            check(all(bool(torch.isfinite(x).all()) and x.is_cuda
+                      for x in v.final_params.values()),
+                  f"sweep {label} world {w}: final params not finite on "
+                  f"the card")
+            mates = [u for u in range(W) if u != w and groups[u] == groups[w]]
+            if not mates:
+                check(all(torch.equal(v.final_params[k], s.final_params[k])
+                          for k in s.final_params)
+                      and v.acc_history == s.acc_history,
+                      f"sweep {label} world {w}: a singleton group differs "
+                      f"from its solo run")
+                continue
+            drift.append(dist(v, s))
+            apart.append(min(dist(v, solos[u]) for u in mates))
+            acc_diff = max(acc_diff, max(abs(x - y) for (_, x), (_, y)
+                                         in zip(v.acc_history,
+                                                s.acc_history)))
+            check(drift[-1] <= SWEEP_GROUP_ATOL,
+                  f"sweep {label} world {w}: params {drift[-1]} from its "
+                  f"solo run, outside the shared-group band "
+                  f"{SWEEP_GROUP_ATOL}")
+        accs = [round(v.final_accuracy(), 5) for v in vm]
+        ph = vm[0].report.phases
+        setup = ph["total"] - ph["run"] - ph["eval"]
+        solo_run = sum(r.report.phases["run"] for r in solos)
+        solo_setup = sum(r.report.phases["plan"] + r.report.phases["stage"]
+                         for r in solos)
+        shared = (f"shared groups within atol {SWEEP_GROUP_ATOL} of their "
+                  f"solo runs (max |diff| per world "
+                  f"{[f'{x:.3g}' for x in drift]}; the nearest other solo "
+                  f"run of the group {[f'{x:.3g}' for x in apart]}; "
+                  f"accuracy max |diff| {acc_diff:.5f})" if drift
+                  else "no shared group")
+        log(f"sweep: {label}: ring_agg {counts['ring_agg']} launches = the "
+            f"union plan's chains, weighted_agg 0; groups {groups}; every "
+            f"world's pop order and times bitwise its solo jit run; "
+            f"singleton groups bitwise their solo runs (params, accuracy); "
+            f"{shared}; final accuracy per world {accs}")
+        log(f"sweep:   {label}: batch {wall:.3f} s ({warm:.3f} s warm-up): "
+            f"{wall / M * 1e3:.3f} ms per round of all {W} worlds, "
+            f"{wall / (W * M) * 1e3:.3f} ms per world-round; the {W} solo "
+            f"runs {sum(solo_ms):.3f} ms/round summed (per world "
+            f"{[round(x, 3) for x in solo_ms]}); set-up {setup:.3f} s "
+            f"(world building, plan {ph['plan']:.3f} s, stage "
+            f"{ph['stage']:.3f} s), run {ph['run']:.3f} s, eval "
+            f"{ph['eval']:.3f} s; the solo runs' run phases "
+            f"{solo_run:.3f} s, plan and stage {solo_setup:.3f} s summed; "
+            f"device peak {peak} bytes, {peak - held} above the {held} "
+            f"bytes earlier phases hold")
+    return total
+
+
+def phase_sweep_vs_cpu():
+    """quick-k5, 2 betas x 2 seeds (8 rounds) as one sweep batch on the
+    card and on the CPU from one numpy-made init per seed: the same
+    groups and (round, vehicle) traces, times within the fleet engine's
+    f32 band, params within phase 5's bands."""
+    from repro_torch.convert import params_from_jax, params_to_numpy
+    from repro_torch.core import sweep
+    from repro_torch.core.scenarios import SweepSpec
+
+    spec = SweepSpec(scenario="quick-k5", seeds=(0, 1),
+                     variants=tuple((("channel_overrides", (("beta", b),)),)
+                                    for b in (0.3, 0.7)),
+                     overrides=(("rounds", 8),), eval_every=4)
+    worlds = spec.worlds()
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = sweep.run_simulation_vmap(
+            worlds, eval_every=4, device=dev,
+            init_params=[params_from_jax(numpy_init(seed), dev)
+                         for _, seed in worlds])
+        log(f"sweep: quick-k5 W=4 on {dev}: {time.perf_counter() - t0:.3f} "
+            "s")
+    worst, t_worst = 0.0, 0.0
+    for w, (gpu, cpu) in enumerate(zip(out[DEVICE], out["cpu"])):
+        check(gpu.report.channels == cpu.report.channels,
+              f"sweep world {w}: card and CPU channels differ")
+        check([(r.round, r.vehicle) for r in gpu.rounds]
+              == [(r.round, r.vehicle) for r in cpu.rounds],
+              f"sweep world {w}: card and CPU traces differ")
+        tg = np.array([r.time for r in gpu.rounds])
+        tc = np.array([r.time for r in cpu.rounds])
+        check(np.allclose(tg, tc, **JIT_TIME_TOL),
+              f"sweep world {w}: card and CPU event times differ")
+        t_worst = max(t_worst, float(np.abs(tg - tc).max()))
+        pg, pc = (params_to_numpy(gpu.final_params),
+                  params_to_numpy(cpu.final_params))
+        for k in pg:
+            worst = max(worst, float(np.abs(pg[k] - pc[k]).max()))
+            check(np.allclose(pg[k], pc[k], atol=HOST_ATOL, rtol=HOST_RTOL),
+                  f"sweep world {w}: card vs CPU final {k}")
+        check(all(abs(a - b) <= ACC_TOL for (_, a), (_, b)
+                  in zip(gpu.acc_history, cpu.acc_history)),
+              f"sweep world {w}: card vs CPU accuracy")
+    log(f"sweep: quick-k5 W=4 card against CPU: groups and traces "
+        f"identical, event times max |diff| {t_worst}, final params max "
+        f"|diff| {worst} (atol {HOST_ATOL}, rtol {HOST_RTOL})")
+
+
 ATTN_TOL = {"f32": 2e-5, "bf16": 3e-2}
 # K4's query heads per kv head held to the plain version (MAX_GROUP is 8)
 DECODE_GROUPS = (1, 3, 4, 5, 8)
@@ -2455,7 +2794,18 @@ def nan_launches(dev):
     g, locs, coeffs = randn(P), randn(U, P), randn(U, 2)
     buf, out = guarded(P, dev)
     wa.RING_KERNEL.launch("ring_agg_f32", dev, out.data_ptr(), g.data_ptr(),
-                          locs.data_ptr(), coeffs.data_ptr(), P, U, stream)
+                          locs.data_ptr(), coeffs.data_ptr(), P, U, 1, U * P,
+                          stream)
+    (geo,) = KERNEL_CASES[kid].launches()
+    written[kid] = check_written(kid, geo, "out", buf)
+
+    kid = "weighted_agg.ring_agg_worlds"
+    P, U, dt, W = KERNEL_CASES[kid].args
+    g, locs, coeffs = randn(W, P), randn(W, U + 1, P), randn(W, U, 2)
+    buf, out = guarded(W * P, dev)
+    wa.RING_KERNEL.launch("ring_agg_f32", dev, out.data_ptr(), g.data_ptr(),
+                          locs.data_ptr(), coeffs.data_ptr(), P, U, W,
+                          (U + 1) * P, stream)
     (geo,) = KERNEL_CASES[kid].launches()
     written[kid] = check_written(kid, geo, "out", buf)
 
@@ -2704,6 +3054,10 @@ def main() -> int:
     mark("card against CPU (host, corridor, selection, faults)")
     telemetry_chains, telemetry_merges = phase_telemetry()
     mark("telemetry")
+    sweep_chains = phase_sweep()
+    mark("sweep")
+    phase_sweep_vs_cpu()
+    mark("sweep card against CPU")
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
     mark("card against CPU (serve, train)")
@@ -2719,8 +3073,9 @@ def main() -> int:
     # serial handover merges), those under vehicle selection and under
     # fault injection (kept merges only), training's, and telemetry's (none:
     # its corridor worlds reconcile by FedAvg)
-    k1["launches"] += telemetry_chains
+    k1["launches"] += telemetry_chains + sweep_chains
     k1["launches_by_path"]["telemetry"] = telemetry_chains
+    k1["launches_by_path"]["sweep"] = sweep_chains
     k2["launches"] = (host_merges + corridor_merges + selection_merges
                       + fault_merges + train_merges + telemetry_merges)
     k2["launches_by_path"] = {"host engines": host_merges,
@@ -2728,7 +3083,8 @@ def main() -> int:
                               "selection": selection_merges,
                               "faults": fault_merges,
                               "training": train_merges,
-                              "telemetry": telemetry_merges}
+                              "telemetry": telemetry_merges,
+                              "sweep": 0}
     profile_run("corridor-r8-k4000", "corridor", 40, corridor_ms * 40)
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last

@@ -12,6 +12,7 @@ from __future__ import annotations
 # modules a test holds to a clean lint after waivers.
 ENGINE_MODULES = (
     "repro_torch/core/jit_engine.py",
+    "repro_torch/core/sweep.py",
     "repro_torch/corridor/engine.py",
     "repro_torch/core/flat.py",
     "repro_torch/kernels/weighted_agg/ops.py",
@@ -33,6 +34,9 @@ DEVICE_LOOP_FUNCTIONS = {
         "_SlotQueue.pop", "_SlotQueue.upload_delay", "_SlotQueue.admit",
         "_SlotQueue.readmit", "_event_segment", "keep_coeffs",
         "_chain_segment", "_run_program", "_train_wave"),
+    "repro_torch/core/sweep.py": (
+        "_SweepQueue.pop", "_SweepQueue.upload_delay", "_SweepQueue.readmit",
+        "_div_sigma2", "_event_segment", "_train_group", "_run_program"),
     "repro_torch/corridor/engine.py": (
         "_CorridorQueue.pop", "_CorridorQueue.upload_delay",
         "_CorridorQueue.readmit", "_CorridorQueue.wrap",

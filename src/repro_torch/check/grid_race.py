@@ -199,6 +199,9 @@ KERNEL_CASES: dict[str, Case] = {
     "weighted_agg.ring_agg": Case(
         _WA, "ring_agg", "ring_agg", wa_ops.ring_geometry,
         wa_ops.ring_cu_grids, (1152, 2, torch.float32)),
+    "weighted_agg.ring_agg_worlds": Case(
+        _WA, "ring_agg", "ring_agg", wa_ops.ring_geometry,
+        wa_ops.ring_cu_grids, (1152, 2, torch.float32, 3)),
     "cross_entropy.nll_and_lse": Case(
         "repro_torch/kernels/cross_entropy/ops.py", "nll_and_lse",
         "cross_entropy", ce_ops.geometry, ce_ops.cu_grids, (4, 64)),
@@ -234,6 +237,10 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
         "weighted_agg.ring_agg": [
             ("P 422016 U 10 f32", (422016, 10, torch.float32)),
             ("P 422016 U 10 bf16", (422016, 10, torch.bfloat16))],
+        "weighted_agg.ring_agg_worlds": [
+            ("P 422016 U 10 W 5 f32", (422016, 10, torch.float32, 5)),
+            ("P 422016 U 10 W 15 f32", (422016, 10, torch.float32, 15)),
+            ("P 422016 U 10 W 15 bf16", (422016, 10, torch.bfloat16, 15))],
         "cross_entropy.nll_and_lse": [
             ("R 512 V 49152", (512, 49152)),
             ("R 4096 V 49152", (4096, 49152))],

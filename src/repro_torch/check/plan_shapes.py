@@ -8,15 +8,17 @@ on a small fleet and diffs the ndarray fields' ``(shape, dtype)``
 signatures.
 
 The same holds for ``plan_corridor``, for the padded tables of
-``CorridorPlan.tables()`` and for the selection plan's ``[rounds, K]``
-admission tables (``SelectionPlan.tables``), whose ragged ``boundaries``
-source is exactly the kind of data that drifts.  Exempt by design, as in
-``repro``: ``waves`` is a host-side tuple whose length legitimately varies
-by seed (the engine walks it on the host), and ``n_slots`` is a Python int
-sizing the gain table.  The fault plans' padded tables and their
-``i32[rounds, 4]`` counter rows are held the same way under FLT001, for the
-fleet and the corridor planner.  The sweep part of ``repro``'s probe waits
-for the port's item 11.
+``FleetPlan.tables()`` and ``CorridorPlan.tables()`` and for the selection
+plan's ``[rounds, K]`` admission tables (``SelectionPlan.tables``), whose
+ragged ``boundaries`` source is exactly the kind of data that drifts.  The
+sweep tier stacks ``FleetPlan.tables()`` across worlds, so the probe also
+stacks seed-stable selection plans through ``stack_plan_tables``: a
+rejection means the sweep could never mix those seeds in one batch.
+Exempt by design, as in ``repro``: ``waves`` is a host-side tuple whose
+length legitimately varies by seed (the engine walks it on the host), and
+``n_slots`` is a Python int sizing the gain table.  The fault plans' padded
+tables and their ``i32[rounds, 4]`` counter rows are held the same way
+under FLT001, for the fleet and the corridor planner.
 
 FLT001's faults-off probe (:func:`probe_faults_off`) runs here too:
 ``resolve_faults`` must collapse every off spelling to ``None`` and a
@@ -79,14 +81,18 @@ def probe_plan_shapes() -> list[Finding]:
     findings on any layout drift."""
     from repro_torch.channel import ChannelParams
     from repro_torch.core.jit_engine import plan_fleet
+    from repro_torch.core.sweep import stack_plan_tables
     from repro_torch.corridor.plan import plan_corridor
     from repro_torch.selection import SelectionSpec
 
     findings: list[Finding] = []
     p = dataclasses.replace(ChannelParams(), K=5)
-    sigs = {s: _signature(plan_fleet(p, seed=s, rounds=12))
-            for s in _PROBE_SEEDS}
+    plans = {s: plan_fleet(p, seed=s, rounds=12) for s in _PROBE_SEEDS}
+    sigs = {s: _signature(plan) for s, plan in plans.items()}
     _diff("plan_fleet", sigs, findings, "<probe:plan_fleet>")
+    sigs = {s: _tables_signature(plan.tables())
+            for s, plan in plans.items()}
+    _diff("FleetPlan.tables", sigs, findings, "<probe:plan_fleet>")
 
     plans = {s: plan_corridor(p, n_rsus=2, seed=s, rounds=12)
              for s in _PROBE_SEEDS}
@@ -96,10 +102,21 @@ def probe_plan_shapes() -> list[Finding]:
     _diff("CorridorPlan.tables", sigs, findings, "<probe:plan_corridor>")
 
     spec = SelectionSpec(policy="weighted-topk", k=3, resel_every=4)
-    sigs = {s: _tables_signature(
-        plan_fleet(p, seed=s, rounds=12, selection=spec).sel.tables(12))
-        for s in _PROBE_SEEDS}
+    sel_plans = [plan_fleet(p, seed=s, rounds=12, selection=spec)
+                 for s in _PROBE_SEEDS]
+    sigs = {s: _tables_signature(plan.sel.tables(12))
+            for s, plan in zip(_PROBE_SEEDS, sel_plans)}
     _diff("SelectionPlan.tables", sigs, findings, "<probe:selection>")
+
+    # and the stacked batch itself: stack_plan_tables re-validates every
+    # key's (shape, dtype), so a rejection of seed-stable plans means the
+    # sweep tier could never mix these seeds in one world batch
+    try:
+        stack_plan_tables([plan.tables() for plan in sel_plans])
+    except ValueError as e:
+        findings.append(Finding(
+            "PLN003", "<probe:stack_plan_tables>", 0,
+            f"stack_plan_tables rejected seed-stable plans: {e}"))
 
     # fault-table shape stability (FLT001): the padded fault tables and the
     # counter rows depend only on (rounds, K, l_iters), never on the seed

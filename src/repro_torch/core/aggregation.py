@@ -82,16 +82,25 @@ def chain_coeffs(scheme: str, interpretation: str, beta, weight,
     segment's trace columns on the device; the pairs come back as two
     tensors beside them.  The f32 expressions and their order are those of
     ``repro.core.aggregation.chain_coeffs``, with ``beta`` rounded to f32
-    first: ``1 - f32(beta)`` etc."""
-    b = np.float32(beta)
-    one_minus_b = float(np.float32(1.0) - b)
+    first: ``1 - f32(beta)`` etc.  The sweep tier passes a ``beta`` that
+    varies across its worlds as an f32 ``[W, 1]`` column beside ``[W, n]``
+    columns: the same f32 values and roundings, world by world."""
+    if isinstance(beta, torch.Tensor):
+        b, one_minus_b = beta, 1.0 - beta
+    else:
+        b = np.float32(beta)
+        one_minus_b = float(np.float32(1.0) - b)
     weight = weight.float()
     if scheme == "mafl" and interpretation == "literal":
-        return torch.full_like(weight, float(b)), weight * one_minus_b
+        c = (b.expand_as(weight) if isinstance(b, torch.Tensor)
+             else torch.full_like(weight, float(b)))
+        return c, weight * one_minus_b
     if scheme == "mafl":
         alpha = torch.clamp(weight * one_minus_b, 0.0, 1.0)
     elif scheme == "afl":
-        alpha = torch.full_like(weight, one_minus_b)
+        alpha = (one_minus_b.expand_as(weight)
+                 if isinstance(one_minus_b, torch.Tensor)
+                 else torch.full_like(weight, one_minus_b))
     elif scheme == "fedasync":
         stale = torch.clamp_min(t.float() - dl_t.float(), 0.0)
         alpha = torch.pow(stale + 1.0, -0.5) * float(np.float32(fedasync_mix))

@@ -46,7 +46,9 @@ eagerly on the card.
 Times on the device are f32.  The timeline never depends on training, so
 an f64 host dry run (:func:`plan_fleet`) fixes the pop order, the waves and
 one minibatch stack per round, and afterwards cross-checks the device
-trace: any divergence raises.
+trace: any divergence raises.  The sweep tier (``core/sweep.py``,
+``engine="vmap"``) runs this loop over a leading world axis and stacks
+each world's :meth:`FleetPlan.tables`.
 """
 from __future__ import annotations
 
@@ -96,6 +98,44 @@ class FleetPlan:
     sel: object = None          # SelectionPlan, or None without selection
     sel_bandit: object = None   # (rew_sum, rew_cnt) f64 the bandit guard reads
     flt: object = None          # FaultPlan, or None without faults
+
+    def tables(self) -> dict:
+        """Fixed-shape padded plan tables for the multi-world sweep tier
+        (DESIGN.md §15): every array's shape depends only on ``(M, K)`` —
+        never on the seed — so per-world tables stack along a leading
+        world axis (``repro_torch.core.sweep.stack_plan_tables``; PLN003
+        probes the stability).  The ragged ``waves`` tuple is re-encoded as
+        two per-round columns: ``train_round[r]`` = the wave start at which
+        consumed upload ``r`` trains, ``seg_end[r]`` = the end of the
+        segment containing pop ``r``.  ``n_slots`` pads as a value, not a
+        shape — the sweep engine zero-pads the gain tables to the batch
+        maximum."""
+        M = len(self.veh)
+        train_round = np.full(M, -1, np.int32)
+        seg_end = np.zeros(M, np.int32)
+        for T, s, e in self.waves:
+            for t in T:
+                train_round[t] = s
+            seg_end[s:e] = e
+        return {
+            "veh": np.asarray(self.veh, np.int32),
+            "cycle": np.asarray(self.cycle, np.int32),
+            "dl_round": np.asarray(self.dl_round, np.int32),
+            "times": np.asarray(self.times, np.float64),
+            "train_delay": np.asarray(self.train_delay, np.float64),
+            "upload_delay": np.asarray(self.upload_delay, np.float64),
+            "download_time": np.asarray(self.download_time, np.float64),
+            "train_round": train_round,
+            "seg_end": seg_end,
+            "n_slots": np.asarray(self.n_slots, np.int32),
+            "q0_time": np.asarray(self.q0["time"], np.float64),
+            "q0_download_time": np.asarray(self.q0["download_time"],
+                                           np.float64),
+            "q0_upload_delay": np.asarray(self.q0["upload_delay"],
+                                          np.float64),
+            "q0_train_delay": np.asarray(self.q0["train_delay"],
+                                         np.float64),
+        }
 
 
 def plan_fleet(p: ChannelParams, seed: int, rounds: int,
@@ -625,6 +665,19 @@ def _stage_arrays(vehicles_data, p: ChannelParams, plan, *, l_iters, lr,
     once."""
     w0 = (init_params if init_params is not None
           else init_cnn(torch.Generator().manual_seed(seed), device=device))
+    imgs, labs = stage_minibatches(vehicles_data, plan, l_iters=l_iters,
+                                   lr=lr, seed=seed, batch_size=batch_size,
+                                   device=device)
+    gains = torch.from_numpy(slot_gain_table(p, seed, plan.n_slots)
+                             .astype(np.float32)).to(device)
+    return w0, imgs, labs, gains
+
+
+def stage_minibatches(vehicles_data, plan, *, l_iters, lr, seed,
+                      batch_size, device):
+    """One minibatch stack per round of ``plan`` (``[M, l, b, ...]``
+    images and labels), drawn from the per-vehicle RNG streams in pop
+    order, then copied to ``device`` once."""
     fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
     clients = [Vehicle(d, lr=lr, batch_size=fleet_batch, seed=seed,
                        device=device) for d in vehicles_data]
@@ -635,9 +688,7 @@ def _stage_arrays(vehicles_data, p: ChannelParams, plan, *, l_iters, lr,
         lab_list.append(lab)
     imgs = torch.from_numpy(np.stack(im_list)).to(device)
     labs = torch.from_numpy(np.stack(lab_list).astype(np.int64)).to(device)
-    gains = torch.from_numpy(slot_gain_table(p, seed, plan.n_slots)
-                             .astype(np.float32)).to(device)
-    return w0, imgs, labs, gains
+    return imgs, labs
 
 
 def run_simulation_jit(

@@ -2,19 +2,25 @@
 
 The full registry of ``repro.core.scenarios``, as data, so every named world
 builds identically in both packages.  ``run_scenario`` runs the single-RSU
-worlds on the host engines (``serial`` and ``batched``) and on the device
-fleet engine (``jit``, with the bf16 ring where the world asks for it), and
-the multi-RSU corridor worlds on the device corridor engine (``corridor``)
-and the serial handover loop (``serial``), vehicle selection and fault
-injection included; the sweep engine (``engine="vmap"``) raises with the
-name of the slice of the port it waits for.
+worlds on the host engines (``serial`` and ``batched``), on the device
+fleet engine (``jit``, with the bf16 ring where the world asks for it) and
+as a one-world batch of the sweep engine (``vmap``), and the multi-RSU
+corridor worlds on the device corridor engine (``corridor``) and the
+serial handover loop (``serial``), vehicle selection and fault injection
+included.  :class:`SweepSpec` and :func:`run_sweep` run a grid of worlds
+over one base scenario as one batch (``core/sweep.py``), or one by one on
+``jit``.
 
-    from repro_torch.core.scenarios import run_scenario
+    from repro_torch.core.scenarios import SweepSpec, run_scenario, run_sweep
     result = run_scenario("paper-k10", use_kernel=True)     # on the card
     result = run_scenario("fleet-k10000")       # fleet engine, bf16 ring
     result = run_scenario("corridor-r8-k4000")  # corridor engine
     result = run_scenario("fleet-k1000-topk", K=40, device="cpu")
     result = run_scenario("fleet-k1000-flaky", rounds=10, device="cpu")
+    results = run_sweep(SweepSpec(             # Fig. 5: 5 betas x 3 seeds
+        scenario="paper-k10", seeds=(0, 1, 2),
+        variants=tuple((("channel_overrides", (("beta", b),)),)
+                       for b in (0.1, 0.3, 0.5, 0.7, 0.9))))
 """
 from __future__ import annotations
 
@@ -316,17 +322,18 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
     reaches the device engines (``None`` = their default, flat on).  The
     world's fault profile (``faults`` with ``faults_overrides``) is
     resolved once and handed to every engine.  ``metrics`` reaches every
-    engine; the result's ``report`` carries the scenario's name."""
+    engine; the result's ``report`` carries the scenario's name.
+    ``engine="vmap"`` runs the world as a one-world sweep batch
+    (``core/sweep.py``), which has no ``use_kernel``, ``mesh``,
+    ``record_cohorts`` or ``flat=False`` and raises on them, on fault
+    worlds and on metrics, as ``repro`` does."""
     device = resolve_device(device)
     sc = get_scenario(scenario) if isinstance(scenario, str) else scenario
     if overrides:
         sc = dataclasses.replace(sc, **overrides)
-    if engine == "vmap":
-        raise unported("engine='vmap'", "sweep (item 11)")
-    if mesh is not None:
-        raise unported("mesh sharding", "distribution (item 13)")
     flt = scenario_faults(sc)
-    if sc.ring_dtype != "f32" and (engine not in (None, "jit", "corridor")
+    if sc.ring_dtype != "f32" and (engine not in (None, "jit", "corridor",
+                                                  "vmap")
                                    or flat is False):
         raise ValueError(
             f"ring_dtype={sc.ring_dtype!r} needs the flat fast path of a "
@@ -345,10 +352,30 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
             raise ValueError(
                 f"engine {eng!r} needs a multi-RSU corridor scenario; "
                 f"{sc.name!r} has a single RSU — use one of {ENGINES}")
-        if eng not in ENGINES:
+        if eng not in ENGINES and eng != "vmap":
             raise ValueError(
-                f"unknown engine {eng!r}; expected one of {ENGINES} "
-                f"(single-RSU) or {CORRIDOR_ENGINES} (multi-RSU)")
+                f"unknown engine {eng!r}; expected one of {ENGINES} or "
+                f"'vmap' (single-RSU) or {CORRIDOR_ENGINES} (multi-RSU)")
+    if eng == "vmap":
+        # a W = 1 sweep batch (DESIGN.md §15): every channel scalar is
+        # batch-uniform, so the world runs the fleet engine's loop op for op
+        if use_kernel or mesh is not None or record_cohorts:
+            raise ValueError(
+                "engine='vmap' has no use_kernel/mesh/record_cohorts: "
+                "the sweep tier compiles the flat in-scan program only "
+                "(DESIGN.md §15) — run the world solo with engine='jit'")
+        if flat is False:
+            raise ValueError(
+                "engine='vmap' is flat-only: the world axis lives on the "
+                "packed [W, P] buffer (DESIGN.md §15)")
+        from repro_torch.core.sweep import run_simulation_vmap
+        cb = None if progress is None else (
+            lambda _w, rr, acc: progress(rr, acc))
+        return _stamp(run_simulation_vmap(
+            [(sc, seed)], eval_every=eval_every, metrics=metrics,
+            progress=cb, device=device)[0], sc)
+    if mesh is not None:
+        raise unported("mesh sharding", "distribution (item 13)")
     veh, te_i, te_l, p = build_world(sc, seed=seed)
     if sc.n_rsus > 1:
         from repro_torch.corridor import (run_corridor_simulation,
@@ -382,3 +409,70 @@ def _stamp(result: SimResult, sc: Scenario) -> SimResult:
     """Stamp the scenario name onto the run's telemetry report."""
     result.report.scenario = sc.name
     return result
+
+
+# ---------------------------------------------------------------------------
+# multi-world sweeps (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SweepSpec:
+    """A grid of worlds over one base scenario.
+
+    ``variants`` is a tuple of override-sets — each itself a tuple of
+    ``(field, value)`` pairs applied to the base scenario with
+    ``dataclasses.replace`` (so e.g. a beta ablation is
+    ``variants=tuple((("channel_overrides", (("beta", b),)),)
+    for b in BETAS)``) — and every variant runs at every seed.
+    World order is variant-major: ``w = i_variant * len(seeds) + i_seed``.
+    ``overrides`` apply to the base scenario before the variants do."""
+    scenario: object = "paper-k10"        # name or Scenario
+    seeds: tuple = (0,)
+    variants: tuple = ((),)
+    overrides: tuple = ()
+    eval_every: int = 10
+
+    def worlds(self) -> list:
+        """The grid as ``[(Scenario, seed), ...]``, variant-major."""
+        sc = (get_scenario(self.scenario)
+              if isinstance(self.scenario, str) else self.scenario)
+        if self.overrides:
+            sc = dataclasses.replace(sc, **dict(self.overrides))
+        out = []
+        for var in self.variants:
+            sc_v = dataclasses.replace(sc, **dict(var)) if var else sc
+            for seed in self.seeds:
+                out.append((sc_v, int(seed)))
+        return out
+
+
+def run_sweep(spec: SweepSpec, *, engine: str = "vmap", progress=None,
+              device=None) -> list[SimResult]:
+    """Run every world of ``spec`` on ``device`` (``None`` -> the card);
+    returns per-world ``SimResult``s in variant-major order, each stamped
+    with its scenario and carrying its engine's ``RunReport``.
+
+    ``engine="vmap"`` (the default) runs the whole grid as one batch of
+    the sweep engine (``core/sweep.py``); ``engine="jit"`` runs the same
+    worlds one by one through the solo fleet engine: the conformance
+    oracle and the baseline.  ``progress`` fires after each run as
+    ``progress(world_index, round, acc)`` under either engine."""
+    device = resolve_device(device)
+    worlds = spec.worlds()
+    if engine == "vmap":
+        from repro_torch.core.sweep import run_simulation_vmap
+        results = run_simulation_vmap(worlds, eval_every=spec.eval_every,
+                                      progress=progress, device=device)
+    elif engine == "jit":
+        results = []
+        for w, (sc, seed) in enumerate(worlds):
+            cb = None if progress is None else (
+                lambda rr, acc, _w=w: progress(_w, rr, acc))
+            results.append(run_scenario(sc, seed=seed, engine="jit",
+                                        eval_every=spec.eval_every,
+                                        progress=cb, device=device))
+    else:
+        raise ValueError(
+            f"run_sweep engine must be 'vmap' or 'jit', not {engine!r}")
+    for (sc, _seed), r in zip(worlds, results):
+        _stamp(r, sc)
+    return results

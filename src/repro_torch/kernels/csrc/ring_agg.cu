@@ -3,10 +3,14 @@
 //     acc <- c_u * acc + d_u * locs[u]      for u = 0 .. U-1,  acc = g
 //     out  = acc
 //
-// over a packed [P] parameter buffer, in f32.  g and out are f32; the U
-// upload rows locs[u] are f32 or bf16 (exports ring_agg_f32 and
-// ring_agg_bf16); coeffs is a device array of U (c, d) f32 pairs, so the
-// host never reads a coefficient.
+// over a packed [P] parameter buffer, in f32, for each of W independent
+// worlds at once (the sweep tier's world axis; W = 1 is the fleet and
+// corridor engines' chain).  g and out are f32 [W, P]; the U upload rows
+// of world w, locs[w][u], are f32 or bf16 (exports ring_agg_f32 and
+// ring_agg_bf16), P apart, with world w's rows starting w * ldw elements
+// in (ldw >= U * P, a multiple of P: a [W, U, P] view of a [W, M, P] upload
+// buffer is passed without a copy); coeffs is a device array of W * U
+// (c, d) f32 pairs, so the host never reads a coefficient.
 //
 // Replaces the TPU kernel src/repro/kernels/weighted_agg/kernel.py:ring_agg_2d
 // (body _make_ring_kernel, pallas_call at :113).  That kernel keeps the
@@ -17,9 +21,10 @@
 //
 // Bound: memory.  A chain reads g once (4 B/element), each upload row once
 // (s = 4 or 2 B/element) and writes out once (4 B/element): (8 + U*s)*P
-// bytes, plus 8*U bytes of coefficients, for 3*U*P flops.  At U = 10 and the
-// paper CNN's P = 422,016 that is 20.26 MB in f32 (6.05 us at 3.35 TB/s) and
-// 11.82 MB with bf16 uploads (3.53 us); 12.7 MFLOP is 0.19 us at 67 TFLOP/s.
+// bytes, plus 8*U bytes of coefficients, for 3*U*P flops, per world.  At
+// U = 10 and the paper CNN's P = 422,016 that is 20.26 MB in f32 (6.05 us
+// at 3.35 TB/s) and 11.82 MB with bf16 uploads (3.53 us); 12.7 MFLOP is
+// 0.19 us at 67 TFLOP/s.  W worlds move W times the bytes in one launch.
 //
 // Design: a pack is 16 bytes of an upload row (4 f32 or 8 bf16 elements,
 // and the same elements of g and out).
@@ -41,6 +46,10 @@
 //     the streaming cache operator (__ldcs, evict-first): with default
 //     caching the deeper loads were no faster than one pack a thread; g
 //     and out keep the default, which timed better.
+//   - The world axis is the grid's y axis: block (i, w) runs block i's
+//     run of world w, so each world's arithmetic, grid and runs are the
+//     one-world launch's on its slices, bit for bit, and W = 1 is that
+//     launch.
 //   - Coefficients are staged in shared memory in tiles of up to 1024
 //     pairs.  Every row is P elements apart and P % 128 == 0, so an aligned
 //     base (checked by the wrapper) aligns every row.  The loop runs
@@ -114,10 +123,15 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 ring_agg_kernel(float* __restrict__ out, const float* __restrict__ g,
                 const T* __restrict__ locs, const float2* __restrict__ coeffs,
-                int64_t P, int64_t U) {
+                int64_t P, int64_t U, int64_t ldw) {
   constexpr int E = Row<T>::kElems;
   using Raw = typename Row<T>::Raw;
   __shared__ float2 coef[kCoefTile];
+  const int64_t w = blockIdx.y;      // the world: its own slices throughout
+  out += w * P;
+  g += w * P;
+  locs += w * ldw;
+  coeffs += w * U;
   int64_t lo, hi;
   run_of(P / E, gridDim.x, blockIdx.x, lo, hi);
   int64_t first[kPacks];
@@ -180,18 +194,26 @@ ring_agg_kernel(float* __restrict__ out, const float* __restrict__ g,
   }
 }
 
+// The launch's grid for W worlds of P elements with upload rows of
+// elem_bytes bytes: x the balanced blocks of one world, y the worlds.
+inline dim3 ring_grid(int64_t P, int elem_bytes, int64_t W) {
+  return dim3(static_cast<unsigned>(grid_blocks(P / (16 / elem_bytes))),
+              static_cast<unsigned>(W), 1);
+}
+
 template <typename T>
 int launch(int device, void* out, const void* g, const void* locs,
-           const void* coeffs, int64_t P, int64_t U, void* stream) {
+           const void* coeffs, int64_t P, int64_t U, int64_t W, int64_t ldw,
+           void* stream) {
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = grid_blocks(P / Row<T>::kElems);
-  ring_agg_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+  ring_agg_kernel<T><<<ring_grid(P, sizeof(T), W), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), static_cast<const float*>(g),
-      static_cast<const T*>(locs), static_cast<const float2*>(coeffs), P, U);
+      static_cast<const T*>(locs), static_cast<const float2*>(coeffs), P, U,
+      ldw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,26 +222,32 @@ int launch(int device, void* out, const void* g, const void* locs,
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).  The
-// caller guarantees P % 128 == 0, U >= 1, 16-byte aligned g/locs/out and
-// 8-byte aligned coeffs.
+// caller guarantees P % 128 == 0, U >= 1, 1 <= W <= 65535, ldw a multiple
+// of P of at least U * P, 16-byte aligned g/locs/out and 8-byte aligned
+// coeffs.
 int ring_agg_f32(int device, void* out, const void* g, const void* locs,
-                 const void* coeffs, int64_t P, int64_t U, void* stream) {
-  return launch<float>(device, out, g, locs, coeffs, P, U, stream);
+                 const void* coeffs, int64_t P, int64_t U, int64_t W,
+                 int64_t ldw, void* stream) {
+  return launch<float>(device, out, g, locs, coeffs, P, U, W, ldw, stream);
 }
 
 int ring_agg_bf16(int device, void* out, const void* g, const void* locs,
-                  const void* coeffs, int64_t P, int64_t U, void* stream) {
-  return launch<__nv_bfloat16>(device, out, g, locs, coeffs, P, U, stream);
+                  const void* coeffs, int64_t P, int64_t U, int64_t W,
+                  int64_t ldw, void* stream) {
+  return launch<__nv_bfloat16>(device, out, g, locs, coeffs, P, U, W, ldw,
+                               stream);
 }
 
-// Host only: the grid launch<T> computes for a [P] buffer with upload rows
-// of elem_bytes bytes (4: f32, 2: bf16), as grid3 = (x, y, z).  Launches
-// nothing.
-int ring_agg_geometry(int64_t P, int elem_bytes, int64_t* grid3) {
-  if (elem_bytes != 4 && elem_bytes != 2) return cudaErrorInvalidValue;
-  grid3[0] = grid_blocks(P / (16 / elem_bytes));
-  grid3[1] = 1;
-  grid3[2] = 1;
+// Host only: the grid launch<T> computes for W worlds of a [P] buffer with
+// upload rows of elem_bytes bytes (4: f32, 2: bf16), as grid3 = (x, y, z).
+// Launches nothing.
+int ring_agg_geometry(int64_t P, int elem_bytes, int64_t W, int64_t* grid3) {
+  if ((elem_bytes != 4 && elem_bytes != 2) || W < 1 || W > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid = ring_grid(P, elem_bytes, W);
+  grid3[0] = grid.x;
+  grid3[1] = grid.y;
+  grid3[2] = grid.z;
   return 0;
 }
 

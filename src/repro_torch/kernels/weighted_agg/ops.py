@@ -4,10 +4,11 @@
 ``weighted_agg_tree`` mixes every leaf of two param dicts with the same
 keys into one flat output buffer per dtype and returns views of it;
 ``weighted_agg`` is a table of one leaf.  ``ring_agg`` streams a chain of U
-mixes over packed ``[P]`` buffers (the fleet engine's aggregation).  On a
-CPU tensor each wrapper runs its plain version (``ref``); on a CUDA tensor
-it launches its kernel — one launch per ``MAX_LEAVES`` leaves of a dtype,
-or per chain — or raises.
+mixes over packed ``[P]`` buffers (the fleet engine's aggregation), or over
+``[W, P]`` buffers, one chain per world in one launch (the sweep tier's).
+On a CPU tensor each wrapper runs its plain version (``ref``); on a CUDA
+tensor it launches its kernel — one launch per ``MAX_LEAVES`` leaves of a
+dtype, or per chain of all worlds — or raises.
 """
 from __future__ import annotations
 
@@ -44,17 +45,18 @@ KERNEL = CudaKernel("weighted_agg", "weighted_agg.cu",
                      "weighted_agg_geometry": [_INT64S, ctypes.c_int,
                                                ctypes.c_int, GRIDS_ARG]})
 
-# (device, out, g, locs, coeffs, P, U, stream)
+# (device, out, g, locs, coeffs, P, U, W, ldw, stream)
 _RING_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-              ctypes.c_int64, ctypes.c_void_p]
+              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+              ctypes.c_void_p]
 _RING_EXPORTS = {torch.float32: "ring_agg_f32",
                  torch.bfloat16: "ring_agg_bf16"}
 
 RING_KERNEL = CudaKernel("ring_agg", "ring_agg.cu",
                          {**{fn: _RING_ARGS for fn in _RING_EXPORTS.values()},
                           "ring_agg_geometry": [ctypes.c_int64, ctypes.c_int,
-                                                GRIDS_ARG]})
+                                                ctypes.c_int64, GRIDS_ARG]})
 
 
 def flat_layout(sizes, dtype) -> tuple[list[int], int]:
@@ -113,15 +115,17 @@ def cu_grids(sizes, dtype) -> list[tuple]:
                         dtype.itemsize)
 
 
-def ring_geometry(P: int, U: int, dtype) -> list[LaunchGeometry]:
-    """The launch of ``ring_agg`` over a ``[P]`` buffer and U upload rows
-    of ``dtype`` (``csrc/ring_agg.cu:launch``): the fewest multiples of
-    ``SMS`` blocks that hold the ``P / elems`` 16-byte upload packs
-    (``elems = 16 / itemsize``) at ``THREADS * RING_PACKS`` a block
-    (``grid_blocks``); block ``i`` owns one contiguous run of packs, the
-    runs in block order and differing by at most one pack (``run_of``),
-    for the whole chain, and stores exactly those elements of ``out``.
-    ``U == 0`` launches nothing."""
+def ring_geometry(P: int, U: int, dtype, W: int = 1) -> list[LaunchGeometry]:
+    """The launch of ``ring_agg`` over W worlds of a ``[P]`` buffer and U
+    upload rows of ``dtype`` (``csrc/ring_agg.cu:launch``): on x, the
+    fewest multiples of ``SMS`` blocks that hold the ``P / elems`` 16-byte
+    upload packs (``elems = 16 / itemsize``) at ``THREADS * RING_PACKS`` a
+    block (``grid_blocks``), on y the W worlds; block ``(i, w)`` owns one
+    contiguous run of world w's packs, the runs in block order and
+    differing by at most one pack (``run_of``), for the whole chain, and
+    stores exactly those elements of world w's row of the ``[W, P]``
+    ``out``.  ``U == 0`` launches nothing; ``W == 1`` is a one-axis grid
+    (the y extent 1)."""
     if U == 0:
         return []
     elems = 16 // dtype.itemsize
@@ -132,16 +136,18 @@ def ring_geometry(P: int, U: int, dtype) -> list[LaunchGeometry]:
     def ranges(block):
         lo = block[0] * per + min(block[0], extra)
         hi = lo + per + (block[0] < extra)
-        return [(lo * elems, hi * elems)]
-    return [LaunchGeometry("ring_agg_kernel", (blocks,), THREADS,
-                           {"out": Output(P, ranges)})]
+        base = (block[1] if len(block) > 1 else 0) * P
+        return [(base + lo * elems, base + hi * elems)]
+    grid = (blocks,) if W == 1 else (blocks, W)
+    return [LaunchGeometry("ring_agg_kernel", grid, THREADS,
+                           {"out": Output(W * P, ranges)})]
 
 
-def ring_cu_grids(P: int, U: int, dtype) -> list[tuple]:
+def ring_cu_grids(P: int, U: int, dtype, W: int = 1) -> list[tuple]:
     """The grids ``csrc/ring_agg.cu`` computes for the same arguments."""
     if U == 0:
         return []
-    return RING_KERNEL.grids("ring_agg_geometry", 1, P, dtype.itemsize)
+    return RING_KERNEL.grids("ring_agg_geometry", 1, P, dtype.itemsize, W)
 
 
 def weighted_agg(g, l, beta: float, weight: float):
@@ -250,52 +256,74 @@ def weighted_agg_tree(global_params, local_params, beta: float,
 
 
 def _check_ring_inputs(g, locs, coeffs) -> tuple:
-    """``(device, upload dtype, U, P)`` of a chain; raises on anything the
-    kernel does not take.  Each tensor attribute is read once: this runs
-    on every chain of the fleet engine."""
+    """``(device, upload dtype, W, U, P, ldw)`` of a chain (``W = 1`` for
+    the one-world form, ``ldw`` the world stride of ``locs`` in elements);
+    raises on anything the kernel does not take.  Each tensor attribute is
+    read once: this runs on every chain of the device engines."""
     g_shape, g_dtype = g.shape, g.dtype
     g_contiguous = g.is_contiguous()
-    if g_dtype != torch.float32 or len(g_shape) != 1 or not g_contiguous:
+    nd = len(g_shape)
+    if g_dtype != torch.float32 or nd not in (1, 2) or not g_contiguous:
         raise ValueError(
-            f"ring_agg: g must be a contiguous f32 [P] buffer; got "
-            f"{tuple(g_shape)} {g_dtype} contiguous={g_contiguous}")
-    P = g_shape[0]
+            f"ring_agg: g must be a contiguous f32 [P] or [W, P] buffer; "
+            f"got {tuple(g_shape)} {g_dtype} contiguous={g_contiguous}")
+    P = g_shape[-1]
+    W = g_shape[0] if nd == 2 else 1
     if P % LANE:
         raise ValueError(f"ring_agg: P={P} is not a multiple of {LANE} "
                          "(a ParamLayout buffer)")
     l_shape, l_dtype = locs.shape, locs.dtype
-    if len(l_shape) != 2 or l_shape[1] != P:
-        raise ValueError(f"ring_agg: locs must be [U, {P}]; got "
+    want = f"[U, {P}]" if nd == 1 else f"[{W}, U, {P}]"
+    if (len(l_shape) != nd + 1 or l_shape[-1] != P
+            or (nd == 2 and l_shape[0] != W)):
+        raise ValueError(f"ring_agg: locs must be {want}; got "
                          f"{tuple(l_shape)}")
     if l_dtype not in _RING_EXPORTS:
         raise TypeError(f"ring_agg: locs dtype {l_dtype}; expected one "
                         f"of {list(_RING_EXPORTS)}")
-    if not locs.is_contiguous():
+    U = l_shape[-2]
+    l_stride = locs.stride()
+    if U and (l_stride[-1] != 1 or (U > 1 and l_stride[-2] != P)):
         raise ValueError("ring_agg: locs must be contiguous rows")
-    U = l_shape[0]
+    ldw = U * P
+    if W > 1 and U:
+        ldw = l_stride[0]
+        if ldw % P or ldw < U * P:
+            raise ValueError(
+                f"ring_agg: the world stride of locs ({ldw}) must be a "
+                f"multiple of P={P} of at least U*P={U * P}")
     c_shape, c_dtype = coeffs.shape, coeffs.dtype
     c_contiguous = coeffs.is_contiguous()
-    if c_dtype != torch.float32 or c_shape != (U, 2) or not c_contiguous:
+    c_want = (U, 2) if nd == 1 else (W, U, 2)
+    if c_dtype != torch.float32 or c_shape != c_want or not c_contiguous:
         raise ValueError(
-            f"ring_agg: coeffs must be a contiguous f32 [{U}, 2] tensor; "
-            f"got {tuple(c_shape)} {c_dtype} contiguous={c_contiguous}")
+            f"ring_agg: coeffs must be a contiguous f32 {list(c_want)} "
+            f"tensor; got {tuple(c_shape)} {c_dtype} "
+            f"contiguous={c_contiguous}")
     device, l_device, c_device = g.device, locs.device, coeffs.device
     if not device == l_device == c_device:
         raise ValueError(f"ring_agg: g, locs and coeffs on {device}, "
                          f"{l_device}, {c_device}")
-    return device, l_dtype, U, P
+    return device, l_dtype, W, U, P, ldw
 
 
 def ring_agg(g, locs, coeffs):
     """Fused multi-upload chain over packed flat buffers (DESIGN.md §12):
     ``acc <- c_u*acc + d_u*locs[u]`` for u = 0..U-1 from ``acc = g``, in
-    f32; returns a new f32 ``[P]`` tensor and never writes its inputs.
+    f32; returns a new f32 tensor of ``g``'s shape and never writes its
+    inputs.
 
-    ``g``: contiguous f32 ``[P]``, ``P % 128 == 0``; ``locs``: contiguous
-    ``[U, P]`` f32 or bf16; ``coeffs``: contiguous f32 ``[U, 2]`` of
-    ``(c, d)`` pairs on the same device (the host never reads them).
-    ``U == 0`` returns a copy of ``g`` and launches nothing."""
-    device, dtype, U, P = _check_ring_inputs(g, locs, coeffs)
+    One world: ``g`` contiguous f32 ``[P]``, ``P % 128 == 0``; ``locs``
+    ``[U, P]`` f32 or bf16 with contiguous rows; ``coeffs`` contiguous f32
+    ``[U, 2]`` of ``(c, d)`` pairs.  A world axis (the sweep tier): ``g``
+    ``[W, P]``, ``locs`` ``[W, U, P]`` whose world stride may be any
+    multiple of ``P`` of at least ``U * P`` (a ``[:, a:b]`` view of a
+    ``[W, M, P]`` upload buffer, never copied), ``coeffs`` ``[W, U, 2]``:
+    world ``w``'s chain is the one-world chain on its slices, bit for bit,
+    and all W run in one launch.  All on one device (the host never reads
+    a coefficient).  ``U == 0`` returns a copy of ``g`` and launches
+    nothing."""
+    device, dtype, W, U, P, ldw = _check_ring_inputs(g, locs, coeffs)
     if U == 0:
         return g.to(torch.float32, copy=True)
     if device.type == "cpu":
@@ -303,15 +331,16 @@ def ring_agg(g, locs, coeffs):
     if device.type != "cuda":
         raise ValueError(f"ring_agg: unsupported device {device}")
     out = torch.empty_like(g)
-    # 16-byte packs of g, locs rows and out; 8-byte (c, d) pairs.  Rows are
-    # P apart with P % 128 == 0, so an aligned base aligns every row.
+    # 16-byte packs of g, locs rows and out; 8-byte (c, d) pairs.  Rows and
+    # worlds are multiples of P apart with P % 128 == 0, so an aligned base
+    # aligns every row.
     pg, pl, po, pc = (g.data_ptr(), locs.data_ptr(), out.data_ptr(),
                       coeffs.data_ptr())
     if (pg | pl | po) & 15 or pc & 7:
         raise ValueError("ring_agg: g and locs must start 16-byte aligned "
                          "and coeffs 8-byte aligned")
     RING_KERNEL.launch(_RING_EXPORTS[dtype], device, po, pg, pl, pc, P,
-                       U, current_stream(device))
+                       U, W, ldw, current_stream(device))
     return out
 
 

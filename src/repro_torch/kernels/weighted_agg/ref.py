@@ -30,14 +30,18 @@ def weighted_agg(g, l, beta: float, weight: float):
 def ring_agg(g, locs, coeffs):
     """The fused multi-upload chain: ``g`` ``[P]``, ``locs`` ``[U, P]``
     (f32 or bf16), ``coeffs`` ``f32[U, 2]`` of per-upload ``(c, d)``
-    pairs.  Applies the U mixes in order,
+    pairs, or the same with a leading world axis (``[W, P]``, ``[W, U,
+    P]``, ``[W, U, 2]``).  Applies the U mixes in order,
 
         acc <- c_u * acc + d_u * locs[u]        (f32)
 
     from ``acc = g``, and returns ``acc`` as a new f32 tensor.  Eager: each
     multiply and the add round on their own (no FMA), so on the card this
-    is bitwise the CUDA kernel."""
+    is bitwise the CUDA kernel.  Over a world axis every element sees the
+    same three roundings as in its own world's chain, so world ``w`` is
+    bitwise ``ring_agg(g[w], locs[w], coeffs[w])``."""
     acc = g.to(torch.float32, copy=True)
-    for u in range(locs.shape[0]):
-        acc = coeffs[u, 0] * acc + coeffs[u, 1] * locs[u].float()
+    for u in range(locs.shape[-2]):
+        acc = (coeffs[..., u, 0, None] * acc
+               + coeffs[..., u, 1, None] * locs[..., u, :].float())
     return acc

@@ -76,7 +76,7 @@ FLEET_WEIGHT_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_PARAM_TOL = dict(rtol=0.0, atol=1e-2)
 
 
-def assert_fleet_conforms(jres, tres, bf16: bool = False):
+def assert_fleet_conforms(jres, tres, bf16: bool = False, param_tol=None):
     assert ([(r.round, r.vehicle) for r in jres.rounds]
             == [(r.round, r.vehicle) for r in tres.rounds])
     for a, b in zip(jres.rounds, tres.rounds):
@@ -89,7 +89,7 @@ def assert_fleet_conforms(jres, tres, bf16: bool = False):
         assert tres.final_params[k].device.type == "cpu"
         np.testing.assert_allclose(
             tnp[k], np.asarray(v), err_msg=k,
-            **(BF16_PARAM_TOL if bf16 else PARAM_TOL))
+            **(param_tol or (BF16_PARAM_TOL if bf16 else PARAM_TOL)))
     assert [r for r, _ in jres.acc_history] == [r for r, _ in
                                                 tres.acc_history]
     for (_, a), (_, b) in zip(jres.acc_history, tres.acc_history):

@@ -974,6 +974,7 @@ def test_racy_sum_one_row_tile_matches_plain_version(cuda_device, R, U):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel_id", [
     "weighted_agg.weighted_agg", "weighted_agg.ring_agg",
+    "weighted_agg.ring_agg_worlds",
     "cross_entropy.nll_and_lse", "decode_attention.decode_attention",
     "swa_attention.swa_attention", "swa_attention.swa_attention_bf16"])
 def test_geometry_exports_match_python_grids(cuda_device, kernel_id):
@@ -1170,3 +1171,142 @@ def test_fleet_k1000_flaky_fault_counts_on_card(cuda_device):
     assert all(torch.allclose(on.final_params[k], off.final_params[k],
                               rtol=0.0, atol=1e-6) for k in off.final_params)
     _channels_equal_replay(on, "fleet-k1000-flaky", sc.rounds)
+
+
+# the sweep tier: K1 with a world axis, and the sweep engine on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("W", [1, 3, 5])
+def test_ring_agg_world_axis_matches_per_world_launches(cuda_device, tdt,
+                                                        W):
+    """One world-axis launch over a ``[W, U, P]`` view of a ``[W, M, P]``
+    buffer (world stride ``M * P``) is bitwise W one-world launches on the
+    slices and the plain version, signed zeros and a (1, 0) step
+    included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(W)
+    for P, M, a, b in ((422016, 12, 2, 12), (128 * 1031, 5, 1, 4),
+                       (128, 3, 0, 3)):
+        U = b - a
+        g = torch.randn(W, P, generator=gen, device=cuda_device)
+        g[:, ::7] = -0.0
+        buf = torch.randn(W, M, P, generator=gen, device=cuda_device).to(tdt)
+        buf[:, :, ::7] = 0.0
+        c = torch.rand(W, U, generator=gen, device=cuda_device) * 0.5 + 0.5
+        coeffs = torch.stack([c, 1.0 - c], dim=2).contiguous()
+        coeffs[:, 0] = torch.tensor([1.0, 0.0], device=cuda_device)
+        locs = buf[:, a:b]
+        kernels.reset_launches()
+        out = ops.ring_agg(g, locs, coeffs)
+        assert kernels.launch_counts()["ring_agg"] == 1
+        want = ref.ring_agg(g, locs, coeffs)
+        ones = [ops.ring_agg(g[w], locs[w], coeffs[w]) for w in range(W)]
+        torch.cuda.synchronize()
+        assert out.shape == (W, P) and out.dtype == torch.float32
+        assert torch.equal(_int_view(out), _int_view(want)), (P, W)
+        for w in range(W):
+            assert torch.equal(_int_view(out[w]), _int_view(ones[w])), (P, w)
+        assert not torch.signbit(out[:, ::7]).any()
+
+
+def _quick_grid(**kw):
+    from repro_torch.core.scenarios import SweepSpec
+    return SweepSpec(scenario="quick-k5", seeds=(0, 1),
+                     variants=tuple((("channel_overrides", (("beta", b),)),)
+                                    for b in (0.3, 0.7)),
+                     overrides=(("rounds", 8),), eval_every=4, **kw)
+
+
+@pytest.mark.cuda
+def test_sweep_event_loop_never_waits_for_the_card(cuda_device,
+                                                   monkeypatch):
+    """The sweep's segments (every world's pops, the per-world
+    re-admissions, chain coefficients, one world-axis ring_agg chain) run
+    with CUDA synchronisation made an error, selection worlds included."""
+    import dataclasses
+    from repro_torch.core import sweep
+    from repro_torch.core.scenarios import get_scenario
+    real = sweep._event_segment
+    pops = []
+
+    def strict(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pops.append(out[1][0].shape)
+        return out
+
+    ops.ring_agg(*_ring_inputs(128, 1, torch.float32,
+                               torch.Generator(device=cuda_device),
+                               cuda_device, False))
+    monkeypatch.setattr(sweep, "_event_segment", strict)
+    base = dataclasses.replace(get_scenario("quick-k5"), rounds=12)
+    worlds = [(base, 0), (dataclasses.replace(
+        base, selection="eps-bandit", selection_k=2, selection_eps=0.3,
+        resel_every=4), 1), (dataclasses.replace(
+            base, selection="weighted-topk", selection_k=3,
+            resel_every=4, channel_overrides=(("beta", 0.7),)), 0)]
+    res = sweep.run_simulation_vmap(worlds, eval_every=6,
+                                    device=cuda_device)
+    assert sum(n for _, n in pops) == 12 and {w for w, _ in pops} == {3}
+    assert len(pops) > 1 and all(len(r.rounds) == 12 for r in res)
+
+
+@pytest.mark.cuda
+def test_sweep_grid_on_card_matches_solo_runs(cuda_device):
+    """quick-k5, 2 betas x 2 seeds (8 rounds) on the card: one ring_agg
+    launch per union chain for all four worlds, each world's trace
+    bitwise its solo ``jit`` run on the card, params within atol 1e-4 /
+    rtol 1e-3 (each seed's betas share a timeline group, so they train
+    as one batched call)."""
+    from repro_torch.core import jit_engine, sweep
+    from repro_torch.core.scenarios import run_sweep
+    spec = _quick_grid()
+    plans = [jit_engine.plan_fleet(sc.channel(), seed, 8)
+             for sc, seed in spec.worlds()]
+    want = len(sweep.chain_ends(plans, jit_engine.eval_rounds_of(8, 4)))
+    kernels.reset_launches()
+    vm = run_sweep(spec, device=cuda_device)
+    assert kernels.launch_counts()["ring_agg"] == want
+    solo = run_sweep(spec, engine="jit", device=cuda_device)
+    for v, s in zip(vm, solo):
+        assert ([(r.round, r.vehicle, r.time, r.upload_delay, r.weight)
+                 for r in v.rounds]
+                == [(r.round, r.vehicle, r.time, r.upload_delay, r.weight)
+                    for r in s.rounds])
+        for k in s.final_params:
+            torch.testing.assert_close(v.final_params[k], s.final_params[k],
+                                       atol=1e-4, rtol=1e-3)
+        for (_, x), (_, y) in zip(v.acc_history, s.acc_history):
+            assert abs(x - y) <= 0.02
+
+
+@pytest.mark.cuda
+def test_sweep_singletons_on_card_are_bitwise_solo(cuda_device):
+    """Worlds alone in their timeline group on the card (per-world
+    ``sigma2`` and ``v`` as ``[W, 1]`` columns; the bf16 ring): bitwise
+    their solo ``jit`` runs on the card."""
+    import dataclasses
+    from repro_torch.core import sweep
+    from repro_torch.core.scenarios import get_scenario, run_scenario
+    base = dataclasses.replace(get_scenario("quick-k5"), rounds=8)
+    for worlds in ([(dataclasses.replace(base, channel_overrides=(
+                        ("sigma2", 2e-13),)), 0),
+                    (dataclasses.replace(base, channel_overrides=(
+                        ("v", 25.0),)), 1)],
+                   [(dataclasses.replace(base, ring_dtype="bf16"), s)
+                    for s in (0, 1)]):
+        res = sweep.run_simulation_vmap(worlds, eval_every=4,
+                                        device=cuda_device)
+        for (sc, seed), v in zip(worlds, res):
+            s = run_scenario(sc, engine="jit", seed=seed, eval_every=4,
+                             device=cuda_device)
+            assert ([(r.round, r.vehicle, r.time, r.upload_delay,
+                      r.train_delay, r.weight) for r in v.rounds]
+                    == [(r.round, r.vehicle, r.time, r.upload_delay,
+                         r.train_delay, r.weight) for r in s.rounds])
+            for k in s.final_params:
+                assert torch.equal(v.final_params[k], s.final_params[k]), k
+            assert v.acc_history == s.acc_history

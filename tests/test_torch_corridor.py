@@ -1,228 +1,21 @@
-"""The corridor engines on the CPU against ``repro``, from the same
-(JAX-drawn) init with the kernel path on (the port's wrappers take their
-plain versions on CPU tensors; ``repro``'s run the Pallas kernels in
-interpret mode):
-
-- ``engine="serial"``, the handover loop, against ``repro``'s: the host
-  engines' bands (``_torch_world.py``: identical (round, vehicle, rsu)
-  trace, times and weights to rtol 1e-9, ``PARAM_TOL``, accuracy 0.02);
-- ``engine="corridor"``, the device engine, against ``repro``'s: the fleet
-  engine's f32 bands (``FLEET_TIME_TOL``, ``FLEET_WEIGHT_TOL``,
-  ``PARAM_TOL``, ``BF16_PARAM_TOL`` with a bf16 ring);
-- the two engines against each other inside the port, to ``repro``'s own
-  bands for that pair (``tests/test_engine_conformance.py``: params atol
-  2e-3 with the real CNN, accuracy 0.05);
-
-and the engine's ``ring_agg`` calls against the plan's chunk count, the
-EMA reconcile's one ``weighted_agg`` call per reconcile, and the raises."""
+"""The corridor engines on the CPU: the engine's ``ring_agg`` calls
+against the plan's chunk count, the EMA reconcile's one ``weighted_agg``
+call per reconcile, a selection policy by name, the fault worlds and the
+raises.  The runs against ``repro`` are split by engine group into
+``tests/test_torch_corridor_{serial,engine,rings}.py`` (shared worlds and
+runs in ``tests/_torch_corridor.py``)."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 import repro.core.scenarios as jsc
 import repro_torch.core.scenarios as tsc
 import repro_torch.corridor.engine as tengine
-from _torch_world import (ACC_TOL, BF16_PARAM_TOL, FLEET_TIME_TOL,
-                          FLEET_WEIGHT_TOL, PARAM_TOL, jax_init)
-from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.corridor import (run_corridor_simulation,
-                                  run_handover_simulation)
-
-QUICK = "corridor-quick-r2-k8"
-ENGINE_VS_SERIAL = dict(rtol=0.0, atol=2e-3)
-ENGINE_VS_SERIAL_ACC = 0.05
-
-
-@pytest.fixture(scope="module")
-def init():
-    return jax_init()
-
-
-def _port(name, engine, init, use_kernel=True, **overrides):
-    """One port run from ``repro``'s init, on the CPU."""
-    eval_every = overrides.pop("eval_every")
-    sc = dataclasses.replace(tsc.get_scenario(name), **overrides)
-    veh, ti, tl, p = tsc.build_world(sc)
-    run = (run_handover_simulation if engine == "serial"
-           else run_corridor_simulation)
-    return run(sc, veh, ti, tl, p, eval_every=eval_every,
-               use_kernel=use_kernel,
-               init_params=params_from_jax(init, "cpu"), device="cpu")
-
-
-def _pair(name, engine, init, eval_every, **overrides):
-    jres = jsc.run_scenario(name, engine=engine, eval_every=eval_every,
-                            use_kernel=True, **overrides)
-    sc = dataclasses.replace(tsc.get_scenario(name), **overrides)
-    veh, ti, tl, p = tsc.build_world(sc)
-    run = (run_handover_simulation if engine == "serial"
-           else run_corridor_simulation)
-    tres = run(sc, veh, ti, tl, p, eval_every=eval_every, use_kernel=True,
-               init_params=params_from_jax(init, "cpu"), device="cpu")
-    assert len(tres.rounds) == sc.rounds
-    assert ([getattr(tres.report, f) for f in ("engine", "scheme", "rounds")]
-            == [getattr(jres.report, f) for f in ("engine", "scheme",
-                                                  "rounds")])
-    return jres, tres
-
-
-def _trace(res):
-    return [(r.round, r.vehicle, r.rsu) for r in res.rounds]
-
-
-def _assert_params(jparams, tparams, tol):
-    tnp = params_to_numpy(tparams)
-    for k, v in jparams.items():
-        assert tparams[k].device.type == "cpu"
-        np.testing.assert_allclose(tnp[k], np.asarray(v), err_msg=k, **tol)
-
-
-def _assert_acc(a_hist, b_hist, tol):
-    assert [r for r, _ in a_hist] == [r for r, _ in b_hist]
-    for (_, a), (_, b) in zip(a_hist, b_hist):
-        assert abs(a - b) <= tol and np.isfinite(b)
-
-
-def test_serial_matches_repro_serial(init):
-    jres, tres = _pair(QUICK, "serial", init, 3, rounds=6)
-    assert tres.scheme == jres.scheme == "mafl+handover"
-    assert _trace(tres) == _trace(jres)
-    for a, b in zip(jres.rounds, tres.rounds):
-        np.testing.assert_allclose(
-            [b.time, b.upload_delay, b.train_delay, b.weight],
-            [a.time, a.upload_delay, a.train_delay, a.weight], rtol=1e-9)
-    _assert_params(jres.final_params, tres.final_params, PARAM_TOL)
-    _assert_acc(jres.acc_history, tres.acc_history, ACC_TOL)
-
-
-def _assert_engine_conforms(jres, tres, bf16=False):
-    assert tres.scheme == jres.scheme
-    assert _trace(tres) == _trace(jres)
-    for a, b in zip(jres.rounds, tres.rounds):
-        np.testing.assert_allclose(
-            [b.time, b.upload_delay, b.train_delay],
-            [a.time, a.upload_delay, a.train_delay], **FLEET_TIME_TOL)
-        np.testing.assert_allclose(b.weight, a.weight, **FLEET_WEIGHT_TOL)
-    tol = BF16_PARAM_TOL if bf16 else PARAM_TOL
-    _assert_params(jres.final_params, tres.final_params, tol)
-    # the [R, ...] cohort stack at the end, row for row
-    jG, tG = jres.extras["final_cohorts"], tres.extras["final_cohorts"]
-    _assert_params(jG, tG, tol)
-    np.testing.assert_array_equal(tres.extras["up_rsu"],
-                                  jres.extras["up_rsu"])
-    assert tres.extras["eval_rounds"] == jres.extras["eval_rounds"]
-    assert tres.extras["n_rsus"] == jres.extras["n_rsus"]
-    _assert_acc(jres.acc_history, tres.acc_history, ACC_TOL)
-
-
-@pytest.mark.parametrize("kw", [
-    {},
-    {"reconcile_mode": "ema", "reconcile_tau": 0.3},
-    {"scheme": "afl"},
-    {"scheme": "fedasync"},
-    {"ring_dtype": "bf16"},
-], ids=["fedavg", "ema", "afl", "fedasync", "bf16"])
-def test_engine_matches_repro_engine(init, kw):
-    jres, tres = _pair(QUICK, "corridor", init, 4, rounds=8, **kw)
-    _assert_engine_conforms(jres, tres, bf16=kw.get("ring_dtype") == "bf16")
-
-
-def test_engine_matches_repro_engine_on_the_highway(init):
-    """highway-k40-handover cut to 12 rounds, one local step: handover
-    across the four RSUs, a reconcile at round 8."""
-    jres, tres = _pair("highway-k40-handover", "corridor", init, 6,
-                       rounds=12, l_iters=1)
-    assert len({r.rsu for r in tres.rounds}) > 1
-    _assert_engine_conforms(jres, tres)
-
-
-def _ring_reads(init, monkeypatch, kw):
-    """Run corridor-quick-r2-k8 with ``kw`` on the port's corridor engine,
-    checking that each ring row a wave reads is bitwise the row as it was
-    stored, and that no row changes after the reads either (later chains
-    and reconciles write the stack in place).  Returns the rows read and
-    the run."""
-    stored, reads, rings = {}, [], []
-    real_seg, real_wave = tengine._chain_segment, tengine._train_wave
-
-    def snap(ring):
-        for r, row in ring.items():
-            if r not in stored or stored[r][0] is not row:
-                stored[r] = (row, row.clone())
-
-    def seg(queue, G, locals_buf, ring, *a, **kw):
-        rings.append(ring)
-        snap(ring)
-        out = real_seg(queue, G, locals_buf, ring, *a, **kw)
-        snap(ring)
-        return out
-
-    def wave(layout, rows, locals_buf, pay_rounds, *a):
-        snap(rows)
-        for pr in pay_rounds:
-            reads.append(int(pr))
-            assert torch.equal(rows[int(pr)], stored[int(pr)][1]), pr
-        return real_wave(layout, rows, locals_buf, pay_rounds, *a)
-
-    monkeypatch.setattr(tengine, "_chain_segment", seg)
-    monkeypatch.setattr(tengine, "_train_wave", wave)
-    res = _port(QUICK, "corridor", init, eval_every=4, **kw)
-    ring = rings[-1]
-    assert all(stored[r][0] is row and torch.equal(row, stored[r][1])
-               for r, row in ring.items())
-    return set(reads), res
-
-
-def test_ring_rows_stay_as_stored_and_match_repro(init, monkeypatch):
-    """corridor-quick-r2-k8 for 16 rounds with the EMA reconcile: later
-    waves read ring rows stored by chains on both RSUs and by the
-    reconcile at round 4, while the cohort stack is written in place at
-    every chain end.  Each row a wave reads is bitwise the row as it was
-    stored, and stays so to the end of the run; the run matches
-    ``repro``'s."""
-    kw = dict(rounds=16, reconcile_mode="ema", reconcile_tau=0.3)
-    reads, res = _ring_reads(init, monkeypatch, kw)
-    # rows of both RSUs' chains (5 and 6 follow uploads to RSU 1) and the
-    # reconciled row of round 4
-    assert {1, 2, 3, 4, 5, 6, 10, 11} <= reads
-    jres = jsc.run_scenario(QUICK, engine="corridor", eval_every=4,
-                            use_kernel=True, **kw)
-    _assert_engine_conforms(jres, res)
-
-
-def test_ring_rows_stay_as_stored_on_a_selection_world(init, monkeypatch):
-    """The same on a FedAvg world with eps-bandit selection: a vehicle
-    re-admitted at reconcile round b reads ring row b (in f32 the stored
-    row is the tensor itself), and the run matches ``repro``'s."""
-    kw = dict(rounds=16, selection="eps-bandit", selection_k=2,
-              selection_eps=0.4)
-    reads, res = _ring_reads(init, monkeypatch, kw)
-    decisions = res.report.selection["decisions"]
-    assert {b for b, newly, _ in decisions if newly} & reads
-    jres = jsc.run_scenario(QUICK, engine="corridor", eval_every=4,
-                            use_kernel=True, **kw)
-    _assert_engine_conforms(jres, res)
-    assert res.report.selection == jres.report.selection
-
-
-def test_engine_matches_serial_in_the_port(init):
-    ser = _port(QUICK, "serial", init, rounds=6, eval_every=3)
-    eng = _port(QUICK, "corridor", init, rounds=6, eval_every=3)
-    assert _trace(eng) == _trace(ser)
-    np.testing.assert_allclose([r.time for r in eng.rounds],
-                               [r.time for r in ser.rounds], **FLEET_TIME_TOL)
-    np.testing.assert_allclose([r.weight for r in eng.rounds],
-                               [r.weight for r in ser.rounds],
-                               **FLEET_WEIGHT_TOL)
-    for k in ser.final_params:
-        np.testing.assert_allclose(eng.final_params[k].numpy(),
-                                   ser.final_params[k].numpy(), err_msg=k,
-                                   **ENGINE_VS_SERIAL)
-    _assert_acc(ser.acc_history, eng.acc_history, ENGINE_VS_SERIAL_ACC)
+from _torch_corridor import QUICK
+from repro_torch.corridor import run_corridor_simulation
 
 
 def _count(monkeypatch, name):

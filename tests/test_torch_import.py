@@ -19,7 +19,9 @@ from repro_torch.channel import ChannelParams
 from repro_torch.configs import get_config
 from repro_torch.core.client import Vehicle, VehicleData
 from repro_torch.core.mafl import evaluate, run_simulation
-from repro_torch.core.scenarios import get_scenario, run_scenario
+from repro_torch.core.scenarios import (SweepSpec, get_scenario,
+                                        run_scenario, run_sweep)
+from repro_torch.core.sweep import run_simulation_vmap
 from repro_torch.corridor import (run_corridor_simulation,
                                   run_handover_simulation)
 from repro_torch.core.server import RSUServer
@@ -98,7 +100,8 @@ def _tiny_world():
     "repro_torch.check.boundary", "repro_torch.check.grid_race",
     "repro_torch.check.dtype_flow", "repro_torch.check.plan_shapes",
     "repro_torch.check.corpus.racy_kernel", "repro_torch.corridor",
-    "repro_torch.corridor.plan", "repro_torch.core.hierarchical"])
+    "repro_torch.corridor.plan", "repro_torch.core.hierarchical",
+    "repro_torch.core.sweep"])
 def test_fleet_modules_import_alone_without_jax(module):
     code = (f"import sys, {module}\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -114,7 +117,7 @@ def test_fleet_modules_import_alone_without_jax(module):
     "resolve_device", "run_scenario", "run_simulation", "evaluate",
     "Vehicle", "RSUServer", "run_simulation_jit", "init_params",
     "init_cache", "serve", "train", "run_corridor_simulation",
-    "run_handover_simulation"])
+    "run_handover_simulation", "run_sweep", "run_simulation_vmap"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the card: without one the call raises instead
     of running on the host."""
@@ -146,6 +149,9 @@ def test_entry_points_default_to_the_card(entry):
             corridor, [data], data.images, data.labels),
         "run_handover_simulation": lambda: run_handover_simulation(
             corridor, [data], data.images, data.labels, corridor.channel()),
+        "run_sweep": lambda: run_sweep(SweepSpec(scenario="quick-k5")),
+        "run_simulation_vmap": lambda: run_simulation_vmap(
+            [(get_scenario("quick-k5"), 0)]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -156,10 +162,12 @@ def test_entry_points_default_to_the_card(entry):
     (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
     (dict(scenario="quick-k5", engine="jit", mesh=object()),
      "distribution"),
-    (dict(scenario="quick-k5", engine="vmap"), "sweep"),
+    (dict(scenario="fleet-k1000", engine="jit", mesh=object()),
+     "distribution"),
     (dict(scenario="corridor-quick-r2-k8", mesh=object()),
      "distribution"),
-    (dict(scenario="corridor-quick-r2-k8", engine="vmap"), "sweep"),
+    (dict(scenario="corridor-quick-r2-k8", flat=False, record_cohorts=True),
+     "pytree"),
 ])
 def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
