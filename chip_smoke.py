@@ -107,6 +107,22 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    device peak printed.  Then
    quick-k5, 2 betas x 2 seeds (8 rounds) as one batch on the card and on
    the CPU from one numpy-made init per seed, within phase 5's bands.
+6f. pytree programs (after phase 6e, ``flat=False``): K2's device form
+   (its scalars one-element f32 tensors on the card) bitwise its plain
+   version and its host-float form on CNN and smollm-360m merges, a CNN
+   merge timed against the host-float form; then fleet-k1000 (30 rounds;
+   again under ``use_kernel``), fleet-k10000 (60, f32), platoon-burst-k500
+   (40), fleet-k1000-flaky and fleet-k1000-topk (30) on ``jit``, and
+   corridor-r4-k400 (40, EMA tau 0.3, ``use_kernel``),
+   highway-k40-handover (80), corridor-rush-hour-deadzone-r8-k4000 (40),
+   corridor-r4-k400-bandit (40, metrics on) and corridor-quick-r2-k8 (8,
+   ``record_cohorts``) on ``corridor``, each flat and pytree: the same
+   trace bit for bit, summaries and channels equal, params bitwise
+   without the kernel and within ``PYTREE_KERNEL_ATOL`` with it,
+   ``weighted_agg`` launches = pops + EMA reconciles under ``use_kernel``
+   (else none), ``ring_agg`` none; ms/round beside the flat run's.  Then
+   paper-k10 (``jit``) and corridor-quick-r2-k8 (``corridor``),
+   ``flat=False``, 8 rounds, card against CPU within phase 5's bands.
 7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
@@ -379,18 +395,24 @@ def profile_later(label, fn, wall_ms):
     PROFILED.append(lambda: profile_call(label, fn, wall_ms))
 
 
-def device_time_later(label, row, fn, kernel_names, iters=50):
+def device_time_later(label, row, fn, kernel_names, iters=50,
+                      per_event=False):
     """Queue the profiler's device time per call of ``fn``'s kernels: it
-    is logged and stored in ``row["device_ms"]`` when the queue runs."""
+    is logged and stored in ``row["device_ms"]`` when the queue runs.
+    ``per_event`` (for a call of one launch): the time per recorded
+    kernel event, which stays a reading when the profiler keeps fewer
+    events than calls."""
     row["device_ms"] = None
 
     def measure():
         busy, events = device_ms_per_call(fn, kernel_names, iters)
+        if per_event and busy is not None:
+            busy = busy * iters / events
         row["device_ms"] = busy
         log(f"device time: {label}: "
             f"{'not measured' if busy is None else f'{busy:.6f} ms'} per "
-            f"call (torch.profiler; {events} kernel events recorded for "
-            f"{iters} calls)")
+            f"{'recorded launch' if per_event else 'call'} (torch.profiler; "
+            f"{events} kernel events recorded for {iters} calls)")
     PROFILED.append(measure)
 
 
@@ -1918,6 +1940,258 @@ def phase_sweep_vs_cpu():
         f"|diff| {worst} (atol {HOST_ATOL}, rtol {HOST_RTOL})")
 
 
+# the pytree programs (flat=False) at full width and registered rounds,
+# each beside the same world's flat run on the card: (name, engine,
+# rounds, options); fleet-k10000 in f32 (the bf16 ring is flat only)
+PYTREE_RUNS = (
+    ("fleet-k1000", "jit", 30, {}),
+    ("fleet-k1000", "jit", 30, {"use_kernel": True}),
+    ("fleet-k10000", "jit", 60, {"ring_dtype": "f32"}),
+    ("platoon-burst-k500", "jit", 40, {}),
+    ("fleet-k1000-flaky", "jit", 30, {}),
+    ("fleet-k1000-topk", "jit", 30, {}),
+    ("corridor-r4-k400", "corridor", 40,
+     {"use_kernel": True, "reconcile_mode": "ema", "reconcile_tau": 0.3}),
+    ("highway-k40-handover", "corridor", 80, {}),
+    ("corridor-rush-hour-deadzone-r8-k4000", "corridor", 40, {}),
+    ("corridor-r4-k400-bandit", "corridor", 40, {"metrics": "on"}),
+    ("corridor-quick-r2-k8", "corridor", 8, {"record_cohorts": True}),
+)
+# pytree against flat under use_kernel: K2's device form mixes with
+# 1 - (1 - alpha) where the flat chain uses alpha, one f32 ulp of a mix
+# coefficient, carried by SGD through later waves' payloads: on the CPU
+# 6.0e-8 (fleet-k1000, 30 rounds) and 8.9e-8 (corridor-r4-k400 EMA, 40
+# rounds) apart; without the kernel both are bitwise
+PYTREE_KERNEL_ATOL = 1e-5
+
+
+def pytree_run(name, engine, rounds, flat, opts):
+    """One run of a world on the card with ``flat``; returns (result,
+    ms/round, launch counts)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.scenarios import run_scenario
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_scenario(name, engine=engine, device=DEVICE, rounds=rounds,
+                       eval_every=EVAL_EVERY, flat=flat, **opts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(len(res.rounds) == rounds,
+          f"{name}/{engine} flat={flat}: {len(res.rounds)} of {rounds} "
+          f"rounds")
+    for k, v in res.final_params.items():
+        check(v.device.type == DEVICE and bool(torch.isfinite(v).all()),
+              f"{name}/{engine} flat={flat}: final {k} not finite")
+    return res, dt / rounds * 1e3, kernels.launch_counts()
+
+
+def pytree_merges_record(dev):
+    """K2's device form (its scalars one-element f32 tensors on the card)
+    bitwise its plain version and its host-float form on CNN and
+    smollm-360m merges; then a CNN merge timed in turns against the
+    host-float form and the plain version (tensor scalars), its device
+    time queued.  Returns the device form's record."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.check.grid_race import smollm_leaf_shapes
+    from repro_torch.kernels.weighted_agg import ops, ref
+    from repro_torch.models.cnn import CNN_SHAPES
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def tree(shapes):
+        return [{k: torch.randn(s, generator=gen, device=dev)
+                 for k, s in shapes.items()} for _ in range(2)]
+    max_err, launched = 0.0, {}
+    scalars = [(1.0 - 0.0734125, 1.0), (0.5, 0.8719)]
+    for label, shapes in (("CNN", CNN_SHAPES),
+                          ("smollm-360m", smollm_leaf_shapes())):
+        g, l = tree(shapes)
+        for beta, weight in scalars[:2 if label == "CNN" else 1]:
+            want = ops.weighted_agg_tree(g, l, beta, weight)
+            tb = torch.tensor(beta, device=dev)
+            tw = torch.tensor([weight], device=dev)
+            for b, w in ((tb, weight), (beta, tw), (tb, tw)):
+                kernels.reset_launches()
+                out = ops.weighted_agg_tree(g, l, b, w)
+                torch.cuda.synchronize()
+                launched[label] = kernels.launch_counts()["weighted_agg"]
+                check(launched[label] == ops.launches(len(shapes)),
+                      f"weighted_agg device form {label}: "
+                      f"{launched[label]} launches")
+                for k in g:
+                    check(torch.equal(bits(out[k]), bits(want[k])),
+                          f"weighted_agg device form {label}: leaf {k} "
+                          f"differs from the host-float form")
+                    plain = ref.weighted_agg(g[k], l[k], b, w)
+                    check(torch.equal(bits(out[k]), bits(plain)),
+                          f"weighted_agg device form {label}: leaf {k} "
+                          f"differs from its plain version")
+                    max_err = max(max_err, (out[k] - plain).abs().max()
+                                  .item())
+        del g, l, want, out
+    log(f"pytree: weighted_agg device form (beta, weight or both on the "
+        f"card) bitwise its plain version and its host-float form on CNN "
+        f"and smollm-360m merges; launches per merge {launched}; "
+        f"max_abs_err={max_err}")
+
+    g, l = tree(CNN_SHAPES)
+    gl, ll = list(g.values()), list(l.values())
+    beta = 1.0 - 0.0734125
+    tb = torch.tensor(beta, device=dev)
+    runs = {
+        "kernel": lambda: ops.weighted_agg_tree(g, l, tb, 1.0),
+        "plain": lambda: {k: ref.weighted_agg(g[k], l[k], tb, 1.0)
+                          for k in g},
+        "library": lambda: torch._foreach_lerp(gl, ll, 1.0 - beta),
+        "host_form": lambda: ops.weighted_agg_tree(g, l, beta, 1.0),
+    }
+    n_params = sum(int(np.prod(s)) for s in CNN_SHAPES.values())
+    row = merge_timings("CNN merge, device scalars (8 leaves, f32)", runs,
+                        n_params, 100, 10, 6)
+    row["max_abs_err"] = max_err
+    # one K2 launch a call; the profiler has kept as few as 3 events of
+    # 10 for this call
+    device_time_later("weighted_agg device form CNN merge", row,
+                      runs["kernel"], "weighted_agg_kernel", iters=50,
+                      per_event=True)
+    return row
+
+
+def phase_pytree(dev):
+    """The device engines' pytree programs (``flat=False``) at full width
+    and registered rounds: K2's device form first (``pytree_merges_record``),
+    then each world of ``PYTREE_RUNS`` flat and pytree on the card: the
+    same trace bit for bit, the same selection and fault summaries and
+    channels, params bitwise without the kernel and within
+    ``PYTREE_KERNEL_ATOL`` with it; K2 launches on each pytree run = its
+    pops plus its EMA reconciles under ``use_kernel`` (else 0), K1 none.
+    Runs in turns (flat, pytree, pytree, flat) for ms/round; the flat
+    runs are references and the second pytree run a timing repeat: the
+    launches counted are the first pytree run's.
+    Returns (the pytree runs' K2 launches, the device form's record)."""
+    import torch
+    from repro_torch.core.scenarios import get_scenario
+
+    rec = pytree_merges_record(dev)
+    total = 0
+    for name, engine, rounds, opts in PYTREE_RUNS:
+        tag = f"{name}/{engine} {rounds} rounds {opts or ''}".rstrip()
+        # in turns (flat, pytree, pytree, flat): a world's first run in a
+        # phase can be up to 1.7x slower than its next
+        runs = [pytree_run(name, engine, rounds, flat, opts)
+                for flat in (True, False, False, True)]
+        (flat, flat_ms, _), (tree, tree_ms, counts) = runs[0], runs[1]
+        flat_ms = (flat_ms + runs[3][1]) / 2
+        tree_ms = (tree_ms + runs[2][1]) / 2
+        trace = [(r.round, r.vehicle, r.rsu, r.time, r.upload_delay,
+                  r.train_delay, r.weight) for r in flat.rounds]
+        check([(r.round, r.vehicle, r.rsu, r.time, r.upload_delay,
+                r.train_delay, r.weight) for r in tree.rounds] == trace,
+              f"pytree {tag}: trace differs from the flat run's")
+        check(tree.report.selection == flat.report.selection
+              and tree.extras.get("faults") == flat.extras.get("faults"),
+              f"pytree {tag}: selection or fault summary differs")
+        check(tree.report.channels.keys() == flat.report.channels.keys()
+              and all(np.array_equal(v, flat.report.channels[k])
+                      for k, v in tree.report.channels.items()),
+              f"pytree {tag}: telemetry channels differ")
+        sc = get_scenario(name)
+        kernel = opts.get("use_kernel", False)
+        reconciles = (rounds // sc.reconcile_every
+                      if opts.get("reconcile_mode") == "ema" else 0)
+        want = rounds + reconciles if kernel else 0
+        check(all(c["weighted_agg"] == want and c["ring_agg"] == 0
+                  for _, _, c in runs[1:3]),
+              f"pytree {tag}: weighted_agg {counts['weighted_agg']} "
+              f"(expected {want}), ring_agg {counts['ring_agg']}")
+        total += counts["weighted_agg"]
+        diff = max((tree.final_params[k] - flat.final_params[k]).abs().max()
+                   .item() for k in flat.final_params)
+        pairs = [(flat.final_params, tree.final_params)]
+        if "cohort_snapshots" in flat.extras:
+            pairs += list(zip(flat.extras["cohort_snapshots"],
+                              tree.extras["cohort_snapshots"]))
+            pairs.append((flat.extras["final_cohorts"],
+                          tree.extras["final_cohorts"]))
+        if kernel:
+            check(diff <= PYTREE_KERNEL_ATOL,
+                  f"pytree {tag}: params {diff} from the flat run's "
+                  f"(band {PYTREE_KERNEL_ATOL})")
+            check(abs(tree.final_accuracy() - flat.final_accuracy())
+                  <= ACC_TOL, f"pytree {tag}: accuracy")
+        else:
+            check(all(torch.equal(bits(b[k]), bits(a[k]))
+                      for a, b in pairs for k in a),
+                  f"pytree {tag}: params differ from the flat run's "
+                  f"(max |diff| {diff})")
+            check(tree.acc_history == flat.acc_history,
+                  f"pytree {tag}: accuracy history differs")
+        log(f"pytree: {tag}: {tree_ms:.3f} ms/round pytree, {flat_ms:.3f} "
+            f"flat (ratio {tree_ms / flat_ms:.4f}; each the mean of two runs "
+            f"in turns: {runs[0][1]:.3f}, {runs[1][1]:.3f}, "
+            f"{runs[2][1]:.3f}, {runs[3][1]:.3f}); trace identical; params "
+            f"{'bitwise' if not kernel else f'max |diff| {diff}'}; "
+            f"weighted_agg {counts['weighted_agg']} = {rounds} pops + "
+            f"{reconciles} reconciles under use_kernel, ring_agg 0; "
+            f"accuracy {tree.final_accuracy():.5f}")
+    rec["launches"] = total
+    return total, rec
+
+
+def phase_pytree_vs_cpu(rounds=8):
+    """paper-k10 on ``jit`` and corridor-quick-r2-k8 on ``corridor``, both
+    ``flat=False`` with the kernel on, for ``rounds`` rounds on the card
+    and on the CPU from one numpy-made init: the same traces, times and
+    params within phase 5's bands."""
+    from repro_torch.convert import params_from_jax, params_to_numpy
+    from repro_torch.core.mafl import run_simulation
+    from repro_torch.core.scenarios import build_world, get_scenario
+    from repro_torch.corridor import run_corridor_simulation
+
+    import dataclasses
+    init = numpy_init()
+    for name in ("paper-k10", "corridor-quick-r2-k8"):
+        sc = dataclasses.replace(get_scenario(name), rounds=rounds)
+        veh, te_i, te_l, p = build_world(sc)
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            kw = dict(eval_every=4, use_kernel=True, flat=False,
+                      init_params=params_from_jax(init, dev), device=dev)
+            out[dev] = (run_corridor_simulation(sc, veh, te_i, te_l, p,
+                                                **kw)
+                        if sc.n_rsus > 1 else
+                        run_simulation(veh, te_i, te_l, scheme=sc.scheme,
+                                       rounds=rounds, l_iters=sc.l_iters,
+                                       lr=sc.lr, params=p, engine="jit",
+                                       **kw))
+        gpu, cpu = out[DEVICE], out["cpu"]
+        check([(r.round, r.vehicle, r.rsu) for r in gpu.rounds]
+              == [(r.round, r.vehicle, r.rsu) for r in cpu.rounds],
+              f"pytree {name}: card and CPU traces differ")
+        tg = np.array([r.time for r in gpu.rounds])
+        tc = np.array([r.time for r in cpu.rounds])
+        check(np.allclose(tg, tc, **JIT_TIME_TOL),
+              f"pytree {name}: card and CPU event times differ")
+        pg, pc = (params_to_numpy(gpu.final_params),
+                  params_to_numpy(cpu.final_params))
+        worst = max(float(np.abs(pg[k] - pc[k]).max()) for k in pg)
+        for k in pg:
+            check(np.allclose(pg[k], pc[k], atol=HOST_ATOL, rtol=HOST_RTOL),
+                  f"pytree {name}: card vs CPU final {k}")
+        acc_diff = max(abs(a - b) for (_, a), (_, b)
+                       in zip(gpu.acc_history, cpu.acc_history))
+        check(acc_diff <= ACC_TOL,
+              f"pytree {name}: card vs CPU accuracy differs by {acc_diff}")
+        log(f"pytree: {name} flat=False {rounds} rounds, card against CPU: "
+            f"traces identical, event times max |diff| "
+            f"{float(np.abs(tg - tc).max())}, final params max |diff| "
+            f"{worst} (atol {HOST_ATOL}, rtol {HOST_RTOL}), accuracy max "
+            f"|diff| {acc_diff}")
+
+
 ATTN_TOL = {"f32": 2e-5, "bf16": 3e-2}
 # K4's query heads per kv head held to the plain version (MAX_GROUP is 8)
 DECODE_GROUPS = (1, 3, 4, 5, 8)
@@ -3058,6 +3332,10 @@ def main() -> int:
     mark("sweep")
     phase_sweep_vs_cpu()
     mark("sweep card against CPU")
+    pytree_merges, k2_device_form = phase_pytree(dev)
+    mark("pytree")
+    phase_pytree_vs_cpu()
+    mark("pytree card against CPU")
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
     mark("card against CPU (serve, train)")
@@ -3068,23 +3346,31 @@ def main() -> int:
     f1["launches"] = f1_main
     f1["launches_by_path"]["main paths"] = f1_main
     # K1 and K2 under telemetry: the metrics-on runs of phase_telemetry
-    # (their launches equal the metrics-off runs').  K2 runs on six main
+    # (their launches equal the metrics-off runs').  K2 runs on seven main
     # paths: the host engines' merges, the corridor's (EMA reconciles,
     # serial handover merges), those under vehicle selection and under
-    # fault injection (kept merges only), training's, and telemetry's (none:
-    # its corridor worlds reconcile by FedAvg)
+    # fault injection (kept merges only), training's, telemetry's (none:
+    # its corridor worlds reconcile by FedAvg) and the pytree programs'
+    # (one a pop under use_kernel, plus the EMA reconciles)
     k1["launches"] += telemetry_chains + sweep_chains
     k1["launches_by_path"]["telemetry"] = telemetry_chains
     k1["launches_by_path"]["sweep"] = sweep_chains
     k2["launches"] = (host_merges + corridor_merges + selection_merges
-                      + fault_merges + train_merges + telemetry_merges)
+                      + fault_merges + train_merges + telemetry_merges
+                      + pytree_merges)
     k2["launches_by_path"] = {"host engines": host_merges,
                               "corridor": corridor_merges,
                               "selection": selection_merges,
                               "faults": fault_merges,
                               "training": train_merges,
                               "telemetry": telemetry_merges,
-                              "sweep": 0}
+                              "sweep": 0,
+                              "pytree": pytree_merges}
+    # K2's two forms: scalars as kernel parameters (the host engines, the
+    # reconciles, training) and read on the card (the pytree programs'
+    # merges, each pop's weight a device value)
+    k2["forms"] = {"device scalars": k2_device_form}
+    k1["launches_by_path"]["pytree"] = 0
     profile_run("corridor-r8-k4000", "corridor", 40, corridor_ms * 40)
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last

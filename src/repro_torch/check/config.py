@@ -32,16 +32,18 @@ ENGINE_MODULES = (
 DEVICE_LOOP_FUNCTIONS = {
     "repro_torch/core/jit_engine.py": (
         "_SlotQueue.pop", "_SlotQueue.upload_delay", "_SlotQueue.admit",
-        "_SlotQueue.readmit", "_event_segment", "keep_coeffs",
-        "_chain_segment", "_run_program", "_train_wave"),
+        "_SlotQueue.readmit", "_pop_segment", "_event_segment",
+        "keep_coeffs", "_chain_segment", "_run_program", "_run_pytree",
+        "_train_wave"),
+    "repro_torch/core/aggregation.py": ("arrival_mix",),
     "repro_torch/core/sweep.py": (
         "_SweepQueue.pop", "_SweepQueue.upload_delay", "_SweepQueue.readmit",
         "_div_sigma2", "_event_segment", "_train_group", "_run_program"),
     "repro_torch/corridor/engine.py": (
         "_CorridorQueue.pop", "_CorridorQueue.upload_delay",
         "_CorridorQueue.readmit", "_CorridorQueue.wrap",
-        "_CorridorQueue.serving", "_chain_segment", "_reconcile",
-        "_run_program"),
+        "_CorridorQueue.serving", "_pop_segment", "_chain_segment",
+        "_reconcile", "_run_program", "_run_pytree"),
     "repro_torch/telemetry/device.py": (
         "stale_bin", "_fold", "fleet_pop", "corridor_pop", "RingStats.count",
         "RingStats.wrap"),

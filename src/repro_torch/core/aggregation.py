@@ -109,6 +109,44 @@ def chain_coeffs(scheme: str, interpretation: str, beta, weight,
     return 1.0 - alpha, alpha
 
 
+def arrival_mix(g, loc, weight, *, scheme: str, interpretation: str, beta,
+                t=None, dl_t=None, fedasync_mix=None,
+                use_kernel: bool = False, keep=None):
+    """One arrival's merge on device values: the device engines' pytree
+    programs (``engine="jit"`` and the corridor with ``flat=False``), the
+    counterpart of ``repro``'s per-arrival ``aggregate`` closures, one
+    definition for both engines.
+
+    ``g`` and ``loc`` are param dicts of equal shapes on one device;
+    ``weight`` (the delay weight of Eqs. 7, 9 as the slot queue's pop
+    computes it, 1 outside mafl) and, for fedasync, the pop time ``t`` and
+    download time ``dl_t`` are one-element f32 device tensors.  The mix is
+    :func:`chain_coeffs`'s ``(c, d)`` pair (mafl mixing: ``alpha =
+    clip((1-beta) w, 0, 1)``; literal: ``(beta, (1-beta) w)``; afl:
+    ``alpha = 1-beta``; fedasync: ``alpha = mix (stale+1)^-0.5``) applied
+    per leaf as ``c*g + d*l`` in f32, each product and the sum rounded
+    alone: bitwise the flat program's ``ring_agg`` step.  Under
+    ``use_kernel`` the merge is K2's device form, ``(beta, w)`` (literal)
+    or ``(1-alpha, 1)``, as ``repro`` calls its kernel.  ``keep`` (a 0-d
+    bool device tensor, the staleness cap's verdict) keeps ``g`` exactly
+    where it is False.  Returns a new param dict; nothing is read on the
+    host and no input is written."""
+    cc, dd = chain_coeffs(scheme, interpretation, beta, weight, t=t,
+                          dl_t=dl_t, fedasync_mix=fedasync_mix)
+    if use_kernel:
+        from repro_torch.kernels.weighted_agg import ops as agg_ops
+        if scheme == "mafl" and interpretation == "literal":
+            new = agg_ops.weighted_agg_tree(g, loc, beta, weight)
+        else:
+            new = agg_ops.weighted_agg_tree(g, loc, cc, 1.0)
+    else:
+        new = {k: (x.float() * cc + loc[k].float() * dd).to(x.dtype)
+               for k, x in g.items()}
+    if keep is not None:
+        new = {k: torch.where(keep, v, g[k]) for k, v in new.items()}
+    return new
+
+
 def afl_update(global_params, local_params, beta: float):
     """Conventional AFL (the paper's baseline): Eq. (11), unweighted."""
     return _ema(global_params, local_params, beta)

@@ -1,6 +1,6 @@
 """Device-resident fleet engine (``engine="jit"``, repro's DESIGN.md §9/§12):
-the round loop of ``repro.core.jit_engine``'s packed flat program, run
-eagerly on the card.
+the round loop of ``repro.core.jit_engine``'s packed flat program and, with
+``flat=False``, of its pytree program, run eagerly on the card.
 
 - **Fixed-capacity slot queue.**  Every vehicle has exactly one in-flight
   upload at all times, so the event queue is ``K`` slots: ``f32[K]``
@@ -26,6 +26,12 @@ eagerly on the card.
   ported.
 - ``ring_dtype="bf16"`` stores snapshot rows and upload rows in bf16
   around the f32 master and f32 accumulation.
+- **The pytree program** (``flat=False``, ``repro``'s benchmark baseline,
+  :func:`_run_pytree`): the same queue, plan, waves and folds, with the
+  model a param dict mixed pop by pop (``aggregation.arrival_mix``: per-leaf
+  f32 ops, or K2 in its device-scalar form under ``use_kernel``) and a
+  ring of every post-round model.  Without ``use_kernel`` its params are
+  bitwise the flat program's: both round each product and sum alone.
 - **Selection** is host data: an ``[M, K]`` admission table on the card
   gates each pop's re-schedule (a parked vehicle's slot goes ``+inf``),
   boundary re-admissions write the queue between two pops, and the
@@ -61,7 +67,7 @@ import torch
 from repro_torch.channel import (ChannelParams, Mobility, slot_gain_table,
                                  training_delay)
 from repro_torch.core import client as client_mod
-from repro_torch.core.aggregation import chain_coeffs
+from repro_torch.core.aggregation import arrival_mix, chain_coeffs
 from repro_torch.core.client import Vehicle, VehicleData
 from repro_torch.core.flat import ParamLayout
 from repro_torch.core.mafl import (SimResult, _Timeline, evaluate,
@@ -415,32 +421,44 @@ def keep_coeffs(queue: _SlotQueue, cc, dd, s: int, e: int):
     return torch.where(keep, cc, 1.0), torch.where(keep, dd, 0.0)
 
 
-def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
-                   needed: set, store, *, scheme: str, interpretation: str,
-                   beta: float, fedasync_mix: float, readmits: dict,
-                   mst=None, fault_tab=None):
-    """The event loop between two waves: pops ``s..e-1`` of the slot queue,
-    their chain coefficients, and the ``ring_agg`` chains that merge them
-    into ``g``.  The re-admissions of boundary ``b`` (``readmits[b]``, a
-    device index tensor) are written between pops ``b-1`` and ``b``, at
-    pop ``b-1``'s time: they split the pops, never the chains.  A
-    cap-discarded pop stays in its chain as a no-op (:func:`keep_coeffs`).
-    With metrics on, ``mst`` (``telemetry.device.fleet_state``) folds each
-    pop, with row ``r`` of the fault counts table ``fault_tab`` where one
-    is armed.  Nothing here reads a device value on the host.  Returns the
-    new ``g`` and the segment's trace columns (``[e-s]`` each): six, and
-    with metrics the occupancy and the pop wait."""
+def _pop_segment(queue: _SlotQueue, s: int, e: int, *, mafl: bool,
+                 readmits: dict, mst=None, fault_tab=None, on_pop=None):
+    """Pops ``s..e-1`` of the slot queue.  The re-admissions of boundary
+    ``b`` (``readmits[b]``, a device index tensor) are written between
+    pops ``b-1`` and ``b``, at pop ``b-1``'s time.  With metrics on, ``mst``
+    (``telemetry.device.fleet_state``) folds each pop, with row ``r`` of
+    the fault counts table ``fault_tab`` where one is armed.  ``on_pop(r,
+    pop)`` (the pytree program's merge) runs after each pop.  Nothing here
+    reads a device value on the host.  Returns the segment's trace columns
+    (``[e-s]`` each): six, and with metrics the occupancy and the pop
+    wait."""
     pops = []
     for r in range(s, e):
-        pop = queue.pop(scheme == "mafl", r)
+        pop = queue.pop(mafl, r)
         if mst is not None:
             pop += (tel_dev.fleet_pop(
                 mst, t=pop[1], dl_t=pop[4],
                 fault_row=None if fault_tab is None else fault_tab[r]),)
+        if on_pop is not None:
+            on_pop(r, pop)
         pops.append(pop)
         if r + 1 in readmits:
             queue.readmit(readmits[r + 1], pop[1])
-    cols = tuple(torch.cat(c) for c in zip(*pops))
+    return tuple(torch.cat(c) for c in zip(*pops))
+
+
+def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
+                   needed: set, store, *, scheme: str, interpretation: str,
+                   beta: float, fedasync_mix: float, readmits: dict,
+                   mst=None, fault_tab=None):
+    """The flat program's event loop between two waves: pops ``s..e-1``
+    (:func:`_pop_segment`), their chain coefficients, and the ``ring_agg``
+    chains that merge them into ``g``.  Re-admissions split the pops,
+    never the chains.  A cap-discarded pop stays in its chain as a no-op
+    (:func:`keep_coeffs`).  Returns the new ``g`` and the segment's trace
+    columns."""
+    cols = _pop_segment(queue, s, e, mafl=scheme == "mafl",
+                        readmits=readmits, mst=mst, fault_tab=fault_tab)
     _, t_c, _, _, dlt_c, w_c = cols[:6]
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
                           dl_t=dlt_c, fedasync_mix=fedasync_mix)
@@ -450,22 +468,26 @@ def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
     return g, cols
 
 
-def _train_wave(layout: ParamLayout, rows: dict, locals_buf,
-                pay_rounds: np.ndarray, T_dev, imgs, labs, lr: float,
-                epochs=None):
+def _train_wave(rows: dict, pay_rounds: np.ndarray, T_dev, imgs, labs,
+                lr: float, epochs=None, unpack=None) -> dict:
     """Train the wave of rounds ``T_dev`` (a device index tensor) from
-    their payload rows ``rows[pay_rounds]`` and write the uploads into
-    ``locals_buf`` rows ``T_dev``: through a broadcast of one params dict
-    when the wave shares its payload (every initial-download wave), else
-    through a vmap of stacked params.  ``epochs`` (the fault plan's
-    ``i32[M]`` epoch column on the device, under partial computation)
-    switches to the masked partial scan."""
+    their payload rows ``rows[pay_rounds]`` and return the uploads as one
+    batched param dict (leaves ``[len(T), ...]``): through a broadcast of
+    one params dict when the wave shares its payload (every
+    initial-download wave), else through a vmap of stacked params.  A row
+    is a param dict (the pytree programs) or a packed ``[P]`` buffer that
+    ``unpack`` (``ParamLayout.unpack``) turns into one, after stacking.
+    ``epochs`` (the fault plan's ``i32[M]`` epoch column on the device,
+    under partial computation) switches to the masked partial scan."""
     shared = bool((pay_rounds == pay_rounds[0]).all())
     if shared:
-        pay = layout.unpack(rows[int(pay_rounds[0])])
+        pay = rows[int(pay_rounds[0])]
     else:
-        pay = layout.unpack(torch.stack([rows[int(pr)]
-                                         for pr in pay_rounds]))
+        pay = [rows[int(pr)] for pr in pay_rounds]
+        pay = (torch.stack(pay) if isinstance(pay[0], torch.Tensor)
+               else {k: torch.stack([x[k] for x in pay]) for k in pay[0]})
+    if unpack is not None:
+        pay = unpack(pay)
     args = (pay, imgs.index_select(0, T_dev), labs.index_select(0, T_dev),
             lr)
     if epochs is None:
@@ -476,9 +498,7 @@ def _train_wave(layout: ParamLayout, rows: dict, locals_buf,
                  else client_mod._local_scan_partial_vmap)
         args += (epochs.index_select(0, T_dev),)
     loc, _ = train(*args)
-    # in place: rows T are written once, before any chain reads them
-    locals_buf.index_copy_(0, T_dev,
-                           layout.pack(loc, dtype=locals_buf.dtype))
+    return loc
 
 
 def upload_indices(lists: list, device) -> list:
@@ -573,8 +593,12 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
     for (T, s, e), T_dev in zip(plan.waves, wave_idx):
         T = np.asarray(T, np.int64)
         if len(T):
-            _train_wave(layout, snaps, locals_buf, d[T] + 1, T_dev, imgs,
-                        labs, lr, queue.epochs)
+            loc = _train_wave(snaps, d[T] + 1, T_dev, imgs, labs, lr,
+                              queue.epochs, unpack=layout.unpack)
+            # in place: rows T are written once, before any chain reads
+            # them
+            locals_buf.index_copy_(0, T_dev, layout.pack(loc,
+                                                         dtype=store_dtype))
         g, cols = _event_segment(
             queue, g, locals_buf, snaps, s, e, needed, store, scheme=scheme,
             interpretation=interpretation, beta=beta,
@@ -588,6 +612,68 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
         trace, (occ, gap) = trace[:6], trace[6:]
         channels = metrics_channels(mst, ring_stats, occ, gap)
     return g, snaps, trace, channels
+
+
+def _run_pytree(plan: FleetPlan, queue: _SlotQueue, w0, imgs, labs,
+                lr: float, *, scheme: str, interpretation: str, beta: float,
+                fedasync_mix: float, use_kernel: bool, metrics=None,
+                l_iters: int = 1):
+    """The pytree program (``flat=False``, ``repro``'s benchmark baseline):
+    the model is the param dict, every pop mixes its upload into ``g`` on
+    its own (:func:`aggregation.arrival_mix`: per-leaf f32 ops, or one K2
+    launch in the device form under ``use_kernel``), and the ring keeps
+    every post-round model, ``ring[r]`` after round ``r`` (``ring[0]`` the
+    init), by reference: every mix returns new tensors and nothing writes
+    ``g`` or a ring entry in place.  A cap-discarded pop keeps ``g``
+    exactly (``where`` on the keep column).  The slot queue, waves,
+    re-admissions, bandit accumulators and telemetry are the flat
+    program's.  Returns the final params, the ring, the trace columns and
+    the device channels (or None)."""
+    d = plan.dl_round
+    device = imgs.device
+    mst = fault_tab = None
+    if metrics is not None:
+        mst, fault_tab, _, _ = metrics_setup(
+            metrics, plan, l_iters, False, None, device, tel_dev.fleet_state)
+        queue.occupancy = True
+    readmit_at = readmit_points(plan)
+    idx = upload_indices([T for T, _, _ in plan.waves]
+                         + [readmit_at[b] for b in sorted(readmit_at)],
+                         device)
+    wave_idx = idx[:len(plan.waves)]
+    readmits = dict(zip(sorted(readmit_at), idx[len(plan.waves):]))
+
+    M = len(plan.veh)
+    ring = {0: dict(w0)}
+    # the uploads, one [M, ...] buffer per leaf
+    uploads = {k: torch.zeros((M,) + tuple(x.shape), dtype=x.dtype,
+                              device=device) for k, x in w0.items()}
+
+    def merge(r, pop):
+        ring[r + 1] = arrival_mix(
+            ring[r], {k: B[r] for k, B in uploads.items()}, pop[5],
+            scheme=scheme, interpretation=interpretation, beta=beta,
+            t=pop[1], dl_t=pop[4], fedasync_mix=fedasync_mix,
+            use_kernel=use_kernel,
+            keep=None if queue.keep is None else queue.keep[r])
+
+    traces = []
+    for (T, s, e), T_dev in zip(plan.waves, wave_idx):
+        if len(T):
+            loc = _train_wave(ring, d[np.asarray(T, np.int64)] + 1, T_dev,
+                              imgs, labs, lr, queue.epochs)
+            for k, B in uploads.items():
+                B.index_copy_(0, T_dev, loc[k])
+        traces.append(_pop_segment(
+            queue, s, e, mafl=scheme == "mafl", readmits=readmits, mst=mst,
+            fault_tab=fault_tab, on_pop=merge))
+    trace = tuple(torch.cat([tr[k] for tr in traces])
+                  for k in range(len(traces[0])))
+    channels = None
+    if mst is not None:
+        trace, (occ, gap) = trace[:6], trace[6:]
+        channels = metrics_channels(mst, None, occ, gap)
+    return ring[M], ring, trace, channels
 
 
 def check_bandit(queue: _SlotQueue, plan, engine: str) -> None:
@@ -618,9 +704,10 @@ def _check_jit_args(scheme, ring_dtype, flat, mesh):
     if ring_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown ring_dtype {ring_dtype!r}; "
                          "expected 'f32' or 'bf16'")
-    if not flat:
-        raise unported("engine='jit' with flat=False (the pytree program)",
-                       "pytree fleet-program (item 15)")
+    if ring_dtype == "bf16" and not flat:
+        raise ValueError("ring_dtype='bf16' requires the flat fast path "
+                         "(flat=True): only the packed ring stores bf16 "
+                         "snapshots around f32 master weights")
     if mesh is not None:
         raise unported("mesh sharding of the wave training",
                        "distribution (item 13)")
@@ -719,10 +806,15 @@ def run_simulation_jit(
     """Run M rounds on the device; returns the ``SimResult`` the host
     engines produce (same record fields, same eval cadence).
 
-    Aggregation is always the fused ``ring_agg`` chain, so ``use_kernel``
-    changes nothing here: every merge goes through the kernel on the card
-    (its plain version on the CPU).  ``ring_dtype="bf16"`` stores snapshot
-    and upload rows in bf16 around f32 master weights and accumulation.
+    ``flat=True`` (the default) runs the packed flat program: aggregation
+    is always the fused ``ring_agg`` chain, so ``use_kernel`` changes
+    nothing there: every merge goes through the kernel on the card (its
+    plain version on the CPU).  ``flat=False`` runs the pytree program:
+    each arrival is merged on its own, by per-leaf f32 ops or, under
+    ``use_kernel``, by one ``weighted_agg`` launch with its scalars on the
+    card.  ``ring_dtype="bf16"`` (flat only; with ``flat=False`` it raises
+    ``ValueError``) stores snapshot and upload rows in bf16 around f32
+    master weights and accumulation.
     ``progress`` fires after the run, in round order.  ``device=None`` runs
     on the card.  ``selection`` is replayed by the host plan and folded in
     as the admission table and re-admissions; ``result.report.selection``
@@ -741,7 +833,7 @@ def run_simulation_jit(
     carries a ``RunReport`` (phases ``plan``, ``stage``, ``run``, ``eval``,
     memory, waves).
 
-    Not ported yet, and raising: ``flat=False`` and ``mesh``."""
+    Not ported yet, and raising: ``mesh``."""
     _check_jit_args(scheme, ring_dtype, flat, mesh)
     device = resolve_device(device)
     timers = PhaseTimers()
@@ -750,14 +842,24 @@ def run_simulation_jit(
         seed=seed, init_params=init_params, batch_size=batch_size,
         selection=selection, faults=faults, metrics=metrics,
         ring_dtype=ring_dtype, device=device, timers=timers)
-    layout = ParamLayout.from_tree(w0)
     eval_rounds = eval_rounds_of(rounds, eval_every)
     with timers.phase("run"):
-        g, snaps, trace, met_dev = _run_program(
-            plan, queue, layout, w0, imgs, labs, lr, scheme=scheme,
-            interpretation=interpretation, beta=p.beta,
-            fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
-            eval_rounds=eval_rounds, metrics=met, l_iters=l_iters)
+        if flat:
+            layout = ParamLayout.from_tree(w0)
+            g, snaps, trace, met_dev = _run_program(
+                plan, queue, layout, w0, imgs, labs, lr, scheme=scheme,
+                interpretation=interpretation, beta=p.beta,
+                fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
+                eval_rounds=eval_rounds, metrics=met, l_iters=l_iters)
+            final, model_at = layout.unpack(g), (
+                lambda rr: layout.unpack(snaps[rr]))
+        else:
+            final, ring, trace, met_dev = _run_pytree(
+                plan, queue, w0, imgs, labs, lr, scheme=scheme,
+                interpretation=interpretation, beta=p.beta,
+                fedasync_mix=DEFAULT_FEDASYNC_MIX, use_kernel=use_kernel,
+                metrics=met, l_iters=l_iters)
+            model_at = ring.__getitem__
         # reading the trace waits for the card: the run ends here
         t_veh, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
                                                   for x in trace)
@@ -787,7 +889,7 @@ def run_simulation_jit(
             "(rerun with ring_dtype='f32' to bisect)")
 
     result = SimResult(scheme=scheme, rounds=[], acc_history=[],
-                       loss_history=[], final_params=layout.unpack(g))
+                       loss_history=[], final_params=final)
     if plan.flt is not None:
         result.extras["faults"] = plan.flt.summary(l_iters)
     test_images = torch.as_tensor(test_images, device=device)
@@ -801,7 +903,7 @@ def run_simulation_jit(
                               weight=float(t_w[r]))
             rr = r + 1
             if rr in eval_rounds:
-                acc, loss = evaluate(layout.unpack(snaps[rr]), test_images,
+                acc, loss = evaluate(model_at(rr), test_images,
                                      test_labels, device=device)
                 rec.accuracy, rec.loss = acc, loss
                 result.acc_history.append((rr, acc))

@@ -149,8 +149,9 @@ def run_simulation(
     ``seed``.  ``device=None`` runs on the card.
 
     ``engine="jit"`` runs the device fleet engine
-    (:func:`repro_torch.core.jit_engine.run_simulation_jit`); ``flat`` and
-    ``ring_dtype="bf16"`` reach it only.
+    (:func:`repro_torch.core.jit_engine.run_simulation_jit`); ``flat``
+    (``False``: its pytree program) and ``ring_dtype="bf16"`` reach it
+    only.
 
     ``selection`` (None | policy name | ``SelectionSpec``) parks the
     vehicles a policy does not admit at (re-)schedule time and re-scores
@@ -170,9 +171,7 @@ def run_simulation(
     in f64 beside the event loop, the fleet engine on the card.  Every
     result carries a ``RunReport`` in ``result.report`` (phase timers,
     memory, plan statics; the channels when metrics are on).  Off is the
-    path without telemetry; an unknown setting raises ``ValueError``.
-
-    Not ported yet, and raising: ``flat=False`` on ``engine="jit"``."""
+    path without telemetry; an unknown setting raises ``ValueError``."""
     if engine == "jit":
         from repro_torch.core.jit_engine import run_simulation_jit
         return run_simulation_jit(

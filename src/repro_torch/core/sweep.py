@@ -422,8 +422,11 @@ def _run_program(plans: list, groups: list, queue: _SweepQueue,
                 # a world alone in its timeline: the solo wave trainer
                 w = G[0]
                 rows = {int(pr): snaps[int(pr)][w] for pr in set(pay)}
-                _train_wave(layout, rows, locals_buf[w], pay, T_dev,
-                            batches[gi][0], batches[gi][1], lrs[gi])
+                loc = _train_wave(rows, pay, T_dev, batches[gi][0],
+                                  batches[gi][1], lrs[gi],
+                                  unpack=layout.unpack)
+                locals_buf[w].index_copy_(
+                    0, T_dev, layout.pack(loc, dtype=store_dtype))
             else:
                 _train_group(layout, snaps, locals_buf, G, group_dev[gi],
                              pay, T_dev, rows_dev, batches[gi][0],

@@ -1,5 +1,6 @@
 """Device corridor engine (``engine="corridor"``): the round loop of
-``repro.corridor.engine``'s packed flat program, run eagerly on the card.
+``repro.corridor.engine``'s packed flat program and, with ``flat=False``,
+of its pytree program, run eagerly on the card.
 
 - **Per-RSU slot queue ``f32[R, K]``**, held as its flat ``[R*K]`` view.
   Vehicle i's one in-flight upload occupies slot ``(j, i)``, j the RSU
@@ -37,6 +38,13 @@
   the RSU an upload landed on, the occupancy of each RSU row, and the
   handover flag of each admitted re-schedule counted at its source RSU.
 
+The pytree program (``flat=False``, :func:`_run_pytree`) runs the same
+queue, plan, segments and folds with the cohort stack a dict of ``[R,
+...]`` leaves, each pop's upload mixed into its RSU's row on its own (the
+fleet engine's ``aggregation.arrival_mix``: per leaf, or K2 with its
+scalars on the card under ``use_kernel``) and a ring of every post-round
+model.
+
 Wave-hoisted training is the fleet engine's (``core/jit_engine.py``).
 Times on the device are f32; the f64 host plan (``corridor/plan.py``)
 fixes pop order, serving RSUs, waves and minibatches, and afterwards the
@@ -50,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.channel import ChannelParams, CorridorMobility
-from repro_torch.core.aggregation import chain_coeffs
+from repro_torch.core.aggregation import arrival_mix, chain_coeffs
 from repro_torch.core.client import VehicleData
 from repro_torch.core.flat import ParamLayout
 from repro_torch.core.jit_engine import (_SlotQueue, _stage_arrays,
@@ -236,30 +244,41 @@ def _loop_indices(schedule: list, readmit_at: dict) -> list:
     return lists
 
 
-def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
-                   a: int, b: int, groups: list, chunk_idx, needed: set,
-                   store, *, scheme: str, interpretation: str, beta: float,
-                   fedasync_mix: float, mst=None, fault_tab=None):
-    """Pops ``a..b-1``, their chain coefficients, and one ``ring_agg``
-    chain per chunk on each active RSU's row of ``G`` (written in place at
-    the chain's end).  A chunk ending at a round in ``needed`` stores its
-    output (a new tensor) as that ring row.  ``chunk_idx`` yields each
-    chunk's rounds as a device tensor.  A cap-discarded pop stays in its
-    chunk as a no-op (``keep_coeffs``).  With metrics on, ``mst``
-    (``telemetry.device.corridor_state``) folds each pop, with row ``r``
-    of the fault counts table ``fault_tab`` where one is armed.  Nothing
-    here reads a device value on the host.  Returns the segment's trace
-    columns: seven, and with metrics the occupancy, the handover flag and
-    the pop wait."""
+def _pop_segment(queue: _CorridorQueue, a: int, b: int, *, mafl: bool,
+                 mst=None, fault_tab=None, on_pop=None):
+    """Pops ``a..b-1`` of the ``[R, K]`` slot queue.  With metrics on,
+    ``mst`` (``telemetry.device.corridor_state``) folds each pop, with row
+    ``r`` of the fault counts table ``fault_tab`` where one is armed.
+    ``on_pop(r, pop)`` (the pytree program's merge) runs after each pop.
+    Nothing here reads a device value on the host.  Returns the segment's
+    trace columns: seven, and with metrics the occupancy, the handover
+    flag and the pop wait."""
     pops = []
     for r in range(a, b):
-        pop = queue.pop(scheme == "mafl", r)
+        pop = queue.pop(mafl, r)
         if mst is not None:
             pop += (tel_dev.corridor_pop(
                 mst, t=pop[2], dl_t=pop[5], j=pop[1], handover=pop[8],
                 fault_row=None if fault_tab is None else fault_tab[r]),)
+        if on_pop is not None:
+            on_pop(r, pop)
         pops.append(pop)
-    cols = tuple(torch.cat(c) for c in zip(*pops))
+    return tuple(torch.cat(c) for c in zip(*pops))
+
+
+def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
+                   a: int, b: int, groups: list, chunk_idx, needed: set,
+                   store, *, scheme: str, interpretation: str, beta: float,
+                   fedasync_mix: float, mst=None, fault_tab=None):
+    """The flat program's segment: pops ``a..b-1`` (:func:`_pop_segment`),
+    their chain coefficients, and one ``ring_agg`` chain per chunk on each
+    active RSU's row of ``G`` (written in place at the chain's end).  A
+    chunk ending at a round in ``needed`` stores its output (a new tensor)
+    as that ring row.  ``chunk_idx`` yields each chunk's rounds as a device
+    tensor.  A cap-discarded pop stays in its chunk as a no-op
+    (``keep_coeffs``).  Returns the segment's trace columns."""
+    cols = _pop_segment(queue, a, b, mafl=scheme == "mafl", mst=mst,
+                        fault_tab=fault_tab)
     _, _, t_c, _, _, dlt_c, w_c = cols[:7]
     cc, dd = chain_coeffs(scheme, interpretation, beta, w_c, t=t_c,
                           dl_t=dlt_c, fedasync_mix=fedasync_mix)
@@ -277,23 +296,25 @@ def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
     return cols
 
 
-def _reconcile(G, tau: float, use_kernel: bool):
-    """The cloud tier on the ``[R, P]`` stack: every row moves ``tau``
-    toward the stack mean (``tau = 1``, FedAvg: adopts it).  EMA under
-    ``use_kernel`` is one ``weighted_agg`` launch on the whole stack
-    against the materialised broadcast of the mean (the kernel takes
-    contiguous leaves only).  Returns a new stack."""
-    cons = G.mean(dim=0)
+def _reconcile(G: dict, tau: float, use_kernel: bool) -> dict:
+    """The cloud tier on a cohort stack, a dict of ``[R, ...]`` leaves
+    (the flat program's one ``[R, P]`` leaf, the pytree program's param
+    dict): every row moves ``tau`` toward the stack mean, leaf by leaf
+    (``tau = 1``, FedAvg: adopts it).  EMA under ``use_kernel`` is one
+    ``weighted_agg`` merge of the whole stack against the materialised
+    broadcast of the mean (the kernel takes contiguous leaves only).
+    Returns a new stack."""
+    cons = {k: x.mean(dim=0) for k, x in G.items()}
     if tau == 1.0:
-        return cons.expand_as(G).contiguous()
+        return {k: c.expand_as(G[k]).contiguous() for k, c in cons.items()}
     # repro's f32 scalars: tau rounded to f32, 1 - tau in f32
     take = np.float32(tau)
     keep = float(np.float32(1.0) - take)
     if use_kernel:
         return agg_ops.weighted_agg_tree(
-            {"G": G}, {"G": cons.expand_as(G).contiguous()}, keep,
-            1.0)["G"]
-    return G * keep + cons * float(take)
+            G, {k: c.expand_as(G[k]).contiguous() for k, c in cons.items()},
+            keep, 1.0)
+    return {k: x * keep + cons[k] * float(take) for k, x in G.items()}
 
 
 def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
@@ -336,9 +357,11 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     for T, segs in schedule:
         T_dev = next(indices)
         if len(T):
-            _train_wave(layout, ring, locals_buf,
-                        d[np.asarray(T, np.int64)] + 1, T_dev, imgs, labs,
-                        lr, queue.epochs)
+            loc = _train_wave(ring, d[np.asarray(T, np.int64)] + 1, T_dev,
+                              imgs, labs, lr, queue.epochs,
+                              unpack=layout.unpack)
+            locals_buf.index_copy_(0, T_dev,
+                                   layout.pack(loc, dtype=store_dtype))
         for a, b, groups in segs:
             traces.append(_chain_segment(
                 queue, G, locals_buf, ring, a, b, groups, indices, needed,
@@ -346,7 +369,7 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                 beta=beta, fedasync_mix=fedasync_mix, mst=mst,
                 fault_tab=fault_tab))
             if b in reconciles:
-                G = _reconcile(G, tau, use_kernel)
+                G = _reconcile({"G": G}, tau, use_kernel)["G"]
                 if b in needed:
                     # the boundary's re-download follows the reconcile: a
                     # copy of the reconciled row its upload landed on
@@ -372,6 +395,98 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     return G, cons, cohorts, trace, channels
 
 
+def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
+                lr: float, *, scheme: str, interpretation: str, beta: float,
+                fedasync_mix: float, eval_rounds: tuple,
+                reconcile_every: int, tau: float, use_kernel: bool,
+                record_cohorts: bool, metrics=None, l_iters: int = 1):
+    """The pytree program (``flat=False``): the cohort stack is a dict of
+    ``[R, ...]`` leaves.  Each pop reads the row of the RSU it landed on
+    (``index_select`` on the device index), mixes its upload into it
+    (:func:`aggregation.arrival_mix`, the fleet engine's definition: per
+    leaf, or K2's device form under ``use_kernel``), keeps the row where
+    the staleness cap discards the pop, and writes it back in place
+    (``index_copy_``).  The ring keeps every post-round model: ``ring[r+1]``
+    is pop ``r``'s new row, a new tensor that no later write touches, and
+    at a reconcile round ``b`` a copy of the reconciled row of
+    ``up_rsu[b-1]``.  Segments split at the eval, reconcile and
+    re-admission rounds, as the flat program's.  Returns the final stack,
+    the consensus models of the eval rounds, the stack copies of the eval
+    rounds (``record_cohorts``), the trace columns and the device channels
+    (or None)."""
+    M = len(plan.veh)
+    R = plan.n_rsus
+    d = plan.dl_round
+    device = imgs.device
+    mst = fault_tab = None
+    if metrics is not None:
+        mst, fault_tab, _, _ = metrics_setup(
+            metrics, plan, l_iters, False, None, device,
+            tel_dev.corridor_state)
+        queue.occupancy = True
+    reconciles = reconcile_rounds(M, reconcile_every)
+    # the flat program's segments; their chain groups go unused here
+    schedule = corridor_schedule(plan, eval_rounds, reconcile_every)
+    readmit_at = readmit_points(plan)
+    idx = upload_indices([T for T, _ in schedule]
+                         + [readmit_at[b] for b in sorted(readmit_at)],
+                         device)
+    wave_idx = idx[:len(schedule)]
+    readmits = dict(zip(sorted(readmit_at), idx[len(schedule):]))
+
+    G = {k: x.expand((R,) + tuple(x.shape)).contiguous()
+         for k, x in w0.items()}
+    uploads = {k: torch.zeros((M,) + tuple(x.shape), dtype=x.dtype,
+                              device=device) for k, x in w0.items()}
+    ring = {0: dict(w0)}
+
+    def merge(r, pop):
+        j = pop[1]
+        row = {k: x.index_select(0, j) for k, x in G.items()}
+        new = arrival_mix(
+            row, {k: B[r:r + 1] for k, B in uploads.items()}, pop[6],
+            scheme=scheme, interpretation=interpretation, beta=beta,
+            t=pop[2], dl_t=pop[5], fedasync_mix=fedasync_mix,
+            use_kernel=use_kernel,
+            keep=None if queue.keep is None else queue.keep[r])
+        for k, x in G.items():
+            x.index_copy_(0, j, new[k])
+        ring[r + 1] = {k: v[0] for k, v in new.items()}
+
+    cons, cohorts, traces = [], [], []
+    for (T, segs), T_dev in zip(schedule, wave_idx):
+        if len(T):
+            loc = _train_wave(ring, d[np.asarray(T, np.int64)] + 1, T_dev,
+                              imgs, labs, lr, queue.epochs)
+            for k, B in uploads.items():
+                B.index_copy_(0, T_dev, loc[k])
+        for a, b, _ in segs:
+            traces.append(_pop_segment(
+                queue, a, b, mafl=scheme == "mafl", mst=mst,
+                fault_tab=fault_tab, on_pop=merge))
+            if b in reconciles:
+                G = _reconcile(G, tau, use_kernel)
+                # the boundary's re-download follows the reconcile: a copy
+                # of the reconciled row its upload landed on (G is written
+                # in place later)
+                j = int(plan.up_rsu[b - 1])
+                ring[b] = {k: x[j].clone() for k, x in G.items()}
+            if b in readmit_at:
+                queue.readmit(readmits[b], traces[-1][2][-1:])
+            if b in eval_rounds:
+                cons.append({k: x.mean(dim=0) for k, x in G.items()})
+                if record_cohorts:
+                    cohorts.append({k: x.clone() for k, x in G.items()})
+    trace = tuple(torch.cat([tr[k] for tr in traces])
+                  for k in range(len(traces[0])))
+    channels = None
+    if mst is not None:
+        trace, (occ, handover, gap) = trace[:7], trace[7:]
+        channels = metrics_channels(mst, None, occ, gap)
+        channels["handover"] = handover
+    return G, cons, cohorts, trace, channels
+
+
 def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
@@ -387,9 +502,10 @@ def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh):
     if mesh is not None:
         raise unported("the 'rsu'-sharded corridor (mesh)",
                        "distribution (item 13)")
-    if flat is False:
-        raise unported("engine='corridor' with flat=False (the pytree "
-                       "program)", "pytree corridor program (item 15)")
+    if ring_dtype == "bf16" and flat is False:
+        raise ValueError("ring_dtype='bf16' requires the flat fast path "
+                         "(unsharded corridor): only the packed ring "
+                         "stores bf16 snapshots around the f32 stack")
 
 
 def run_corridor_simulation(
@@ -418,10 +534,15 @@ def run_corridor_simulation(
     ``SimResult`` the serial handover loop produces (same record fields,
     same eval cadence, per-RSU round numbers, ``rec.rsu`` set).
 
-    Aggregation is always the fused ``ring_agg`` chain (its plain version
-    on the CPU); ``use_kernel`` routes the EMA reconcile through
-    ``weighted_agg``.  ``sc.ring_dtype="bf16"`` stores ring and upload rows
-    in bf16 around the f32 stack.  ``result.extras`` holds ``n_rsus``, the
+    ``flat=None`` or ``True`` runs the packed flat program: aggregation is
+    always the fused ``ring_agg`` chain (its plain version on the CPU).
+    ``flat=False`` runs the pytree program: each arrival is merged into its
+    cohort row on its own, by per-leaf f32 ops or, under ``use_kernel``,
+    by one ``weighted_agg`` launch with its scalars on the card.  On both,
+    ``use_kernel`` routes the EMA reconcile through ``weighted_agg``.
+    ``sc.ring_dtype="bf16"`` (flat only; with ``flat=False`` it raises
+    ``ValueError``) stores ring and upload rows in bf16 around the f32
+    stack.  ``result.extras`` holds ``n_rsus``, the
     serving-RSU trace ``up_rsu``, ``eval_rounds``, ``final_cohorts`` (the
     ``[R, ...]`` stack as a param dict) and, with ``record_cohorts``,
     ``cohort_snapshots`` per eval round.  Under ``selection`` (or the
@@ -441,7 +562,7 @@ def run_corridor_simulation(
     ``result.report`` (engine ``"corridor"``) holds them.  Any falsy value
     runs the loop without telemetry, op for op.
 
-    Not ported yet, and raising: ``flat=False`` and ``mesh``."""
+    Not ported yet, and raising: ``mesh``."""
     scheme = sc.scheme
     mode = getattr(sc, "reconcile_mode", "fedavg")
     spec = selection if selection is not None else scenario_spec(sc)
@@ -475,17 +596,24 @@ def run_corridor_simulation(
         x0 = torch.from_numpy(CorridorMobility(p, R, entry=entry).x0
                               .astype(np.float32)).to(device)
         queue = _CorridorQueue(p, plan, gains, x0, device)
-    layout = ParamLayout.from_tree(w0)
     eval_rounds = eval_rounds_of(M, eval_every)
     tau = float(getattr(sc, "reconcile_tau", 0.5)) if mode == "ema" else 1.0
+    common = dict(scheme=scheme, interpretation=interpretation, beta=p.beta,
+                  fedasync_mix=DEFAULT_FEDASYNC_MIX, eval_rounds=eval_rounds,
+                  reconcile_every=sc.reconcile_every, tau=tau,
+                  use_kernel=use_kernel, record_cohorts=record_cohorts,
+                  metrics=met, l_iters=sc.l_iters)
     with timers.phase("run"):
-        G, cons, cohorts, trace, met_dev = _run_program(
-            plan, queue, layout, w0, imgs, labs, sc.lr, scheme=scheme,
-            interpretation=interpretation, beta=p.beta,
-            fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
-            eval_rounds=eval_rounds, reconcile_every=sc.reconcile_every,
-            tau=tau, use_kernel=use_kernel, record_cohorts=record_cohorts,
-            metrics=met, l_iters=sc.l_iters)
+        if flat is False:
+            G, cons, cohorts, trace, met_dev = _run_pytree(
+                plan, queue, w0, imgs, labs, sc.lr, **common)
+            unpack = dict                # already param dicts: a new dict
+        else:
+            layout = ParamLayout.from_tree(w0)
+            G, cons, cohorts, trace, met_dev = _run_program(
+                plan, queue, layout, w0, imgs, labs, sc.lr,
+                ring_dtype=ring_dtype, **common)
+            unpack = layout.unpack
         # reading the trace waits for the card: the run ends here
         t_veh, t_rsu, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()
                                                          for x in trace)
@@ -536,7 +664,7 @@ def run_corridor_simulation(
                               weight=float(t_w[r]), rsu=j)
             rr = r + 1
             if rr in eval_idx:
-                acc, loss = evaluate(layout.unpack(cons[eval_idx[rr]]),
+                acc, loss = evaluate(unpack(cons[eval_idx[rr]]),
                                      test_images, test_labels,
                                      device=device)
                 rec.accuracy, rec.loss = acc, loss
@@ -545,16 +673,15 @@ def run_corridor_simulation(
                 if progress:
                     progress(rr, acc)
             result.rounds.append(rec)
-    result.final_params = layout.unpack(cons[eval_idx[M]])
+    result.final_params = unpack(cons[eval_idx[M]])
     result.extras = {
         "n_rsus": R,
         "up_rsu": t_rsu,
         "eval_rounds": list(eval_rounds),
-        "final_cohorts": layout.unpack(G),
+        "final_cohorts": unpack(G),
     }
     if record_cohorts:
-        result.extras["cohort_snapshots"] = [layout.unpack(c)
-                                             for c in cohorts]
+        result.extras["cohort_snapshots"] = [unpack(c) for c in cohorts]
     if plan.flt is not None:
         result.extras["faults"] = plan.flt.summary(sc.l_iters)
     result.report = device_report(

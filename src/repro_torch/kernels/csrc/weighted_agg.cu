@@ -30,8 +30,15 @@
 // element also zeroes the padding up to the next leaf, so the launches of a
 // merge write the whole buffer, each element once.
 //
-// Rounding: beta and coef arrive already rounded to f32 by the host, in the
-// JAX kernel's order.  __fmul_rn / __fadd_rn keep nvcc from contracting
+// Scalars: the host form takes beta and coef as f32 kernel parameters,
+// rounded by the host in the JAX kernel's order.  The device form (the
+// *_dev exports) takes a pointer to an f32 [2] = [beta, weight] on the card,
+// as the Pallas kernel reads its (1, 2) scalar block, and forms
+// coef = (1 - beta) * weight itself in f32 in the same order, so a device
+// loop that computes the weight on the card never waits for it.  For equal
+// values the two forms are bitwise equal.
+//
+// Rounding: __fmul_rn / __fadd_rn keep nvcc from contracting
 // beta*g + coef*l into an FMA, so the result is bitwise the plain PyTorch
 // version (two multiplies and an add, each rounded) run eagerly on the card.
 
@@ -59,6 +66,7 @@ struct Table {
   int count;
   float beta;
   float coef;
+  const float* scalars;             // device [beta, weight], or null
 };
 static_assert(sizeof(Table) <= 4096, "kernel parameters are limited to 4 KB");
 
@@ -132,7 +140,11 @@ weighted_agg_kernel(const __grid_constant__ Table t) {
   const int64_t n = leaf.n;
   const int64_t start = (blk - t.first[lo]) * kBlockElems;
   const int64_t stop = n < start + kBlockElems ? n : start + kBlockElems;
-  const float beta = t.beta, coef = t.coef;
+  float beta = t.beta, coef = t.coef;
+  if (t.scalars != nullptr) {       // the device form: [beta, weight]
+    beta = __ldg(t.scalars);
+    coef = __fmul_rn(__fsub_rn(1.f, beta), __ldg(t.scalars + 1));
+  }
 
   int64_t scalar_from = start;
   if (((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(l) |
@@ -185,10 +197,12 @@ inline int64_t table_blocks(const int64_t* sizes, int count, int elem_bytes,
   return total;
 }
 
-// ptrs: 3 per leaf (g, l, out) as integers; sizes: elements per leaf.
+// ptrs: 3 per leaf (g, l, out) as integers; sizes: elements per leaf;
+// scalars: null (the host form, beta and coef as given) or the device form's
+// [beta, weight] on the card.
 template <typename T>
 int launch(int device, const int64_t* ptrs, const int64_t* sizes, int count,
-           float beta, float coef, void* stream) {
+           float beta, float coef, const float* scalars, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (count < 1 || count > kMaxLeaves) return cudaErrorInvalidValue;
@@ -202,6 +216,7 @@ int launch(int device, const int64_t* ptrs, const int64_t* sizes, int count,
   t.count = count;
   t.beta = beta;
   t.coef = coef;
+  t.scalars = scalars;
   weighted_agg_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
@@ -212,16 +227,37 @@ int launch(int device, const int64_t* ptrs, const int64_t* sizes, int count,
 extern "C" {
 
 // Each launches one table of 1..kMaxLeaves leaves and returns
-// cudaGetLastError() after the launch (0 = launched).
+// cudaGetLastError() after the launch (0 = launched): the host form with
+// beta and coef as parameters, the *_dev form with [beta, weight] read on
+// the card.
 int weighted_agg_f32(int device, const int64_t* ptrs, const int64_t* sizes,
                      int count, float beta, float coef, void* stream) {
-  return launch<float>(device, ptrs, sizes, count, beta, coef, stream);
+  return launch<float>(device, ptrs, sizes, count, beta, coef, nullptr,
+                       stream);
 }
 
 int weighted_agg_bf16(int device, const int64_t* ptrs, const int64_t* sizes,
                       int count, float beta, float coef, void* stream) {
   return launch<__nv_bfloat16>(device, ptrs, sizes, count, beta, coef,
-                               stream);
+                               nullptr, stream);
+}
+
+// The device form: scalars points to an f32 [2] = [beta, weight] on the
+// card (4-byte aligned), which every block reads.
+int weighted_agg_f32_dev(int device, const int64_t* ptrs,
+                         const int64_t* sizes, int count,
+                         const float* scalars, void* stream) {
+  if (scalars == nullptr) return cudaErrorInvalidValue;
+  return launch<float>(device, ptrs, sizes, count, 0.f, 0.f, scalars,
+                       stream);
+}
+
+int weighted_agg_bf16_dev(int device, const int64_t* ptrs,
+                          const int64_t* sizes, int count,
+                          const float* scalars, void* stream) {
+  if (scalars == nullptr) return cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(device, ptrs, sizes, count, 0.f, 0.f,
+                               scalars, stream);
 }
 
 // Host only: the grids of a merge of ``count`` leaves of ``sizes`` elements

@@ -3,7 +3,10 @@
 
 ``weighted_agg_tree`` mixes every leaf of two param dicts with the same
 keys into one flat output buffer per dtype and returns views of it;
-``weighted_agg`` is a table of one leaf.  ``ring_agg`` streams a chain of U
+``weighted_agg`` is a table of one leaf.  Its scalars are Python floats
+(the host form) or one-element f32 tensors on the leaves' device (the
+device form, which the kernel reads on the card: the device engines' pytree
+programs compute each arrival's weight there).  ``ring_agg`` streams a chain of U
 mixes over packed ``[P]`` buffers (the fleet engine's aggregation), or over
 ``[W, P]`` buffers, one chain per world in one launch (the sweep tier's).
 On a CPU tensor each wrapper runs its plain version (``ref``); on a CUDA
@@ -39,9 +42,16 @@ _ARGS = [ctypes.c_int, _INT64S, _INT64S, ctypes.c_int, ctypes.c_float,
          ctypes.c_float, ctypes.c_void_p]
 _EXPORTS = {torch.float32: "weighted_agg_f32",
             torch.bfloat16: "weighted_agg_bf16"}
+# the device form: (device, ptrs, sizes, count, [beta, weight] on the card,
+# stream)
+_DEV_ARGS = [ctypes.c_int, _INT64S, _INT64S, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p]
+_DEV_EXPORTS = {torch.float32: "weighted_agg_f32_dev",
+                torch.bfloat16: "weighted_agg_bf16_dev"}
 
 KERNEL = CudaKernel("weighted_agg", "weighted_agg.cu",
                     {**{fn: _ARGS for fn in _EXPORTS.values()},
+                     **{fn: _DEV_ARGS for fn in _DEV_EXPORTS.values()},
                      "weighted_agg_geometry": [_INT64S, ctypes.c_int,
                                                ctypes.c_int, GRIDS_ARG]})
 
@@ -150,10 +160,34 @@ def ring_cu_grids(P: int, U: int, dtype, W: int = 1) -> list[tuple]:
     return RING_KERNEL.grids("ring_agg_geometry", 1, P, dtype.itemsize, W)
 
 
-def weighted_agg(g, l, beta: float, weight: float):
+def weighted_agg(g, l, beta, weight):
     """out = beta*g + ((1-beta)*weight)*l in f32, cast to ``g.dtype``: a
     merge of one leaf."""
     return weighted_agg_tree({"": g}, {"": l}, beta, weight)[""]
+
+
+def _device_form(beta, weight, device) -> bool:
+    """Whether a merge takes the device form (either scalar a tensor);
+    raises on a tensor that is not one f32 element on ``device``."""
+    tensors = [x for x in (beta, weight) if isinstance(x, torch.Tensor)]
+    for x in tensors:
+        if x.dtype != torch.float32 or x.numel() != 1:
+            raise TypeError(f"weighted_agg: a tensor scalar must be one f32 "
+                            f"element; got {tuple(x.shape)} {x.dtype}")
+        if x.device != device:
+            raise ValueError(f"weighted_agg: a tensor scalar on {x.device} "
+                             f"for leaves on {device}")
+    return bool(tensors)
+
+
+def _scalar_pair(beta, weight, device):
+    """The device form's ``[beta, weight]``: one contiguous f32 ``[2]``
+    tensor on ``device``, built by torch ops on the card (a Python float
+    is filled in, rounded to f32), with no host read."""
+    return torch.cat([x.reshape(1) if isinstance(x, torch.Tensor)
+                      else torch.full((1,), float(np.float32(x)),
+                                      dtype=torch.float32, device=device)
+                      for x in (beta, weight)])
 
 
 def _check_tree(global_params, local_params) -> tuple:
@@ -215,17 +249,27 @@ def _plan(sig: tuple) -> list:
     return plans
 
 
-def weighted_agg_tree(global_params, local_params, beta: float,
-                      weight: float):
+def weighted_agg_tree(global_params, local_params, beta, weight):
     """Drop-in for ``aggregation.mafl_update(..., use_kernel=True)``: every
     leaf mixed as ``weighted_agg`` mixes one.  The result holds, under the
     same keys, contiguous views of one new flat buffer per dtype (each
     leaf 16-byte aligned in it) of the inputs' shapes and dtypes; the
     inputs are never written.  On the card that is one launch per
     ``MAX_LEAVES`` non-empty leaves of a dtype, the leaves' pointers and
-    sizes passed by value: no copy to the card, no host sync."""
+    sizes passed by value: no copy to the card, no host sync.
+
+    ``beta`` and ``weight`` are Python floats (the host form: rounded to
+    f32 on the host, :func:`ref.agg_scalars`) or one-element f32 tensors
+    on the leaves' device, either or both (the device form: the kernel
+    reads ``[beta, weight]`` on the card and forms ``(1 - beta) * weight``
+    in the same f32 order, so equal values give equal bits)."""
     sig, device = _check_tree(global_params, local_params)
-    b, coef = ref.agg_scalars(beta, weight)
+    scal = None
+    if _device_form(beta, weight, device):
+        if device.type == "cuda":
+            scal = _scalar_pair(beta, weight, device)
+    else:
+        b, coef = ref.agg_scalars(beta, weight)
     gs = list(global_params.values())
     ls = list(local_params.values())
     outs = [None] * len(gs)
@@ -250,8 +294,12 @@ def weighted_agg_tree(global_params, local_params, beta: float,
                 p for i, _, off in chunk for p in (
                     gs[i].data_ptr(), ls[i].data_ptr(), base + off * size)))
             ns = (ctypes.c_int64 * len(chunk))(*(n for _, n, _ in chunk))
-            KERNEL.launch(_EXPORTS[dtype], device, ptrs, ns, len(chunk), b,
-                          coef, stream)
+            if scal is None:
+                KERNEL.launch(_EXPORTS[dtype], device, ptrs, ns, len(chunk),
+                              b, coef, stream)
+            else:
+                KERNEL.launch(_DEV_EXPORTS[dtype], device, ptrs, ns,
+                              len(chunk), scal.data_ptr(), stream)
     return dict(zip(global_params, outs))
 
 

@@ -10,19 +10,29 @@ import numpy as np
 import torch
 
 
-def agg_scalars(beta: float, weight: float) -> tuple[float, float]:
+def agg_scalars(beta, weight):
     """``(beta, (1 - beta) * weight)`` rounded to f32 in the order the JAX
     kernel rounds them: ``f32(beta)``, then ``1 - beta`` in f32, then the
-    product with ``f32(weight)`` in f32.  Returned as Python floats (each
-    exactly an f32 value)."""
+    product with ``f32(weight)`` in f32.  From Python floats: Python floats
+    (each exactly an f32 value).  Where either is an f32 tensor of one
+    element (the device form's scalars): 0-d f32 tensors on its device,
+    the same values for equal inputs, computed without a host read."""
+    if isinstance(beta, torch.Tensor) or isinstance(weight, torch.Tensor):
+        b, w = (x.reshape(()) if isinstance(x, torch.Tensor)
+                else float(np.float32(x)) for x in (beta, weight))
+        if not isinstance(b, torch.Tensor):
+            b = torch.full((), b, dtype=torch.float32, device=w.device)
+        return b, (1.0 - b) * w
     b = np.float32(beta)
     coef = (np.float32(1.0) - b) * np.float32(weight)
     return float(b), float(coef)
 
 
-def weighted_agg(g, l, beta: float, weight: float):
+def weighted_agg(g, l, beta, weight):
     """out = beta*g + ((1-beta)*weight)*l, computed in f32, cast back to
-    ``g``'s dtype.  Eager: two multiplies and an add, each rounded."""
+    ``g``'s dtype.  Eager: two multiplies and an add, each rounded.
+    ``beta`` and ``weight`` are Python floats or one-element f32 tensors
+    (:func:`agg_scalars`)."""
     b, coef = agg_scalars(beta, weight)
     return (g.float() * b + l.float() * coef).to(g.dtype)
 

@@ -1,6 +1,6 @@
 """Shared by the port's engine tests that are split by engine group (host
 engines, ``jit``, the corridor engines): ``test_torch_{selection,faults,
-telemetry}_*.py``.  The worlds, the run pairs against ``repro`` from one
+telemetry,pytree}_*.py``.  The worlds, the run pairs against ``repro`` from one
 (JAX-drawn) init with the kernel path on, and the comparisons; tolerances
 are ``_torch_world.py``'s.  A fixture imported from here into a test
 module is that module's fixture."""
@@ -11,6 +11,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core.mafl as jmafl
 import repro.core.scenarios as jsc
@@ -264,3 +265,113 @@ def assert_faults_off(name, engine):
 # engines, the divergence guard's tolerance (repro's own)
 OFF = [None, False, "off", MetricsSpec(enabled=False)]
 GAP_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the device engines' pytree programs (flat=False)
+# ---------------------------------------------------------------------------
+# The pytree tests cut each world's minibatch to 16 images (the runs they
+# compare merge the same uploads whatever the batch) and run torch on one
+# intra-op thread: with the suite's six pytest workers on eight cores,
+# torch's default of one thread per core made each of their runs 20-45x
+# slower than alone.
+PYTREE_BATCH = 16
+
+
+# repro's HEAVY fault spec with the staleness cap cut from 6 to 3, so that
+# quick-k5's five vehicles see discards on the fleet engine; with 3 local
+# steps 12 rounds give 5 dropped uploads, 3 partial rounds and 5 discards
+CAPPED = tfaults.FaultSpec(**{**HEAVY, "staleness_cap": 3})
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one intra-op thread for a module's tests, restored after
+    (use with ``pytestmark = pytest.mark.usefixtures("one_thread")``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def fleet_run(name, flat, init=None, **kw):
+    """A single-RSU world on the port's fleet engine, on the CPU, from
+    ``repro``'s init (``init``) or the port's own, at ``PYTREE_BATCH``;
+    ``kw`` are Scenario fields and run options (``selection``, ``faults``,
+    ``metrics``, ``use_kernel``, ``interpretation``)."""
+    run_kw = {k: kw.pop(k) for k in ("selection", "faults", "metrics",
+                                     "use_kernel", "interpretation",
+                                     "eval_every") if k in kw}
+    sc = dataclasses.replace(tsc.get_scenario(name), **kw)
+    veh, ti, tl, p = tsc.build_world(sc)
+    return tmafl.run_simulation(
+        veh, ti, tl, scheme=sc.scheme, rounds=sc.rounds,
+        l_iters=sc.l_iters, lr=sc.lr, params=p, engine="jit", flat=flat,
+        device="cpu", batch_size=PYTREE_BATCH,
+        init_params=(None if init is None
+                     else params_from_jax(init, "cpu")),
+        **{"eval_every": 4, **run_kw})
+
+
+def corridor_run(name, flat, init=None, package=None, **kw):
+    """A multi-RSU world on the port's corridor engine (or, with
+    ``package="repro"``, on ``repro``'s, from its own init, equal to
+    ``init``), on the CPU, at ``PYTREE_BATCH``; ``kw`` as
+    :func:`fleet_run`, plus ``record_cohorts``."""
+    run_kw = {k: kw.pop(k) for k in ("selection", "faults", "metrics",
+                                     "use_kernel", "interpretation",
+                                     "eval_every", "record_cohorts")
+              if k in kw}
+    run_kw = {"eval_every": 4, "batch_size": PYTREE_BATCH, **run_kw}
+    if package == "repro":
+        from repro.corridor.engine import run_corridor_simulation as jrun
+        sc = dataclasses.replace(jsc.get_scenario(name), **kw)
+        return jrun(sc, *jsc.build_world(sc), flat=flat, **run_kw)
+    sc = dataclasses.replace(tsc.get_scenario(name), **kw)
+    veh, ti, tl, p = tsc.build_world(sc)
+    return run_corridor_simulation(
+        sc, veh, ti, tl, p, flat=flat, device="cpu",
+        init_params=(None if init is None
+                     else params_from_jax(init, "cpu")), **run_kw)
+
+
+def leaves_equal(a: dict, b: dict) -> bool:
+    """Two param dicts bit for bit."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].numpy().tobytes() == b[k].numpy().tobytes() for k in a)
+
+
+def assert_pytree_is_flat(flat, tree, bitwise=True):
+    """The pytree program against the port's flat program on one world:
+    the same trace bit for bit (the slot queue is shared), params, every
+    eval's accuracy and loss, the cohort stacks and the telemetry channels
+    bitwise (both round each product and sum of a merge alone); under
+    ``use_kernel`` (``bitwise=False``) K2's device form forms ``1 - (1 -
+    alpha)`` where the flat chain uses ``alpha``, an f32 ulp of a mix
+    coefficient, so params are held to ``PARAM_TOL`` and accuracy to
+    ``ACC_TOL`` there."""
+    fd, td = digest(flat), digest(tree)
+    assert td[0] == fd[0]
+    assert tree.report.selection == flat.report.selection
+    assert tree.extras.get("faults") == flat.extras.get("faults")
+    assert flat.report.channels.keys() == tree.report.channels.keys()
+    for k, v in flat.report.channels.items():
+        np.testing.assert_array_equal(tree.report.channels[k], v,
+                                      err_msg=k)
+    if bitwise:
+        assert td[1:] == fd[1:]
+        for key in ("final_cohorts",):
+            if key in flat.extras:
+                assert leaves_equal(flat.extras[key], tree.extras[key])
+        for a, b in zip(flat.extras.get("cohort_snapshots", ()),
+                        tree.extras.get("cohort_snapshots", ())):
+            assert leaves_equal(a, b)
+        return
+    for k, v in flat.final_params.items():
+        np.testing.assert_allclose(tree.final_params[k].numpy(), v.numpy(),
+                                   err_msg=k, **PARAM_TOL)
+    assert [r for r, _ in tree.acc_history] == [r for r, _ in
+                                                flat.acc_history]
+    for (_, a), (_, b) in zip(flat.acc_history, tree.acc_history):
+        assert abs(a - b) <= ACC_TOL

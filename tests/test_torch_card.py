@@ -1310,3 +1310,125 @@ def test_sweep_singletons_on_card_are_bitwise_solo(cuda_device):
             for k in s.final_params:
                 assert torch.equal(v.final_params[k], s.final_params[k]), k
             assert v.acc_history == s.acc_history
+
+
+# ---------------------------------------------------------------------------
+# the device engines' pytree programs (flat=False) and K2's device form
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_set", ["cnn", "mixed"])
+def test_weighted_agg_device_form_on_card(cuda_device, leaf_set):
+    """K2 with its scalars on the card (beta, weight or both a one-element
+    f32 tensor): bitwise its float form and its plain version on every
+    leaf, one launch per chunk, as the float form launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    shapes = {**CNN_SHAPES, "empty": (0,), "one": (1,), "ragged": (12345,)}
+    names = list(shapes)
+    g, l = (_tree(CNN_SHAPES, lambda k: torch.float32, lambda k: 0, gen,
+                  cuda_device) if leaf_set == "cnn" else
+            _tree(shapes, lambda k: (torch.float32, torch.bfloat16)[
+                names.index(k) % 2], lambda k: names.index(k) % 3 == 1,
+                gen, cuda_device))
+    chunks = sum(ops.launches(sum(1 for v in g.values() if v.dtype == dt
+                                  and v.numel()))
+                 for dt in {v.dtype for v in g.values()})
+    for beta, weight in SCALARS:
+        want = ops.weighted_agg_tree(g, l, beta, weight)
+        b = torch.tensor(beta, device=cuda_device)
+        w = torch.tensor([weight], device=cuda_device)
+        for bb, ww in ((b, w), (b, weight), (beta, w)):
+            kernels.reset_launches()
+            out = ops.weighted_agg_tree(g, l, bb, ww)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["weighted_agg"] == chunks
+            for k in g:
+                assert torch.equal(_int_view(out[k]), _int_view(want[k])), k
+                assert torch.equal(
+                    _int_view(out[k]),
+                    _int_view(ref.weighted_agg(g[k], l[k], bb, ww))), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["jit", "corridor"])
+def test_pytree_loops_never_wait_for_the_card(cuda_device, monkeypatch,
+                                              engine):
+    """The pytree programs' pops and merges (K2's device form under
+    ``use_kernel``, the keep fold, telemetry) and the corridor's
+    reconciles run with CUDA synchronisation made an error."""
+    from repro_torch.core import jit_engine
+    from repro_torch.core.scenarios import run_scenario
+    from repro_torch.corridor import engine as cengine
+    from repro_torch.faults import FaultSpec
+    mod = jit_engine if engine == "jit" else cengine
+    pops = []
+
+    def strict(real):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            pops.append(out[0].numel() if isinstance(out, tuple) else 0)
+            return out
+        return call
+
+    ops.weighted_agg(torch.zeros(4, device=cuda_device),
+                     torch.zeros(4, device=cuda_device), 0.5, 1.0)
+    monkeypatch.setattr(mod, "_pop_segment", strict(mod._pop_segment))
+    if engine == "corridor":
+        monkeypatch.setattr(mod, "_reconcile", strict(mod._reconcile))
+    faults = FaultSpec(p_dropout=0.25, p_partial=0.5, staleness_cap=3,
+                       recheck_every=2)
+    name = "quick-k5" if engine == "jit" else "corridor-quick-r2-k8"
+    kw = ({} if engine == "jit"
+          else dict(reconcile_mode="ema", reconcile_tau=0.3))
+    kernels.reset_launches()
+    res = run_scenario(name, engine=engine, flat=False, rounds=12,
+                       eval_every=4, use_kernel=True, metrics="on",
+                       faults=faults if engine == "jit" else None,
+                       l_iters=2, device=cuda_device, **kw)
+    assert sum(pops) == len(res.rounds) == 12
+    reconciles = 0 if engine == "jit" else 3
+    assert kernels.launch_counts()["weighted_agg"] == 12 + reconciles
+    assert kernels.launch_counts()["ring_agg"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, kw", [
+    ("quick-k5", {}),
+    ("corridor-quick-r2-k8", dict(reconcile_mode="ema", reconcile_tau=0.3)),
+], ids=["jit", "corridor-ema"])
+def test_pytree_on_card_is_the_flat_program(cuda_device, name, kw):
+    """16 rounds on the card, flat and pytree: the same trace bit for bit;
+    params and accuracy bitwise without the kernel; under ``use_kernel``
+    K2 launches once a pop (plus once a reconcile), K1 never, params
+    within 1e-5 of the flat run (one f32 ulp of a mix coefficient)."""
+    from repro_torch.core.scenarios import run_scenario
+    engine = "jit" if name == "quick-k5" else "corridor"
+
+    def run(flat, use_kernel):
+        return run_scenario(name, engine=engine, flat=flat, rounds=16,
+                            eval_every=4, use_kernel=use_kernel,
+                            device=cuda_device, **kw)
+
+    def trace(res):
+        return [(r.round, r.vehicle, r.rsu, r.time, r.upload_delay,
+                 r.train_delay, r.weight) for r in res.rounds]
+
+    flat = run(True, False)
+    tree = run(False, False)
+    assert trace(tree) == trace(flat)
+    for k in flat.final_params:
+        assert torch.equal(_int_view(tree.final_params[k]),
+                           _int_view(flat.final_params[k])), k
+    assert tree.acc_history == flat.acc_history
+    kernels.reset_launches()
+    tk = run(False, True)
+    reconciles = 0 if engine == "jit" else 4
+    assert kernels.launch_counts()["weighted_agg"] == 16 + reconciles
+    assert kernels.launch_counts()["ring_agg"] == 0
+    assert trace(tk) == trace(flat)
+    for k in flat.final_params:
+        torch.testing.assert_close(tk.final_params[k], flat.final_params[k],
+                                   rtol=0.0, atol=1e-5)

@@ -55,7 +55,7 @@ def test_chains_and_reconciles_follow_the_plan(monkeypatch, kw, merges):
 
 
 @pytest.mark.parametrize("kw, err, match", [
-    (dict(flat=False), NotImplementedError, "item 15"),
+    (dict(flat=False, ring_dtype="bf16"), ValueError, "flat fast path"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
     (dict(metrics="sometimes"), ValueError, "unknown metrics setting"),
     (dict(faults="deadzone", reconcile_mode="ema"), ValueError,

@@ -34,12 +34,12 @@ def _ring_reads(init, monkeypatch, kw):
         snap(ring)
         return out
 
-    def wave(layout, rows, locals_buf, pay_rounds, *a):
+    def wave(rows, pay_rounds, *a, **kw):
         snap(rows)
         for pr in pay_rounds:
             reads.append(int(pr))
             assert torch.equal(rows[int(pr)], stored[int(pr)][1]), pr
-        return real_wave(layout, rows, locals_buf, pay_rounds, *a)
+        return real_wave(rows, pay_rounds, *a, **kw)
 
     monkeypatch.setattr(tengine, "_chain_segment", seg)
     monkeypatch.setattr(tengine, "_train_wave", wave)

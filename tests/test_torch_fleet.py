@@ -132,7 +132,7 @@ def test_run_scenario_selects_jit_for_a_bf16_world(monkeypatch):
 @pytest.mark.parametrize("kw, err, match", [
     (dict(scheme="fedbuff"), ValueError, "fedbuff"),
     (dict(ring_dtype="f16"), ValueError, "ring_dtype"),
-    (dict(flat=False), NotImplementedError, "pytree"),
+    (dict(flat=False, ring_dtype="bf16"), ValueError, "flat fast path"),
     (dict(mesh=object()), NotImplementedError, "distribution"),
     (dict(metrics="sometimes"), ValueError, "unknown metrics setting"),
     (dict(faults="no-such-profile"), KeyError, "unknown fault profile"),

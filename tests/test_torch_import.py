@@ -158,16 +158,18 @@ def test_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("kwargs, slice_name", [
-    (dict(scenario="corridor-quick-r2-k8", flat=False), "pytree"),
-    (dict(scenario="quick-k5", engine="jit", flat=False), "pytree"),
+    (dict(scenario="corridor-quick-r2-k8", flat=False, mesh=object()),
+     "item 13"),
+    (dict(scenario="quick-k5", engine="jit", flat=False, mesh=object()),
+     "item 13"),
     (dict(scenario="quick-k5", engine="jit", mesh=object()),
      "distribution"),
     (dict(scenario="fleet-k1000", engine="jit", mesh=object()),
      "distribution"),
     (dict(scenario="corridor-quick-r2-k8", mesh=object()),
      "distribution"),
-    (dict(scenario="corridor-quick-r2-k8", flat=False, record_cohorts=True),
-     "pytree"),
+    (dict(scenario="corridor-quick-r2-k8", flat=False, record_cohorts=True,
+          mesh=object()), "item 13"),
 ])
 def test_unported_features_raise_naming_their_slice(kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

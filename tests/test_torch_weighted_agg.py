@@ -7,9 +7,11 @@ Tolerances: the port's arithmetic is bitwise JAX's eager jnp oracle
 sum separately.  The Pallas kernel run through the interpreter is compiled
 by XLA:CPU, which may contract ``beta*g + coef*l`` into one FMA and so skip
 one product's rounding: the two differ by at most one f32 ulp of the
-larger term plus one ulp of the result in the storage type."""
+larger term plus one ulp of the result in the storage type.  The device
+form (tensor scalars) is bitwise the float form on equal values."""
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,6 +147,68 @@ def test_tree_matches_repro_pallas_tree(jdt, tdt, beta, weight):
         _assert_fma_close(got, np.asarray(pallas[k].astype(jnp.float32)),
                           jg[k].astype(jnp.float32),
                           jl[k].astype(jnp.float32), beta, weight, jdt)
+
+
+def _as_scalar(x, form):
+    """``x`` as the device form takes it: a 0-d or one-element f32
+    tensor."""
+    return torch.tensor(x if form == "0-d" else [x], dtype=torch.float32)
+
+
+@pytest.mark.parametrize("jdt, tdt", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("beta, weight", SCALARS)
+@pytest.mark.parametrize("which", ["beta", "weight", "both"])
+def test_device_form_is_bitwise_the_float_form(jdt, tdt, beta, weight,
+                                               which):
+    """Tensor scalars (beta, weight or both; 0-d or one element) give the
+    float form's bits on every leaf of a merge, and the plain version
+    forms ``(1 - beta) * weight`` in f32 as ``agg_scalars`` does."""
+    rng = np.random.default_rng(3)
+    g = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(tdt)
+         for k, s in TREE_SHAPES.items()}
+    l = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(tdt)
+         for k, s in TREE_SHAPES.items()}
+    b = _as_scalar(beta, "0-d") if which != "weight" else beta
+    w = _as_scalar(weight, "[1]") if which != "beta" else weight
+    tb, tcoef = ref.agg_scalars(b, w)
+    assert isinstance(tb, torch.Tensor) and tb.shape == ()
+    assert (tb.item(), tcoef.item()) == ref.agg_scalars(beta, weight)
+    want = ops.weighted_agg_tree(g, l, beta, weight)
+    out = ops.weighted_agg_tree(g, l, b, w)
+    for k in TREE_SHAPES:
+        assert out[k].dtype == tdt and out[k].shape == TREE_SHAPES[k]
+        assert torch.equal(out[k], want[k]), k
+
+
+@pytest.mark.parametrize("beta, weight", SCALARS)
+def test_device_form_matches_repro_with_traced_scalars(beta, weight):
+    """The device form against ``repro``'s ``weighted_agg_leaf`` with its
+    scalars traced values (the pytree programs' call, Pallas in interpret
+    mode under ``jax.jit``): within the FMA band of the float form."""
+    n = LANE * 37 + 5
+    g, l, tg, tl = _inputs(n, jnp.float32, torch.float32, seed=11)
+    pallas = jax.jit(lambda g, l, b, w: jops.weighted_agg_leaf(
+        g, l, b, w, interpret=True))(g, l, jnp.float32(beta),
+                                      jnp.float32(weight))
+    out = ops.weighted_agg(tg, tl, _as_scalar(beta, "0-d"),
+                           _as_scalar(weight, "0-d"))
+    np.testing.assert_array_equal(
+        out.numpy(), ops.weighted_agg(tg, tl, beta, weight).numpy())
+    _assert_fma_close(out.numpy(), np.asarray(pallas), g, l, beta, weight,
+                      jnp.float32)
+
+
+@pytest.mark.parametrize("bad", ["f64", "two", "int"])
+def test_device_form_rejects_a_bad_scalar(bad):
+    x = {"f64": torch.tensor(0.5, dtype=torch.float64),
+         "two": torch.tensor([0.5, 1.0]),
+         "int": torch.tensor(1)}[bad]
+    kernels.reset_launches()
+    with pytest.raises(TypeError, match="one f32 element"):
+        ops.weighted_agg(torch.zeros(256), torch.zeros(256), x, 1.0)
+    with pytest.raises(TypeError, match="one f32 element"):
+        ops.weighted_agg(torch.zeros(256), torch.zeros(256), 0.5, x)
+    assert ops.KERNEL.launches == 0
 
 
 def test_flat_layout_starts_every_leaf_16_byte_aligned():
