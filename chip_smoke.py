@@ -139,6 +139,28 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    ``decode_attention`` launches 32 per tick and ``swa_attention`` 32 per
    admitted request; a second run under torch.profiler gives the device
    busy share.
+8b. dense archs (after phase 8): mistral-nemo-12b's
+   ``sliding_window_variant()`` (window 4096) at full width (40 layers,
+   d_model 5120, 32/8 heads, vocab 131,072) with bf16 weights and caches
+   through ``launch/serve.py:generate`` (scalar positions), B 2 and 64 new
+   tokens after prompts of 1024 (the ring padded), 4064 (the ring wraps
+   during decode) and 8192 tokens (K5 with window 4096 < S): K5 40 per
+   prefill, K4 40 per step; qwen1.5-4b (QKV biases, G 1) and
+   musicgen-large (the audio stub's codes, hd 64) in f32 behind phase 8's
+   ``BatchedServer`` (16 and 8 requests; K5 = layers x admits, K4 =
+   layers x ticks); internvl2-2b in f32 through ``generate`` with the
+   vision stub's 256 patch embeddings before 512 text tokens, B 4, 32 new;
+   each model freed before the next, its peak memory printed.  Then K5
+   against its plain version at mistral's heads (B 1, S 4608, window 4096
+   and through the chunk reshape, f32 and bf16) and K4 over a ring of
+   4096 at G 1, 2, 4 before, at and past the wrap, against its plain
+   version and ``repro``'s ring mask (2e-5 / 3e-2); card against CPU on
+   the reduced configs of the five archs, the swa variant (window 64) and
+   a ``[chunk 64, global]`` variant (80-token prompts, 16 teacher-forced
+   steps, within phase 9's band); and K5 at mistral's prefill (B 2, S
+   8192, bf16) at window 4096 and window S, K4 over its ring (B 2, W
+   4096), each beside its plain version and SDPA.  llama3-405b is not run
+   (812 GB of bf16 weights; G 16 > K4's 8).
 9. serve, card against host: the same config cut to 4 layers, one CPU
    init, two of the prompts: prefill and 16 teacher-forced decode steps on
    both, logits within atol 1e-3 / rtol 1e-3.
@@ -2482,7 +2504,7 @@ def timed(fn, out):
     return call
 
 
-def serve_run(cfg, model, prompts, stats=None):
+def serve_run(cfg, model, prompts, stats=None, max_new=SERVE_NEW):
     """One drained ``BatchedServer`` run; returns (requests, ticks,
     seconds).  With ``stats``, prefill and decode-step times land in it."""
     import torch
@@ -2492,7 +2514,7 @@ def serve_run(cfg, model, prompts, stats=None):
     if stats is not None:
         srv._prefill = timed(srv._prefill, stats["prefill_ms"])
         srv._step = timed(srv._step, stats["tick_ms"])
-    reqs = [srv.submit(p, SERVE_NEW) for p in prompts]
+    reqs = [srv.submit(p, max_new) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ticks = srv.run_until_drained()
@@ -2612,6 +2634,591 @@ def phase_serve_vs_cpu(dev):
         f"on {SERVE_CPU_PROMPTS} prompts: logits max |diff| {worst} (atol "
         f"{SERVE_CPU_TOL['atol']}, rtol {SERVE_CPU_TOL['rtol']}); greedy "
         f"tokens agree in {agree} of {steps} steps")
+
+
+# The dense archs (phase_archs).  mistral-nemo-12b's sliding-window variant
+# (window 4096) at full width, bf16 weights and caches (f32 weights are
+# 49.0 GB), through the serve path (``launch/serve.py:generate``, scalar
+# positions): three batches of 2 prompts, under the window (the ring
+# padded), just under it (the ring wraps during decode) and twice it (K5
+# with window 4096 < S, the ring rolled), 64 new tokens each.  Then, in
+# f32: qwen1.5-4b (QKV biases, G 1) behind the serve phase's
+# BatchedServer and requests, internvl2-2b (G 2) through the serve path
+# with the vision stub's 256 patch embeddings before 512 text tokens, and
+# musicgen-large (G 1, hd 64) behind a BatchedServer on the audio stub's
+# codes.  Each model is freed before the next.
+ARCH_SWA_WINDOW, ARCH_SWA_B, ARCH_SWA_NEW = 4096, 2, 64
+ARCH_SWA_PROMPTS = (1024, 4064, 8192)
+ARCH_VISION_B, ARCH_VISION_TEXT, ARCH_VISION_NEW = 4, 512, 32
+ARCH_AUDIO_REQUESTS, ARCH_AUDIO_NEW = 8, 32
+# card against CPU: the reduced configs of the five archs, the swa variant
+# (window 64) and a [chunk 64, global] variant (two periods), prompts of 80
+# tokens (past the window; 80 % 64 = 16, so the ring is rolled), 16
+# teacher-forced steps, within SERVE_CPU_TOL
+ARCH_CPU_PROMPT, ARCH_CPU_STEPS = 80, 16
+# K5 against its plain version at mistral-nemo-12b's heads, B 1 and S 4608
+# (the plain version's [S, S] scores fit): window 4096 < S and the chunk
+# reshape (chunks of 4096, the second padded); K4 over a ring of 4096 at
+# B 2, Kv 8, hd 128 before, at and past the wrap
+ARCH_K5_CHECK = (1, 4608, 32, 8, 128)          # B, S, H, Kv, hd
+ARCH_K4_RING = (2, 4096, 8, 128)               # B, W, Kv, hd
+ARCH_K4_GROUPS = (1, 2, 4)
+ARCH_K4_POSITIONS = (5, 4095, 4096, 4100, 3 * 4096 + 7)
+# timed: K5 at mistral's prefill (B 2, S 8192, window 4096, bf16) beside
+# the same call at window S and SDPA with a bool sliding-window mask; K4
+# over the bf16 ring (B 2, W 4096, pos W - 1) beside SDPA
+ARCH_K5_TIMED = (2, 8192, 32, 8, 128)
+ARCH_K5_TIMED_LABEL = "mistral prefill B=2 S=8192 W=4096 bf16"
+ARCH_K4_TIMED_LABEL = "mistral swa ring B=2 W=4096 bf16"
+
+
+def arch_cpu_configs():
+    """The configs held card against CPU at reduced size."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.mistral_nemo_12b import sliding_window_variant
+    cfgs = {n: get_config(n).reduced() for n in (
+        "mistral-nemo-12b", "qwen1.5-4b", "internvl2-2b", "musicgen-large",
+        "llama3-405b")}
+    cfgs["mistral-nemo-12b swa 64"] = sliding_window_variant().reduced()
+    cfgs["mistral-nemo-12b [chunk 64, global]"] = get_config(
+        "mistral-nemo-12b").reduced().variant(
+            attn_chunk=64, global_attn_every=2, scan_period=2, n_layers=4)
+    return cfgs
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def arch_counts(tag, counts, k5, k4):
+    """The launches of one counted run: K5 and K4 as stated, no other
+    kernel."""
+    check(counts["swa_attention"] == k5 and counts["decode_attention"] == k4
+          and counts["weighted_agg"] == counts["ring_agg"]
+          == counts["cross_entropy"] == 0,
+          f"archs: {tag}: launches {counts}, want swa_attention {k5}, "
+          f"decode_attention {k4}")
+
+
+def archs_swa(dev):
+    """mistral-nemo-12b's sliding-window variant at full width in bf16;
+    returns (K4, K5) launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.mistral_nemo_12b import sliding_window_variant
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+
+    cfg = sliding_window_variant(ARCH_SWA_WINDOW)
+    W = cfg.sliding_window
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    log(f"archs: {cfg.name} sliding_window_variant({W}): {cfg.n_layers} "
+        f"layers d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"hd {cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}"
+        f": {T.param_count(cfg)} bf16 parameters "
+        f"({(torch.cuda.memory_allocated(dev) - base) / 1e9:.3f} GB), torch "
+        f"init on the card {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(1)
+
+    def batch(P):
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (ARCH_SWA_B, P)).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    generate(cfg, model, batch(128), 4)          # warm-up, not counted
+    log(f"archs:   warm-up (B {ARCH_SWA_B}, 128 tokens, 3 steps) "
+        f"{time.perf_counter() - t0:.3f} s")
+    steps = ARCH_SWA_NEW - 1
+    k4 = k5 = 0
+    for P in ARCH_SWA_PROMPTS:
+        prompts = batch(P)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        toks, prefill_s, decode_s = generate(cfg, model, prompts,
+                                             ARCH_SWA_NEW)
+        counts = kernels.launch_counts()
+        arch_counts(f"{cfg.name} swa P={P}", counts, cfg.n_layers,
+                    cfg.n_layers * steps)
+        k4 += counts["decode_attention"]
+        k5 += counts["swa_attention"]
+        out = toks.cpu().numpy()
+        check(out.shape == (ARCH_SWA_B, ARCH_SWA_NEW) and (out >= 0).all()
+              and (out < cfg.vocab_size).all(),
+              f"archs: {cfg.name} P={P} tokens {out}")
+        last = P + steps - 1                     # the last decode position
+        ring = ("S < W: the ring padded, never full" if last < W else
+                "the ring wraps during decode" if P < W else
+                f"K5 window {W} < S, the ring rolled by S % W = {P % W}")
+        log(f"archs: {cfg.name} swa {W}, B {ARCH_SWA_B} x {P} prompt "
+            f"tokens, {ARCH_SWA_NEW} new ({ring}): prefill "
+            f"{prefill_s * 1e3:.3f} ms, decode {decode_s / steps * 1e3:.3f} "
+            f"ms per tick over {steps} ticks, "
+            f"{ARCH_SWA_B * ARCH_SWA_NEW / (prefill_s + decode_s):.1f} "
+            f"tokens/s ({ARCH_SWA_B * steps / decode_s:.1f} decoding); "
+            f"launches swa_attention {counts['swa_attention']} = "
+            f"{cfg.n_layers} x 1 prefill, decode_attention "
+            f"{counts['decode_attention']} = {cfg.n_layers} x {steps}")
+    logits, _ = T.prefill(cfg, model, prompts[:, :64])
+    check(bool(torch.isfinite(logits).all()),
+          f"archs: {cfg.name}: non-finite logits at full width")
+    log(f"archs: {cfg.name} swa: peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} "
+        f"GB allocated (max_memory_allocated, earlier phases' "
+        f"{base / 1e9:.3f} GB included)")
+    del model, logits, toks, prompts
+    free_card()
+    return k4, k5
+
+
+def archs_server(dev, name, prompts, max_new):
+    """``name`` at full width in f32 behind the serve phase's BatchedServer
+    (8 slots of 2048); returns (K4, K5) launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(name)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    log(f"archs: {name}: {cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.resolved_head_dim} vocab "
+        f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, frontend "
+        f"{cfg.frontend}: {T.param_count(cfg)} f32 parameters, init "
+        f"{time.perf_counter() - t0:.3f} s")
+    serve_run(cfg, model, prompts[:2], max_new=4)   # warm-up, not counted
+    stats = {"prefill_ms": [], "tick_ms": []}
+    kernels.reset_launches()
+    reqs, ticks, wall = serve_run(cfg, model, prompts, stats, max_new)
+    counts = kernels.launch_counts()
+    arch_counts(f"{name} BatchedServer", counts,
+                cfg.n_layers * len(prompts), cfg.n_layers * ticks)
+    for r in reqs:
+        check(r.done and len(r.out) == max_new
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"archs: {name} request {r.rid} out {r.out}")
+    lengths = [len(p) for p in prompts]
+    log(f"archs: {name}: {len(prompts)} requests (prompts {min(lengths)}-"
+        f"{max(lengths)} tokens, {max_new} new each) over {SERVE_SLOTS} "
+        f"slots of {SERVE_MAX_SEQ}: {ticks} ticks in {wall:.3f} s, "
+        f"{len(prompts) * max_new / wall:.1f} tokens/s; prefill ms per "
+        f"request mean {np.mean(stats['prefill_ms']):.3f}, decode ms per "
+        f"tick mean {np.mean(stats['tick_ms']):.3f} (median "
+        f"{np.median(stats['tick_ms']):.3f}); launches swa_attention "
+        f"{counts['swa_attention']} = {cfg.n_layers} x {len(prompts)} "
+        f"admits, decode_attention {counts['decode_attention']} = "
+        f"{cfg.n_layers} x {ticks} ticks; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB allocated "
+        f"({base / 1e9:.3f} GB before)")
+    del model, reqs
+    free_card()
+    return counts["decode_attention"], counts["swa_attention"]
+
+
+def archs_vision(dev):
+    """internvl2-2b at full width in f32 through the serve path with the
+    vision stub; returns (K4, K5) launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import VisionFrontendStub
+
+    cfg = get_config("internvl2-2b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    stub = VisionFrontendStub(cfg)
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (ARCH_VISION_B, ARCH_VISION_TEXT)).astype(
+            np.int32)).to(dev)
+    generate(cfg, model, prompts[:, :64], 4, stub(gen, ARCH_VISION_B))
+    fe = stub(gen, ARCH_VISION_B)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    toks, prefill_s, decode_s = generate(cfg, model, prompts,
+                                         ARCH_VISION_NEW, fe)
+    counts = kernels.launch_counts()
+    steps = ARCH_VISION_NEW - 1
+    arch_counts(f"{cfg.name} serve", counts, cfg.n_layers,
+                cfg.n_layers * steps)
+    out = toks.cpu().numpy()
+    check(out.shape == (ARCH_VISION_B, ARCH_VISION_NEW) and (out >= 0).all()
+          and (out < cfg.vocab_size).all(), f"archs: {cfg.name} {out}")
+    log(f"archs: {cfg.name}: {T.param_count(cfg)} f32 parameters, B "
+        f"{ARCH_VISION_B} x ({cfg.n_frontend_tokens} patch embeddings + "
+        f"{ARCH_VISION_TEXT} text tokens), {ARCH_VISION_NEW} new: prefill "
+        f"{prefill_s * 1e3:.3f} ms, decode {decode_s / steps * 1e3:.3f} ms "
+        f"per tick, {ARCH_VISION_B * ARCH_VISION_NEW / (prefill_s + decode_s):.1f} "
+        f"tokens/s; launches swa_attention {counts['swa_attention']}, "
+        f"decode_attention {counts['decode_attention']} = {cfg.n_layers} x "
+        f"{steps}; peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    del model, toks, fe
+    free_card()
+    return counts["decode_attention"], counts["swa_attention"]
+
+
+# the bf16 checks at mistral's shapes: a row attends over up to 4,096 keys,
+# so its output is about 0.02 in size where a fixed bar would be as large as
+# the values.  The bar scales with each output row (hd values): |out - want|
+# <= row_rms * rms(row of want) + rtol * |want|, want being the plain
+# version computed in f32 on the same bf16 inputs and rounded to bf16.
+# rtol covers a bf16 ulp of either rounding; row_rms the kernel's bf16
+# softmax weights.  A key too many or too few at the window edge, or a ring
+# slot off by one, is read against the same bar and logged beside it.
+ARCH_BF16_TOL = {"row_rms": 2e-2, "rtol": 1.6e-2}
+
+
+def scaled_err(out, want):
+    """max |out - want| / bar, the bar of ``ARCH_BF16_TOL``: at most 1
+    passes."""
+    import torch
+    torch.cuda.synchronize()
+    want = want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    bar = ARCH_BF16_TOL["row_rms"] * rms + ARCH_BF16_TOL["rtol"] * want.abs()
+    return ((out.float() - want).abs() / bar).max().item()
+
+
+def bf16_check(name, out, want, where):
+    """``scaled_err`` of a bf16 kernel output, checked to be at most 1."""
+    check(out.shape == want.shape and out.dtype == want.dtype,
+          f"{name} shape/dtype at {where}")
+    e = scaled_err(out, want)
+    check(e <= 1.0, f"{name} differs from its plain version by {e} of the "
+          f"bar {ARCH_BF16_TOL} at {where}")
+    return e
+
+
+def archs_kernel_checks(dev):
+    """K5 (windowed, chunk reshape) and K4 (rings at the wrap) against
+    their plain versions at the new shapes: f32 to ``ATTN_TOL``, bf16 to
+    the scaled bar of ``ARCH_BF16_TOL``, with a planted one-key error read
+    against the same bar.  Returns the readings."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.models import attention as A
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    err = {"f32": 0.0, "bf16_k5": 0.0, "bf16_k4": 0.0,
+           "planted_k5": [], "planted_k4": []}
+    kernels.reset_launches()
+    B, S, H, Kv, hd = ARCH_K5_CHECK
+    W = ARCH_SWA_WINDOW
+    pos = torch.arange(S, device=dev)
+    chunk_bias = A._causal_bias(pos, pos, "chunk", W)
+    q, k, v = attn_inputs((B, S, H, hd), (B, S, Kv, hd), torch.float32,
+                          gen, dev)
+    where = f"window {W} < S {S} f32"
+    err["f32"] = max(
+        attn_check("swa_attention", sops.swa_attention(q, k, v, W),
+                   sref.swa_attention(q, k, v, W), "f32", where),
+        attn_check("swa_attention (chunk reshape)",
+                   A._prefill_attention(q, k, v, "chunk", W),
+                   A._sdpa(q, k, v, chunk_bias), "f32",
+                   f"chunks of {W}, S {S} f32"))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    want = sref.swa_attention(*f32(q, k, v), W).to(torch.bfloat16)
+    err["bf16_k5"] = bf16_check("swa_attention",
+                                sops.swa_attention(q, k, v, W), want,
+                                f"window {W} < S {S} bf16")
+    # planted: one key more at the window's edge on every row past it
+    err["planted_k5"].append(scaled_err(sops.swa_attention(q, k, v, W + 1),
+                                        want))
+    del want
+    want = A._sdpa(*f32(q, k, v), chunk_bias).to(torch.bfloat16)
+    err["bf16_k5"] = max(err["bf16_k5"], bf16_check(
+        "swa_attention (chunk reshape)",
+        A._prefill_attention(q, k, v, "chunk", W), want,
+        f"chunks of {W}, S {S} bf16"))
+    del q, k, v, want, chunk_bias
+    k5_calls = kernels.launch_counts()["swa_attention"]
+    check(k5_calls == 5, f"archs: swa_attention launched {k5_calls} for 5")
+    check(min(err["planted_k5"]) > 1.0,
+          f"archs: a one-key window error reads {err['planted_k5']} of the "
+          f"bf16 bar, which does not see it")
+    B, W, Kv, hd = ARCH_K4_RING
+    calls = 0
+    idx = torch.arange(W, device=dev)
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for G in ARCH_K4_GROUPS:
+            q, k, v = attn_inputs((B, 1, G * Kv, hd), (B, W, Kv, hd), dtype,
+                                  gen, dev)
+            for kind in ("swa", "chunk"):
+                for p in ARCH_K4_POSITIONS:
+                    pt = torch.tensor(p, dtype=torch.int32, device=dev)
+                    live = pt.clamp(max=W - 1) if kind == "swa" else pt % W
+                    out = dops.decode_attention(q[:, 0], k, v, live)
+                    calls += 1
+                    ok = (p - (p % W - idx) % W >= 0 if kind == "swa"
+                          else idx <= p % W)
+                    bias = torch.where(ok, 0.0, -1e30).reshape(1, 1, 1, W)
+                    where = f"{kind} W {W} G {G} pos {p} {tag}"
+                    if tag == "f32":
+                        err["f32"] = max(
+                            err["f32"],
+                            attn_check("decode_attention (ring)", out,
+                                       dref.decode_attention(q[:, 0], k, v,
+                                                             live),
+                                       tag, where),
+                            attn_check("decode_attention (ring bias)", out,
+                                       A._sdpa(q, k, v, bias)[:, 0], tag,
+                                       where))
+                        continue
+                    want = dref.decode_attention(
+                        *f32(q[:, 0], k, v), live).to(dtype)
+                    err["bf16_k4"] = max(
+                        err["bf16_k4"],
+                        bf16_check("decode_attention (ring)", out, want,
+                                   where),
+                        bf16_check("decode_attention (ring bias)", out,
+                                   A._sdpa(*f32(q, k, v), bias)[:, 0].to(
+                                       dtype), where))
+                    # planted: pos' one slot off (one more, or one fewer
+                    # where the ring is full)
+                    at = min(p, W - 1) if kind == "swa" else p % W
+                    off = torch.tensor(at + 1 if at < W - 1 else at - 1,
+                                       dtype=torch.int32, device=dev)
+                    err["planted_k4"].append(scaled_err(
+                        dops.decode_attention(q[:, 0], k, v, off), want))
+                    calls += 1
+    k4_calls = kernels.launch_counts()["decode_attention"]
+    check(k4_calls == calls,
+          f"archs: decode_attention launched {k4_calls} for {calls}")
+    log(f"archs: swa_attention at H {H} Kv {Kv} hd {hd}, B 1 S {S}: window "
+        f"{ARCH_SWA_WINDOW} < S and chunks of {ARCH_SWA_WINDOW} (2 rows, the "
+        f"second padded), f32 and bf16 ({k5_calls} launches); "
+        f"decode_attention over a ring of {W} (B {B}, Kv {Kv}, hd {hd}) at G "
+        f"{ARCH_K4_GROUPS}, pos {ARCH_K4_POSITIONS}, swa (pos' = min(pos, W "
+        f"- 1)) and chunk (pos' = pos % W), against its plain version and "
+        f"repro's ring bias ({k4_calls} launches): max_abs_err f32 "
+        f"{err['f32']} (tol {ATTN_TOL['f32']}); bf16 against the plain "
+        f"version in f32, max |diff| / bar ({ARCH_BF16_TOL}): "
+        f"swa_attention {err['bf16_k5']}, decode_attention "
+        f"{err['bf16_k4']}; planted one-key errors read: window W + 1 "
+        f"{err['planted_k5']}, pos' one slot off min "
+        f"{min(err['planted_k4'])} max {max(err['planted_k4'])} over "
+        f"{len(err['planted_k4'])} ring cases {err['planted_k4']}")
+    free_card()
+    return err
+
+
+def archs_vs_cpu(dev):
+    """The reduced configs card against CPU, one CPU init (QKV biases set
+    non-zero): prefill past the window and teacher-forced decode steps."""
+    import copy
+
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import VisionFrontendStub
+
+    worst = {}
+    for label, cfg in arch_cpu_configs().items():
+        cpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        bias_gen = torch.Generator().manual_seed(1)
+        for name, p in cpu.named_parameters():
+            if name.endswith(("mixer.bq", "mixer.bk", "mixer.bv")):
+                p.copy_(torch.randn(p.shape, generator=bias_gen) * 0.1)
+        gpu = copy.deepcopy(cpu).to(dev)
+        prompt = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, ARCH_CPU_PROMPT)).astype(np.int64))
+        fe = None
+        if cfg.frontend == "vision":
+            fe = VisionFrontendStub(cfg)(torch.Generator().manual_seed(4), 2)
+        start = ARCH_CPU_PROMPT + (cfg.n_frontend_tokens if fe is not None
+                                   else 0)
+        lc, cc = T.prefill(cfg, cpu, prompt, fe)
+        lg, cg = T.prefill(cfg, gpu, prompt.to(dev),
+                           None if fe is None else fe.to(dev))
+        diffs = [(lg.cpu() - lc).abs().max().item()]
+        check(torch.allclose(lg.cpu(), lc, **SERVE_CPU_TOL),
+              f"archs vs CPU: {label} prefill logits differ by {diffs[0]}")
+        cc = T.grow_cache(cfg, cc, 2, start + ARCH_CPU_STEPS)
+        cg = T.grow_cache(cfg, cg, 2, start + ARCH_CPU_STEPS)
+        forced = torch.argmax(lc[:, -1:], -1)
+        for i in range(ARCH_CPU_STEPS):
+            lc, cc = T.decode_step(cfg, cpu, forced, cc, start + i)
+            lg, cg = T.decode_step(cfg, gpu, forced.to(dev), cg, start + i)
+            diffs.append((lg.cpu() - lc).abs().max().item())
+            check(torch.allclose(lg.cpu(), lc, **SERVE_CPU_TOL),
+                  f"archs vs CPU: {label} step {i} differs by {diffs[-1]}")
+            forced = torch.argmax(lc, -1)
+        cache_diff = max((a.cpu() - b).abs().max().item()
+                         for sub_g, sub_c in zip(cg["stack"].values(),
+                                                 cc["stack"].values())
+                         for a, b in zip(sub_g["mixer"].values(),
+                                         sub_c["mixer"].values()))
+        worst[label] = max(diffs)
+        log(f"archs vs CPU: {label} (window {cfg.sliding_window}, chunk "
+            f"{cfg.attn_chunk}, qkv_bias {cfg.qkv_bias}, frontend "
+            f"{cfg.frontend}): prefill of {ARCH_CPU_PROMPT} tokens + "
+            f"{ARCH_CPU_STEPS} teacher-forced steps, logits max |diff| "
+            f"{max(diffs)}, cache max |diff| {cache_diff} (atol "
+            f"{SERVE_CPU_TOL['atol']}, rtol {SERVE_CPU_TOL['rtol']})")
+    return worst
+
+
+def archs_timings(dev):
+    """K5 at mistral's windowed prefill and K4 over its ring, each beside
+    its plain version and SDPA, in turns; returns ({label: K5 row},
+    {label: K4 row})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import ref as sref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, S, H, Kv, hd = ARCH_K5_TIMED
+    W = ARCH_SWA_WINDOW
+    G = H // Kv
+    dt = torch.bfloat16
+
+    def pairs(w):                     # (query, key) pairs a window admits
+        w = min(w, S)
+        return w * (w + 1) // 2 + (S - w) * w
+    bytes_moved = (2 * B * S * H * hd + 2 * B * S * Kv * hd) * 2
+    flops = {w: 4 * B * H * pairs(w) * hd for w in (W, S)}
+    n_sets = max(1, int(np.ceil(2 * L2_BYTES / bytes_moved)))
+    sets = [attn_inputs((B, S, H, hd), (B, S, Kv, hd), dt, gen, dev)
+            for _ in range(n_sets)]
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+
+    def kernel(q, k, v):
+        return sops.swa_attention(q, k, v, W)
+
+    def kernel_full(q, k, v):
+        return sops.swa_attention(q, k, v, S)
+
+    def plain(q, k, v):
+        return sref.swa_attention(q, k, v, W)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    attn_check("SDPA yardstick", sdpa(*sets[0]), kernel(*sets[0]), "bf16",
+               ARCH_K5_TIMED_LABEL)
+    runs = {"kernel": rotating(kernel, sets),
+            "kernel_full": rotating(kernel_full, sets),
+            "plain": rotating(plain, sets), "library": rotating(sdpa, sets)}
+    ms, samples = in_turns(runs, reps=4, iters=10, warmup=2)
+    bound = {w: max(bytes_moved / HBM_BYTES_PER_S,
+                    flops[w] / BF16_FLOP_PER_S) * 1e3 for w in (W, S)}
+    log(f"kernels: swa_attention {ARCH_K5_TIMED_LABEL} (B {B}, H {H}, Kv "
+        f"{Kv}, G {G}, hd {hd}; {n_sets} input sets, {bytes_moved} bytes; "
+        f"{pairs(W)} key pairs a head at W {W}, {pairs(S)} at W = S): "
+        f"kernel {ms['kernel']:.6f} ms (bound {bound[W]:.6f}, operations), "
+        f"window S {ms['kernel_full']:.6f} ms (bound {bound[S]:.6f}); "
+        f"windowed / full {ms['kernel'] / ms['kernel_full']:.4f} (bounds "
+        f"{bound[W] / bound[S]:.4f}); plain {ms['plain']:.6f} ms, SDPA with "
+        f"a bool window mask {ms['library']:.6f} ms; samples {samples}")
+    k5_row = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+              "bound_ms": bound[W],
+              "bound_by": ("bytes" if bytes_moved / HBM_BYTES_PER_S
+                           >= flops[W] / BF16_FLOP_PER_S else "operations"),
+              "library_ms": ms["library"], "window_S_ms": ms["kernel_full"],
+              "window_S_bound_ms": bound[S]}
+    # one launch a call: the time per recorded event stays a reading when
+    # the profiler keeps fewer events than calls
+    device_time_later(f"swa_attention {ARCH_K5_TIMED_LABEL}", k5_row,
+                      rotating(kernel, sets),
+                      ("swa_kernel", "swa_mma_kernel"), iters=20,
+                      per_event=True)
+    del sets, mask
+
+    B, W, Kv, hd = ARCH_K4_RING
+    G = 4
+    H = G * Kv
+    pos = W - 1
+    bytes_moved = (2 * B * W * Kv * hd + 2 * B * H * hd) * 2
+    flops = 4 * B * H * W * hd
+    n_sets = max(1, int(np.ceil(2 * L2_BYTES / bytes_moved)))
+    sets = [attn_inputs((B, H, hd), (B, W, Kv, hd), dt, gen, dev)
+            for _ in range(n_sets)]
+    posv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    rmask = torch.ones(B, 1, 1, W, dtype=torch.bool, device=dev)
+
+    def k4(q, k, v, posv=posv):
+        return dops.decode_attention(q, k, v, posv)
+
+    def k4_plain(q, k, v):
+        return dref.decode_attention(q, k, v, pos)
+
+    def k4_sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=rmask, enable_gqa=True)[:, :, 0]
+    attn_check("SDPA yardstick", k4_sdpa(*sets[0]), k4(*sets[0]), "bf16",
+               ARCH_K4_TIMED_LABEL)
+    n_chunks = dops.split(B, W, Kv)
+    k4_row = attn_timings(
+        f"decode_attention {ARCH_K4_TIMED_LABEL} G={G} hd={hd} pos=W-1",
+        {"kernel": rotating(k4, sets), "plain": rotating(k4_plain, sets),
+         "library": rotating(k4_sdpa, sets)},
+        f"{n_sets} input sets; {B * Kv * n_chunks} blocks, {n_chunks} "
+        f"chunks a row", bytes_moved, flops, BF16_FLOP_PER_S, 6, 100, 10)
+    device_time_later(f"decode_attention {ARCH_K4_TIMED_LABEL}", k4_row,
+                      rotating(k4, sets),
+                      ("decode_chunk_kernel", "decode_combine_kernel"))
+    return {ARCH_K5_TIMED_LABEL: k5_row}, {ARCH_K4_TIMED_LABEL: k4_row}
+
+
+def phase_archs(dev):
+    """The dense archs on the card (mistral-nemo-12b's sliding-window
+    variant in bf16, qwen1.5-4b, internvl2-2b and musicgen-large in f32,
+    each at full width), then K4/K5 at their new shapes, card against CPU
+    on the reduced configs, and the timings.  llama3-405b is not run: 812
+    GB of bf16 weights, and its 16 query heads per kv head exceed K4's
+    G <= 8.  Returns ({path: K4 launches}, {path: K5 launches}, K5 rows,
+    K4 rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.frontends import AudioFrontendStub
+    import torch
+
+    k4, k5 = {}, {}
+    k4["mistral-nemo-12b swa"], k5["mistral-nemo-12b swa"] = archs_swa(dev)
+    mark("archs: mistral-nemo-12b swa")
+    qwen = get_config("qwen1.5-4b")
+    k4["qwen1.5-4b"], k5["qwen1.5-4b"] = archs_server(
+        dev, qwen.name, serve_prompts(qwen.vocab_size), SERVE_NEW)
+    k4["internvl2-2b"], k5["internvl2-2b"] = archs_vision(dev)
+    music = get_config("musicgen-large")
+    stub = AudioFrontendStub(music)
+    gen = torch.Generator().manual_seed(3)
+    codes = [stub(gen, 1, len(p))[0].numpy()
+             for p in serve_prompts(2)[:ARCH_AUDIO_REQUESTS]]
+    k4["musicgen-large"], k5["musicgen-large"] = archs_server(
+        dev, music.name, codes, ARCH_AUDIO_NEW)
+    mark("archs: qwen1.5-4b, internvl2-2b, musicgen-large")
+    archs_kernel_checks(dev)
+    archs_vs_cpu(dev)
+    mark("archs: kernel checks, card against CPU")
+    k5_rows, k4_rows = archs_timings(dev)
+    free_card()
+    return k4, k5, k5_rows, k4_rows
 
 
 # K3 cross_entropy: (nll, lse) within 1e-4 of the plain version in f32
@@ -3312,6 +3919,16 @@ def main() -> int:
                               "faults": fault_chains}
     k4["launches"], k5["launches"] = phase_serve(dev)
     mark("serve")
+    # K4 and K5 also serve the dense archs (ring caches, QKV biases,
+    # frontends): one path per model
+    arch_k4, arch_k5, k5_rows, k4_rows = phase_archs(dev)
+    mark("archs")
+    k4["launches_by_path"] = {"serve smollm-360m": k4["launches"], **arch_k4}
+    k5["launches_by_path"] = {"serve smollm-360m": k5["launches"], **arch_k5}
+    k4["launches"] += sum(arch_k4.values())
+    k5["launches"] += sum(arch_k5.values())
+    k4["geometries"].update(k4_rows)
+    k5["geometries"].update(k5_rows)
     k3["launches"], train_merges = phase_train(dev)
     mark("train")
     # F1 is a fixture: no main path launches it

@@ -49,6 +49,7 @@ DEVICE_LOOP_FUNCTIONS = {
         "RingStats.wrap"),
     "repro_torch/models/transformer.py": ("decode_step",),
     "repro_torch/models/attention.py": ("attention_decode",),
+    "repro_torch/launch/serve.py": ("generate",),
     "repro_torch/launch/steps.py": (
         "make_train_step", "make_prefill_step", "make_serve_step",
         "make_mafl_step"),

@@ -225,7 +225,12 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
     reconcile (one [R, P] leaf, R 4 and 8), K1 at the packed CNN (P
     422,016, U 10), K3 at training's R 512 and ``make_train_step``'s R
     4,096 (V 49,152), K4 at the serve shape and smollm-360m's decode_32k,
-    K5 at 512- and 1024-token prefills in f32 and bf16."""
+    K5 at 512- and 1024-token prefills in f32 and bf16; and the dense
+    archs' serving: K4 over mistral-nemo-12b's sliding-window ring (W
+    4,096, G 4), qwen1.5-4b's slots (G 1), internvl2-2b's batch (G 2) and
+    musicgen-large's slots (G 1, hd 64), K5 at mistral-nemo-12b's windowed
+    prefill (S 8,192 > W 4,096) and through the chunk reshape (chunks of
+    4,096 as rows of a B * ceil(S / C) batch)."""
     return {
         "weighted_agg.weighted_agg": [
             ("paper CNN f32", (CNN_SIZES, torch.float32)),
@@ -246,13 +251,27 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("R 4096 V 49152", (4096, 49152))],
         "decode_attention.decode_attention": [
             ("serve B 8 S 2048", (8, 2048, 15, 5, 64)),
-            ("decode_32k B 128 S 32768", (128, 32768, 15, 5, 64))],
+            ("decode_32k B 128 S 32768", (128, 32768, 15, 5, 64)),
+            ("mistral-nemo-12b ring B 2 W 4096 G 4",
+             (2, 4096, 32, 8, 128)),
+            ("qwen1.5-4b slots B 8 S 2048 G 1", (8, 2048, 20, 20, 128)),
+            ("internvl2-2b B 4 S 800 G 2", (4, 800, 16, 8, 128)),
+            ("musicgen-large slots B 8 S 1024 G 1 hd 64",
+             (8, 1024, 32, 32, 64))],
         "swa_attention.swa_attention": [
             ("prefill S 512 f32", (1, 512, 15, 5, 64, torch.float32)),
-            ("prefill S 1024 f32", (1, 1024, 15, 5, 64, torch.float32))],
+            ("prefill S 1024 f32", (1, 1024, 15, 5, 64, torch.float32)),
+            ("mistral-nemo-12b window 4096 S 4608 f32",
+             (1, 4608, 32, 8, 128, torch.float32)),
+            ("chunk reshape 2 x 4096 f32",
+             (2, 4096, 32, 8, 128, torch.float32))],
         "swa_attention.swa_attention_bf16": [
             ("prefill S 512 bf16", (1, 512, 15, 5, 64, torch.bfloat16)),
-            ("prefill S 1024 bf16", (1, 1024, 15, 5, 64, torch.bfloat16))],
+            ("prefill S 1024 bf16", (1, 1024, 15, 5, 64, torch.bfloat16)),
+            ("mistral-nemo-12b window 4096 B 2 S 8192 bf16",
+             (2, 8192, 32, 8, 128, torch.bfloat16)),
+            ("chunk reshape B 2 x 2 chunks of 4096 bf16",
+             (4, 4096, 32, 8, 128, torch.bfloat16))],
     }
 
 

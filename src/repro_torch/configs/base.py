@@ -226,10 +226,9 @@ def register(name: str):
 
 
 # registered by ``repro`` but not ported yet: their mixers (MoE, MLA, Mamba,
-# RWKV, sliding-window / chunked attention) or frontends have no port
-UNPORTED = ("deepseek-v2-lite-16b", "internvl2-2b", "jamba-v0.1-52b",
-            "llama3-405b", "llama4-scout-17b-a16e", "mistral-nemo-12b",
-            "musicgen-large", "qwen1.5-4b", "rwkv6-1.6b")
+# RWKV) or their first_k_dense prefixes have no port
+UNPORTED = ("deepseek-v2-lite-16b", "jamba-v0.1-52b",
+            "llama4-scout-17b-a16e", "rwkv6-1.6b")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -255,5 +254,8 @@ def _ensure_loaded():
     global _LOADED
     if _LOADED:
         return
-    from repro_torch.configs import smollm_360m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        internvl2_2b, llama3_405b, mistral_nemo_12b, musicgen_large,
+        qwen1_5_4b, smollm_360m,
+    )
     _LOADED = True

@@ -8,8 +8,10 @@ same weights: ``run_simulation(init_params=params_from_jax(tree, device))``.
 Transformer: ``repro``'s pytree carries a leading period axis on every
 ``stack`` leaf; the port's ``Transformer`` holds one block per period.  A
 leaf ``stack.sub0.mixer.wq [n_periods, d, H, hd]`` is the port's
-``stack.<i>.sub0.mixer.wq`` for i < n_periods; every other leaf keeps its
-name and shape.  A checkpoint of a transformer (either package's) holds
+``stack.<i>.sub0.mixer.wq`` for i < n_periods (the QKV biases
+``mixer.bq``/``bk``/``bv`` too, where the config has them); every other
+leaf (the untied ``lm_head.w`` among them) keeps its name and shape.  A
+checkpoint of a transformer (either package's) holds
 that nested tree: ``checkpointing.load_checkpoint(path,
 transformer_params_to_numpy(model))`` then ``transformer_params_from_jax``.
 """

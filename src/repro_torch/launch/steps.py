@@ -28,7 +28,9 @@ _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # ---------------------------------------------------------------------------
 def make_train_step(cfg: ArchConfig, lr: float = 1e-2, grad_specs=None):
     """``(model, params, batch) -> (params, metrics)``; ``batch``:
-    ``{'tokens': [B, S+1]}``.  Plain SGD per the paper's Eq. (2).
+    ``{'tokens': [B, S+1]}`` (+ ``'patch_embeds'`` ``[B, P, d]`` for a
+    vision config: the loss scores the text positions only).  Plain SGD
+    per the paper's Eq. (2).
 
     ``cfg.microbatches > 1`` accumulates the gradients of ``M`` equal
     batch splits in ``cfg.grad_accum_dtype``.  ``cfg.loss_chunk > 0``
@@ -39,23 +41,26 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-2, grad_specs=None):
         raise NotImplementedError(
             "grad_specs (sharding constraints on the gradients) are not "
             "ported yet (ROADMAP queue 1, item 13)")
+    P = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
     chunk = cfg.loss_chunk
     acc_dt = _ACCUM_DTYPES[cfg.grad_accum_dtype]
 
     def loss_fn(model, p, mb):
+        fe = mb.get("patch_embeds")
         if not chunk:
-            logits, aux = T.apply_params(cfg, model, p, mb["inputs"])
-            return lm_loss(logits, mb["targets"]) + aux
-        h, aux = T.apply_params(cfg, model, p, mb["inputs"], hidden=True)
-        nll = _chunked_nll(cfg, p, h, mb["targets"], chunk)
+            logits, aux = T.apply_params(cfg, model, p, mb["inputs"],
+                                         frontend_embeds=fe)
+            return lm_loss(logits[:, P:], mb["targets"]) + aux
+        h, aux = T.apply_params(cfg, model, p, mb["inputs"], hidden=True,
+                                frontend_embeds=fe)
+        nll = _chunked_nll(cfg, p, h[:, P:], mb["targets"], chunk)
         return torch.mean(nll) + aux
 
     def train_step(model, params, batch):
-        if "patch_embeds" in batch:
-            raise NotImplementedError(
-                f"patch embeddings (vision frontend) are {T.UNPORTED}")
         tokens = batch["tokens"]
         mb = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+        if "patch_embeds" in batch:
+            mb["patch_embeds"] = batch["patch_embeds"]
         vg = T.value_and_grad(lambda p, m: loss_fn(model, p, m))
         M = cfg.microbatches
         if M == 1:

@@ -1,14 +1,25 @@
-"""GQA softmax attention with RoPE, the counterpart of the GQA half of
-``repro.models.attention``.
+"""GQA softmax attention with RoPE, QKV biases, sliding-window and chunked
+masks, the counterpart of the GQA half of ``repro.models.attention``.
 
-Cache layout per layer (the transformer stacks a leading period axis):
-``k, v [B, S, Kv, hd]`` with S the maximum context.  Serving ports only
-full (causal) attention: prefill runs K5 (``swa_attention`` with
-``window = S``, which is causal attention) and every decode step runs K4
-(``decode_attention``).  Each wrapper takes its plain version for CPU
-tensors and launches its CUDA kernel for CUDA tensors.  Sliding-window and
-chunked ring caches, QKV biases and MLA raise ``NotImplementedError``
-(ROADMAP queue 1, item 12).
+Cache layouts per layer (the transformer stacks a leading period axis), as
+``repro``'s:
+
+  full  : k, v [B, S, Kv, hd]   S the maximum context
+  swa   : k, v [B, W, Kv, hd]   a ring over the window: position p at p % W
+  chunk : k, v [B, C, Kv, hd]   the chunk in progress: position p at p % C
+
+Serving runs two kernels.  Prefill runs K5 (``swa_attention``): window S
+for full attention, the sliding window for ``swa``, and for ``chunk`` the
+sequence cut into chunks of C (zero-padded at the tail) as a batch of
+``B * ceil(S / C)`` rows, each causal inside itself, in one launch.  Every
+decode step runs K4 (``decode_attention``) over the slots ``0 .. pos'``
+with ``pos'`` computed on the card: ``pos`` for full attention, ``min(pos,
+W - 1)`` for ``swa`` (once the ring is full every slot is in the window),
+``pos % C`` for ``chunk``.  Those are the keys ``repro``'s mask admits,
+summed in another order.  Each wrapper takes its plain version for CPU
+tensors and launches its CUDA kernel for CUDA tensors.  Ring caches take a
+scalar position only (``repro`` asserts so); MLA raises
+``NotImplementedError`` (ROADMAP queue 1, item 12).
 
 Training (``attention_fwd(..., train=True)``) takes the differentiable
 path of ``repro``'s ``_sdpa_any``: torch matmuls and softmax with an
@@ -26,6 +37,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -51,36 +63,43 @@ def mask_spec_for(cfg, mixer_kind):
     return "full", 0
 
 
-def _full_only(mask_kind):
-    if mask_kind != "full":
-        raise NotImplementedError(
-            f"{mask_kind!r} attention masks (ring caches) are {UNPORTED}")
+def ring_specs(cfg):
+    """(mask_kind, width) of each sublayer of a period whose cache is a
+    ring (``swa`` or ``chunk``); empty for full attention throughout."""
+    specs = (mask_spec_for(cfg, sub.mixer) for sub in cfg.sublayers())
+    return [(kind, width) for kind, width in specs if kind != "full"]
 
 
 class Attention(nn.Module):
     """GQA projections in ``repro``'s shapes: ``wq [d, H, hd]``,
-    ``wk``/``wv [d, Kv, hd]``, ``wo [H, hd, d]``."""
+    ``wk``/``wv [d, Kv, hd]``, ``wo [H, hd, d]``, and with ``qkv_bias`` the
+    biases ``bq [H, hd]``, ``bk``/``bv [Kv, hd]`` (``None`` without)."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
         if cfg.use_mla:
             raise NotImplementedError(f"MLA attention is {UNPORTED}")
-        if cfg.qkv_bias:
-            raise NotImplementedError(f"QKV biases are {UNPORTED}")
         hd = cfg.resolved_head_dim
         shapes = {"wq": (cfg.d_model, cfg.n_heads, hd),
                   "wk": (cfg.d_model, cfg.n_kv_heads, hd),
                   "wv": (cfg.d_model, cfg.n_kv_heads, hd),
                   "wo": (cfg.n_heads, hd, cfg.d_model)}
+        biases = {"bq": (cfg.n_heads, hd), "bk": (cfg.n_kv_heads, hd),
+                  "bv": (cfg.n_kv_heads, hd)}
+        if cfg.qkv_bias:
+            shapes.update(biases)
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=dtype, device=device),
                 requires_grad=False))
+        if not cfg.qkv_bias:
+            for name in biases:
+                self.register_parameter(name, None)
         self.register_buffer("rope_freqs", torch.from_numpy(
             rope_freqs(hd, cfg.rope_theta)).to(device), persistent=False)
 
     def reset_parameters(self, generator):
-        """``repro``'s ``init_attention`` distributions."""
+        """``repro``'s ``init_attention`` distributions (zero biases)."""
         d, H, hd = self.wq.shape
         Kv = self.wk.shape[1]
         dev, dt = self.wq.device, self.wq.dtype
@@ -90,6 +109,9 @@ class Attention(nn.Module):
         self.wo.copy_(dense_init(generator, H * hd, d, dt,
                                  scale=1.0 / np.sqrt(H * hd),
                                  device=dev).reshape(H, hd, d))
+        for b in (self.bq, self.bk, self.bv):
+            if b is not None:
+                b.zero_()
 
 
 def init_attention(cfg, generator, dtype=torch.float32, device=None):
@@ -105,7 +127,10 @@ def _proj(x, w):
 
 
 def _qkv(p, x):
-    return _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return q, k, v
 
 
 def _out(p, o):
@@ -164,29 +189,60 @@ def _sdpa_any(q, k, v, positions, mask_kind, width):
     return torch.cat(blocks, dim=1)
 
 
+def _prefill_attention(q, k, v, mask_kind, width):
+    """Causal attention of a whole prompt under ``mask_kind``, through K5
+    in one launch."""
+    B, S, H, hd = q.shape
+    if mask_kind == "full" or (mask_kind == "chunk" and S <= width):
+        return swa_attention(q, k, v, window=S)
+    if mask_kind == "swa":
+        return swa_attention(q, k, v, window=width)
+    # chunk: chunks of C as rows of a batch; the zero rows padding the last
+    # chunk come after every real row, so causality keeps them out of it
+    n = -(-S // width)
+
+    def rows(t):
+        t = F.pad(t, (0, 0, 0, 0, 0, n * width - S))
+        return t.reshape(B * n, width, *t.shape[2:])
+    out = swa_attention(rows(q), rows(k), rows(v), window=width)
+    return out.reshape(B, n * width, H, hd)[:, :S]
+
+
 def attention_fwd(cfg, p, x, positions, mask_kind="full", width=0,
                   train=False):
-    """Full-sequence attention.  Prefill (``train=False``): causal through
-    K5; returns (y, cache_kv), the cache ``k, v [B, S, Kv, hd]`` already in
-    decode layout.  Training (``train=True``): the differentiable torch
-    path for any mask; returns (y, None)."""
-    if not train:
-        _full_only(mask_kind)
+    """Full-sequence attention.  Prefill (``train=False``): through K5;
+    returns (y, cache_kv), the cache already in decode layout
+    (``to_decode_layout``).  Training (``train=True``): the differentiable
+    torch path; returns (y, None)."""
     q, k, v = _qkv(p, x)
     q = apply_rope(q, positions, p.rope_freqs)
     k = apply_rope(k, positions, p.rope_freqs)
     if train:
         return _out(p, _sdpa_any(q, k, v, positions, mask_kind, width)), None
-    out = swa_attention(q, k, v, window=x.shape[1])   # causal: window = S
+    out = _prefill_attention(q, k, v, mask_kind, width)
     return _out(p, out), {"k": to_decode_layout(k, mask_kind, width),
                           "v": to_decode_layout(v, mask_kind, width)}
 
 
 def to_decode_layout(kv, mask_kind, width):
-    """A prefilled ``[B, S, Kv, hd]`` tensor in decode-cache layout: for
-    full attention, unchanged."""
-    _full_only(mask_kind)
-    return kv
+    """A prefilled ``[B, S, Kv, hd]`` tensor in decode-cache layout.
+
+    swa  : ring of the last ``width`` entries, position p at slot p % W,
+           zero-padded when S < W.
+    chunk: the chunk in progress (positions >= S - S % C), at p % C.
+    full : unchanged.
+    """
+    if mask_kind == "full":
+        return kv
+    B, S, Kv, hd = kv.shape
+    W = width
+    if mask_kind == "swa":
+        if S < W:
+            return torch.cat([kv, kv.new_zeros((B, W - S, Kv, hd))], dim=1)
+        return torch.roll(kv[:, S - W:], S % W, dims=1)
+    filled = S % W
+    return torch.cat([kv[:, S - filled:],
+                      kv.new_zeros((B, W - filled, Kv, hd))], dim=1)
 
 
 def _write(cache, new, pos, per_seq):
@@ -208,27 +264,47 @@ def as_positions(pos, device) -> torch.Tensor:
     return torch.full((), int(pos), dtype=torch.int32, device=device)
 
 
-def attention_decode(cfg, p, x, cache, pos, mask_kind="full", width=0):
-    """One-token decode.  x: [B, 1, d]; ``pos``: an int, a 0-d tensor or a
-    per-sequence ``[B]`` tensor (continuous batching).  Writes the new K/V
-    into ``cache`` in place at ``pos`` and attends over ``0 .. pos``.
-    Returns (y, cache)."""
-    _full_only(mask_kind)
+def ring_slots(pos, mask_kind: str, W: int):
+    """(slot, pos') of a decode step at ``pos`` (a tensor on the card): the
+    slot the new K/V goes to and the last slot K4 attends to.  ``pos``
+    itself for full attention; in a ring of W, ``pos % W`` and
+    ``min(pos, W - 1)`` (swa) or ``pos % W`` (chunk)."""
+    if mask_kind == "full":
+        return pos, pos
+    slot = pos % W
+    return slot, (pos.clamp(max=W - 1) if mask_kind == "swa" else slot)
+
+
+def attention_decode(cfg, p, x, cache, pos, mask_kind: str = "full",
+                     width: int = 0, slots=None):
+    """One-token decode.  x: [B, 1, d]; ``pos``: an int, a 0-d tensor or
+    (full attention only) a per-sequence ``[B]`` tensor.  Writes the new
+    K/V into ``cache`` in place at slot ``pos`` (``pos % W`` in a ring of
+    W) and attends over the slots the mask admits.  ``slots``: the
+    :func:`ring_slots` of this step, where the caller computed them once
+    for every layer.  Returns (y, cache)."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, x)
     pos = as_positions(pos, x.device)
     per_seq = pos.dim() == 1
+    if per_seq and mask_kind != "full":
+        raise ValueError(f"{mask_kind!r} ring caches require a scalar "
+                         f"position, got one per sequence")
     posv = pos[:, None] if per_seq else pos.reshape(1)
     q = apply_rope(q, posv, p.rope_freqs)
     k_new = apply_rope(k_new, posv, p.rope_freqs)
-    _write(cache["k"], k_new, pos, per_seq)
-    _write(cache["v"], v_new, pos, per_seq)
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], pos)
+    slot, live = (ring_slots(pos, mask_kind, cache["k"].shape[1])
+                  if slots is None else slots)
+    _write(cache["k"], k_new, slot, per_seq)
+    _write(cache["v"], v_new, slot, per_seq)
+    out = decode_attention(q[:, 0], cache["k"], cache["v"], live)
     return _out(p, out.reshape(B, 1, *out.shape[1:])), cache
 
 
 def init_attn_cache(cfg, batch, max_seq, mask_kind, width, dtype, device):
-    _full_only(mask_kind)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """Zero ``k, v [batch, S, Kv, hd]``: S = ``max_seq`` for full attention,
+    ``min(width, max_seq)`` for a ring."""
+    S = max_seq if mask_kind == "full" else min(width, max_seq)
+    shape = (batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -8,8 +8,9 @@ pytree does with a leading period axis on ``stack``.  ``prefill`` builds the
 cache and ``decode_step`` takes one token against it.
 
 Training differentiates with respect to a ``{name: tensor}`` dict of the
-parameters (``param_dict``; 9 leaves per layer plus the embedding and the
-final norm, 290 at smollm-360m): ``apply_params`` runs ``forward`` or
+parameters (``param_dict``; 9 leaves per layer, 12 with QKV biases, plus
+the embedding, the final norm and an untied head, 290 at smollm-360m):
+``apply_params`` runs ``forward`` or
 ``forward_hidden`` with the module's parameters replaced by the dict
 (``torch.func.functional_call``), and ``value_and_grad`` takes gradients by
 plain autograd.  The module's own parameters never require grad, so
@@ -19,13 +20,22 @@ with the period's parameters handed to the checkpointed function, so the
 recomputation in the backward sees the same tensors.
 
 The cache is ``{"stack": {"sub0": {"mixer": {"k", "v"}}}}`` as in
-``repro``, each leaf ``[n_periods, B, S, Kv, hd]``.  ``decode_step`` writes
-it in place and returns the same dict.
+``repro``, each leaf ``[n_periods, B, S, Kv, hd]``, S each sublayer's own:
+the maximum context for full attention, the ring's width for a
+sliding-window or chunked one (``attention.init_attn_cache``).  A period
+of ``[chunk, global]`` sublayers (``global_attn_every``) keeps one dict per
+``sub{j}``.  ``decode_step`` writes the cache in place and returns the
+same dict.
 
-MoE, Mamba, RWKV and MLA sublayers, modality frontends and
-``first_k_dense`` prefix layers raise ``NotImplementedError``, as do the
-XLA checkpoint policies ``remat_policy="dots"``/``"dots_nb"`` and
-``remat_sublayer``: ROADMAP queue 1, item 12.
+A vision config (``frontend="vision"``) prepends ``frontend_embeds``
+``[B, n_frontend_tokens, d]`` to the token embeddings, as ``repro``'s
+``_embed_inputs`` does, and raises ``ValueError`` without them; an audio
+config's codes are ordinary token ids.
+
+MoE, Mamba, RWKV and MLA sublayers and ``first_k_dense`` prefix layers
+raise ``NotImplementedError``, as do the XLA checkpoint policies
+``remat_policy="dots"``/``"dots_nb"`` and ``remat_sublayer``: ROADMAP queue
+1, item 12.
 """
 from __future__ import annotations
 
@@ -57,9 +67,6 @@ def _check_supported(cfg: ArchConfig) -> None:
     if cfg.first_k_dense:
         raise NotImplementedError(f"{cfg.name}: first_k_dense prefix layers "
                                   f"are {UNPORTED}")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"is {UNPORTED}")
 
 
 class SubLayerBlock(nn.Module):
@@ -117,10 +124,11 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
 
-    def forward(self, cfg, tokens, hidden=False):
+    def forward(self, cfg, tokens, hidden=False, frontend_embeds=None):
         """Training forward (``forward_hidden`` when ``hidden``) with the
         parameters the module holds: what ``apply_params`` calls."""
-        return (forward_hidden if hidden else forward)(cfg, self, tokens)
+        return (forward_hidden if hidden else forward)(cfg, self, tokens,
+                                                       frontend_embeds)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -160,13 +168,24 @@ def _apply_sublayer(cfg, p, mixer_kind, h, positions, train=False):
     return h, {"mixer": c}
 
 
-def _apply_sublayer_decode(cfg, p, mixer_kind, h, cache, pos):
+def _apply_sublayer_decode(cfg, p, mixer_kind, h, cache, pos, slots):
     """One-token path; writes ``cache`` in place.  Returns h."""
     kind, width = attn.mask_spec_for(cfg, mixer_kind)
     y, _ = attn.attention_decode(cfg, p.mixer, p.ln1(h), cache["mixer"], pos,
-                                 kind, width)
+                                 kind, width, slots)
     h = h + y
     return h + p.mlp(p.ln2(h))
+
+
+def _embed_inputs(cfg, model, tokens, frontend_embeds):
+    """Token embeddings, after a vision config's ``frontend_embeds``."""
+    h = embed_lookup(model.embed.table, tokens)
+    if cfg.frontend == "vision" and cfg.n_frontend_tokens:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name} requires frontend_embeds (B, "
+                             f"{cfg.n_frontend_tokens}, {cfg.d_model})")
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def _lm_head(cfg, model, h):
@@ -210,9 +229,7 @@ def forward_hidden(cfg: ArchConfig, model: Transformer, tokens,
                    frontend_embeds=None):
     """Like ``forward`` but returns the final-norm hidden states instead of
     logits: the vocab-chunked loss applies the LM head itself."""
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"frontend embeddings are {UNPORTED}")
-    h = embed_lookup(model.embed.table, tokens)
+    h = _embed_inputs(cfg, model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = _run_stack(cfg, model, h, positions)
@@ -221,8 +238,9 @@ def forward_hidden(cfg: ArchConfig, model: Transformer, tokens,
 
 def forward(cfg: ArchConfig, model: Transformer, tokens,
             frontend_embeds=None):
-    """tokens: [B, S] int.  Returns (logits [B, S, V], aux); ``aux`` is a
-    0-d f32 zero (dense MLPs have no auxiliary loss)."""
+    """tokens: [B, S] int, after a vision config's ``frontend_embeds``.
+    Returns (logits [B, P + S, V], aux), P the frontend tokens; ``aux`` is
+    a 0-d f32 zero (dense MLPs have no auxiliary loss)."""
     h, aux = forward_hidden(cfg, model, tokens, frontend_embeds)
     return _lm_head(cfg, model, h), aux
 
@@ -242,12 +260,13 @@ def head_weight(cfg: ArchConfig, params: dict):
 
 
 def apply_params(cfg: ArchConfig, model: Transformer, params: dict, tokens,
-                 hidden=False):
+                 hidden=False, frontend_embeds=None):
     """``forward`` (``forward_hidden`` when ``hidden``) of ``model`` with its
     parameters replaced by ``params``, a dict named as ``param_dict``
     names them; the module's buffers (RoPE frequencies) stay its own."""
-    return torch.func.functional_call(model, params, (cfg, tokens),
-                                      {"hidden": hidden})
+    return torch.func.functional_call(
+        model, params, (cfg, tokens),
+        {"hidden": hidden, "frontend_embeds": frontend_embeds})
 
 
 def value_and_grad(loss_fn):
@@ -270,10 +289,9 @@ def value_and_grad(loss_fn):
 # ---------------------------------------------------------------------------
 def prefill(cfg: ArchConfig, model: Transformer, tokens,
             frontend_embeds=None):
-    """tokens: [B, S] int.  Returns (logits [B, S, V], cache)."""
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"frontend embeddings are {UNPORTED}")
-    h = embed_lookup(model.embed.table, tokens)
+    """tokens: [B, S] int, after a vision config's ``frontend_embeds``.
+    Returns (logits [B, P + S, V], cache), P the frontend tokens."""
+    h = _embed_inputs(cfg, model, tokens, frontend_embeds)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     subs = cfg.sublayers()
@@ -297,12 +315,16 @@ def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
     h = embed_lookup(model.embed.table, token)
     pos = attn.as_positions(pos, h.device)
     subs = cfg.sublayers()
+    # each sublayer's slot and pos', once a step rather than once a layer
+    slots = [attn.ring_slots(pos, attn.mask_spec_for(cfg, sub.mixer)[0],
+                             cache["stack"][f"sub{j}"]["mixer"]["k"].shape[2])
+             for j, sub in enumerate(subs)]
     for i, period in enumerate(model.stack):
         for j, sub in enumerate(subs):
             leaves = cache["stack"][f"sub{j}"]["mixer"]
             layer = {"mixer": {"k": leaves["k"][i], "v": leaves["v"][i]}}
             h = _apply_sublayer_decode(cfg, getattr(period, f"sub{j}"),
-                                       sub.mixer, h, layer, pos)
+                                       sub.mixer, h, layer, pos, slots[j])
     h = model.final_norm(h)
     return _lm_head(cfg, model, h), cache
 
@@ -312,8 +334,9 @@ def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch, max_seq, dtype=torch.float32,
                device=None):
-    """Zero caches, each leaf ``[n_periods, batch, max_seq, Kv, hd]`` on
-    ``device`` (``None``: the card)."""
+    """Zero caches, each leaf ``[n_periods, batch, S, Kv, hd]`` on
+    ``device`` (``None``: the card), S = ``max_seq`` for full attention and
+    ``min(width, max_seq)`` for a ring."""
     _check_supported(cfg)
     device = resolve_device(device)
     stack = {}
@@ -329,19 +352,28 @@ def init_cache(cfg: ArchConfig, batch, max_seq, dtype=torch.float32,
 def grow_cache(cfg: ArchConfig, cache, batch, max_seq, dtype=torch.float32):
     """Pad a prefill-produced cache out to ``max_seq`` decode capacity:
     full-attention caches grow along the sequence axis, zero-padded at the
-    tail (future slots).  Returns new tensors on the cache's device."""
+    tail (future slots), into new tensors; ring caches are already in
+    decode layout and pass through (as ``dtype``).  Raises ``ValueError``
+    where a leaf does not fit, as a ring of ``width`` slots does not fit a
+    ``max_seq`` below it (``repro``'s pad fails there too)."""
     out = {}
-    for name, sub in cache["stack"].items():
+    for j, sub in enumerate(cfg.sublayers()):
+        kind, width = attn.mask_spec_for(cfg, sub.mixer)
+        seq = max_seq if kind == "full" else min(width, max_seq)
         leaves = {}
-        for k, c in sub["mixer"].items():
-            target = (cfg.n_periods, batch, max_seq, *c.shape[3:])
-            if c.shape[2] > max_seq or tuple(c.shape[:2]) != target[:2]:
-                raise ValueError(f"grow_cache: {k} {tuple(c.shape)} does not "
-                                 f"fit {target}")
+        for k, c in cache["stack"][f"sub{j}"]["mixer"].items():
+            target = (cfg.n_periods, batch, seq, *c.shape[3:])
+            if tuple(c.shape[:2]) != target[:2] or c.shape[2] > seq or (
+                    kind != "full" and c.shape[2] != seq):
+                raise ValueError(f"grow_cache: sub{j} {k} {tuple(c.shape)} "
+                                 f"does not fit {target}")
+            if kind != "full":
+                leaves[k] = c.to(dtype)
+                continue
             g = torch.zeros(target, dtype=dtype, device=c.device)
             g[:, :, :c.shape[2]] = c
             leaves[k] = g
-        out[name] = {"mixer": leaves}
+        out[f"sub{j}"] = {"mixer": leaves}
     return {"stack": out}
 
 

@@ -10,6 +10,13 @@ immediately — no batch barrier.
 The cache lives on the model's device and every step writes it in place.
 Each tick reads the slots' next tokens back to the host (the host decides
 which requests are done), as ``repro``'s server does.
+
+Per-slot positions rule out ring caches (sliding-window or chunked
+attention take one position for the batch, as ``repro`` asserts), and
+admission prefills text only, so vision configs, which need patch
+embeddings, cannot be served either: both raise ``ValueError`` at
+construction rather than mid-run.  Audio configs serve their codes as
+token ids.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as T
 
 
@@ -39,6 +47,14 @@ class BatchedServer:
     def __init__(self, cfg: ArchConfig, model: T.Transformer,
                  n_slots: int = 4, max_seq: int = 128,
                  eos_id: Optional[int] = None):
+        rings = sorted({kind for kind, _ in attn.ring_specs(cfg)})
+        if rings:
+            raise ValueError(f"{cfg.name}: {rings} ring caches take one "
+                             f"position for the batch; BatchedServer "
+                             f"decodes each slot at its own")
+        if cfg.frontend == "vision" and cfg.n_frontend_tokens:
+            raise ValueError(f"{cfg.name}: BatchedServer prefills text "
+                             f"only; a vision config needs patch embeddings")
         self.cfg = cfg
         self.model = model
         self.device = model.embed.table.device

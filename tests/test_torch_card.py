@@ -796,6 +796,175 @@ def test_decode_step_never_waits_for_the_card(cuda_device):
     assert bool(torch.isfinite(logits).all())
 
 
+# the dense archs' serving (ring caches, QKV biases, frontends): card
+# against CPU within chip_smoke.py's SERVE_CPU_TOL (f32 products summed in
+# another order, a few ulps per layer on logits of size ~1)
+ARCH_CPU_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+# bf16 at mistral's heads: rows average over up to W keys, so the bar
+# scales with each output row, as chip_smoke.py's ARCH_BF16_TOL: |out -
+# want| <= 2e-2 x the row's RMS + 1.6e-2 x |want|, want in f32 on the same
+# bf16 inputs, rounded to bf16
+ARCH_BF16_TOL = {"row_rms": 2e-2, "rtol": 1.6e-2}
+
+
+def _ring_attn_ok(out, want, tdt):
+    """f32: ``ATTN_TOL``; bf16: ``ARCH_BF16_TOL``, scaled per row."""
+    assert out.dtype == want.dtype and out.shape == want.shape
+    if tdt == torch.float32:
+        return _attn_max_err(out, want) <= ATTN_TOL[tdt]
+    want = want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    bar = ARCH_BF16_TOL["row_rms"] * rms + ARCH_BF16_TOL["rtol"] * want.abs()
+    return bool(((out.float() - want).abs() <= bar).all())
+
+
+def _ring_bias(pos, W, mask_kind):
+    """repro's decode mask over a ring of W slots, as an additive bias."""
+    idx = torch.arange(W)
+    slot = pos % W
+    ok = (pos - (slot - idx) % W >= 0) if mask_kind == "swa" else idx <= slot
+    return torch.where(ok, 0.0, -1e30).reshape(1, 1, 1, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_masks_at_mistral_geometry_on_card(cuda_device, tdt):
+    """K5 with a true window (W 256 < S 640) and through the chunk reshape
+    (chunks of 256 as rows of a B * 3 batch, the last padded), at
+    mistral-nemo-12b's heads (32 / 8, hd 128), against the dense masked
+    softmax of ``repro``'s bias."""
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B, S, H, Kv, hd, W = 2, 640, 32, 8, 128, 256
+    q = torch.randn(B, S, H, hd, generator=gen, device=cuda_device).to(tdt)
+    k, v = (torch.randn(B, S, Kv, hd, generator=gen,
+                        device=cuda_device).to(tdt) for _ in range(2))
+    pos = torch.arange(S, device=cuda_device)
+    kernels.reset_launches()
+    for kind in ("swa", "chunk"):
+        out = A._prefill_attention(q, k, v, kind, W)
+        want = A._sdpa(q.float(), k.float(), v.float(),
+                       A._causal_bias(pos, pos, kind, W)).to(tdt)
+        torch.cuda.synchronize()
+        assert _ring_attn_ok(out, want, tdt), kind
+    assert kernels.launch_counts()["swa_attention"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_decode_over_rings_on_card(cuda_device, tdt, G):
+    """K4 over a ring of W 256 slots (hd 128) at ``pos'`` computed on the
+    card (``min(pos, W - 1)`` for swa, ``pos % W`` for chunk), at positions
+    before, at and past the wrap, against the masked softmax of
+    ``repro``'s ring bias."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device=cuda_device).manual_seed(G)
+    B, Kv, hd, W = 2, 8, 128, 256
+    q = torch.randn(B, 1, G * Kv, hd, generator=gen,
+                    device=cuda_device).to(tdt)
+    k, v = (torch.randn(B, W, Kv, hd, generator=gen,
+                        device=cuda_device).to(tdt) for _ in range(2))
+    kernels.reset_launches()
+    calls = 0
+    for kind in ("swa", "chunk"):
+        for p in (5, W - 1, W, W + 63, 3 * W + 7):
+            pos = torch.tensor(p, dtype=torch.int32, device=cuda_device)
+            live = pos.clamp(max=W - 1) if kind == "swa" else pos % W
+            out = dops.decode_attention(q[:, 0], k, v, live)
+            want = A._sdpa(q.float(), k.float(), v.float(),
+                           _ring_bias(p, W, kind).to(cuda_device))
+            torch.cuda.synchronize()
+            assert _ring_attn_ok(out, want[:, 0].to(tdt), tdt), (kind, p)
+            calls += 1
+    assert kernels.launch_counts()["decode_attention"] == calls
+
+
+def _arch_cfgs():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.mistral_nemo_12b import sliding_window_variant
+    mistral = get_config("mistral-nemo-12b").reduced()
+    return {"swa": sliding_window_variant().reduced(),
+            "chunk": mistral.variant(attn_chunk=64, global_attn_every=2,
+                                     scan_period=2, n_layers=4),
+            "qwen": get_config("qwen1.5-4b").reduced(),
+            "musicgen": get_config("musicgen-large").reduced(),
+            "internvl2": get_config("internvl2-2b").reduced()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["swa", "chunk", "qwen", "musicgen",
+                                  "internvl2"])
+def test_reduced_archs_on_card_match_cpu(cuda_device, case):
+    """Prefill of 80 tokens (past the window of 64) and 16 teacher-forced
+    decode steps, card against CPU from one CPU init: K5 once per layer
+    per prefill, K4 once per layer per step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import VisionFrontendStub
+    cfg = _arch_cfgs()[case]
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for m in cpu.modules():               # non-zero QKV biases
+        for name in ("bq", "bk", "bv"):
+            b = getattr(m, name, None)
+            if b is not None:
+                b.copy_(torch.randn(b.shape, generator=torch.Generator()
+                                    .manual_seed(1)) * 0.1)
+    gpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                        device=cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int64))
+    fe = None
+    if cfg.frontend == "vision":
+        fe = VisionFrontendStub(cfg)(torch.Generator().manual_seed(2), 2)
+    start = 80 + (cfg.n_frontend_tokens if fe is not None else 0)
+    kernels.reset_launches()
+    lc, cc = T.prefill(cfg, cpu, prompt, fe)
+    lg, cg = T.prefill(cfg, gpu, prompt.to(cuda_device),
+                       None if fe is None else fe.to(cuda_device))
+    assert torch.allclose(lg.cpu(), lc, **ARCH_CPU_TOL)
+    cc = T.grow_cache(cfg, cc, 2, start + 16)
+    cg = T.grow_cache(cfg, cg, 2, start + 16)
+    forced = torch.argmax(lc[:, -1:], -1)
+    for i in range(16):
+        lc, cc = T.decode_step(cfg, cpu, forced, cc, start + i)
+        lg, cg = T.decode_step(cfg, gpu, forced.to(cuda_device), cg,
+                               start + i)
+        assert torch.allclose(lg.cpu(), lc, **ARCH_CPU_TOL), i
+        forced = torch.argmax(lc, -1)
+    counts = kernels.launch_counts()
+    assert counts["swa_attention"] == cfg.n_layers
+    assert counts["decode_attention"] == 16 * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["swa", "chunk"])
+def test_ring_decode_step_never_waits_for_the_card(cuda_device, case):
+    """A decode step over ring caches (the slot and ``pos'`` computed on
+    the card) runs with CUDA synchronisation made an error."""
+    from repro_torch.models import transformer as T
+    cfg = _arch_cfgs()[case]
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device=cuda_device)
+    cache = T.init_cache(cfg, 2, 200, device=cuda_device)
+    token = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
+    T.decode_step(cfg, model, token, cache, 0)       # builds the kernel
+    on_card = torch.tensor(130, dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pos in (70, on_card):
+            logits, _ = T.decode_step(cfg, model, token, cache, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
+
+
 # K3 cross_entropy against its plain version: nll and lse within 1e-4 in
 # f32 (repro's bar for its kernel, tests/test_kernels.py) and 3e-2 in bf16;
 # rows of +-1e4 logits within 1e-3 (repro's bar for them: lse ~ 1e4, where

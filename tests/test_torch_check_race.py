@@ -152,6 +152,18 @@ def _declared_once(launches) -> int:
      (1024, 4096, 15, 5, 64)),
     ("K4 G 8 hd 128", "decode_attention.decode_attention",
      (2, 100, 16, 2, 128)),
+    ("K4 G 1 hd 128 qwen1.5-4b slots", "decode_attention.decode_attention",
+     (8, 2048, 20, 20, 128)),
+    ("K4 G 2 hd 128 internvl2-2b", "decode_attention.decode_attention",
+     (4, 800, 16, 8, 128)),
+    ("K4 G 4 hd 128 swa ring W 4096", "decode_attention.decode_attention",
+     (2, 4096, 32, 8, 128)),
+    ("K5 bf16 window 4096 < S 8192", "swa_attention.swa_attention_bf16",
+     (2, 8192, 32, 8, 128, torch.bfloat16)),
+    ("K5 bf16 chunk reshape B 2 x 2", "swa_attention.swa_attention_bf16",
+     (4, 4096, 32, 8, 128, torch.bfloat16)),
+    ("K5 bf16 chunk reshape 3 chunks of 64",
+     "swa_attention.swa_attention_bf16", (3, 64, 4, 2, 128, torch.bfloat16)),
 ])
 def test_every_output_element_declared_by_exactly_one_block(label,
                                                             kernel_id, args):

@@ -133,11 +133,11 @@ def test_train_step_unported_inputs_raise():
     _, _, tcfg, model = transformer_pair()
     with pytest.raises(NotImplementedError, match="item 13"):
         tsteps.make_train_step(tcfg, grad_specs={})
-    step = tsteps.make_train_step(tcfg)
-    batch = {"tokens": torch.zeros(1, 5, dtype=torch.int32),
-             "patch_embeds": torch.zeros(1, 2, tcfg.d_model)}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        step(model, tT.param_dict(model), batch)
+    # a vision config without its patch embeddings raises, as repro asserts
+    vision = tcfg.variant(frontend="vision", n_frontend_tokens=2)
+    batch = {"tokens": torch.zeros(1, 5, dtype=torch.int32)}
+    with pytest.raises(ValueError, match="frontend_embeds"):
+        tsteps.make_train_step(vision)(model, tT.param_dict(model), batch)
     for bad in (dict(remat_policy="dots"), dict(remat_policy="dots_nb"),
                 dict(remat_sublayer=True)):
         with pytest.raises(NotImplementedError, match="item 12"):

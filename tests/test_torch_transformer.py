@@ -123,13 +123,10 @@ def test_unported_layers_raise():
     from repro_torch.configs import get_config
     cfg = get_config("smollm-360m").reduced()
     for bad in (dict(moe_every=1, n_routed_experts=4, moe_top_k=2,
-                     moe_d_ff=64), dict(use_mla=True), dict(qkv_bias=True),
+                     moe_d_ff=64), dict(use_mla=True),
                 dict(first_k_dense=1, n_layers=3)):
         with pytest.raises(NotImplementedError, match="item 12"):
             tT.Transformer(cfg.variant(**bad), device="cpu")
-    swa = cfg.variant(sliding_window=16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tT.init_cache(swa, 1, 8, device="cpu")
     model = tT.Transformer(cfg, device="cpu")
     tokens = torch.zeros(1, 4, dtype=torch.int64)
     for bad in (dict(remat_policy="dots"), dict(remat_sublayer=True)):
