@@ -161,6 +161,31 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    8192, bf16) at window 4096 and window S, K4 over its ring (B 2, W
    4096), each beside its plain version and SDPA.  llama3-405b is not run
    (812 GB of bf16 weights; G 16 > K4's 8).
+8b. MoE + MLA and the training side (``phase_moe``), each model freed
+   before the next: deepseek-v2-lite-16b at full size in bf16 (31.5 GB)
+   through ``generate`` (B 2, prompts of 1,024, 64 new) with naive and
+   then absorbed MLA decode (their logits over ``ARCH_BF16_TOL``'s bar
+   logged), the two forms' ``mla_decode`` in bf16 on identical inputs at
+   each of the 27 MLA layers (against the naive form in f32 and each
+   other, each output row's rms error held to the bar's ``row_rms``, a
+   step one position late planted) and behind phase 7's ``BatchedServer``
+   and requests (MLA: no K4/K5 launch); K5 and K4 against their plain
+   versions at llama4-scout-17b-a16e's shapes (G 5, hd 128, bf16: K5
+   through the chunk reshape of 10,240 tokens into 2 rows of 8,192 and
+   over the global layer's prompt, K4 over the chunk ring of 8,192 and
+   the full cache of 10,272, under ``ARCH_BF16_TOL`` with planted
+   errors), then scout at full width over one period of
+   4 layers (10.9 B parameters; the whole model is 215.5 GB of bf16)
+   through ``generate`` (B 1, a 10,240-token prompt, 32 new: K5 once a
+   layer, K4 once a layer a step, G 5); ``make_train_step`` on the 5-layer
+   deepseek in f32 (B 4, S 512) under ``full``, ``dots``, ``dots_nb``,
+   ``remat_sublayer`` and ``no_remat`` (K3 once a step, the losses within
+   1e-5 of each other, the memory each keeps for the backward logged) and
+   the two MLA decode forms held to each other under ``ARCH_BF16_TOL`` in
+   f32; ``repro_torch.optim`` (adam under ``linear_warmup_cosine``,
+   momentum SGD, ``clip_by_global_norm``) on smollm-360m's param dict,
+   card against CPU; card against CPU on reduced deepseek (both decode
+   forms) and scout, logits within 1e-5.
 9. serve, card against host: the same config cut to 4 layers, one CPU
    init, two of the prompts: prefill and 16 teacher-forced decode steps on
    both, logits within atol 1e-3 / rtol 1e-3.
@@ -3221,6 +3246,623 @@ def phase_archs(dev):
     return k4, k5, k5_rows, k4_rows
 
 
+# MoE + MLA (phase_moe, after phase_archs), random weights from a seed,
+# each model freed in turn: deepseek-v2-lite-16b at full size in bf16 (27
+# layers, MLA latent 512, 64 routed + 2 shared experts top-6, the first
+# layer dense) through generate (B 2, prompts of 1,024, 64 new) with naive
+# and then absorbed MLA decode, then behind the serve phase's BatchedServer;
+# llama4-scout-17b-a16e at full width over one period (3 chunked layers and
+# a global one; the whole model is 215.5 GB of bf16 and does not fit one
+# card) through generate (B 1, a 10,240-token prompt: chunks of 8,192 as K5
+# rows, 32 new); the 5-layer deepseek (the dense prefix and 4 MoE periods)
+# trained in f32 at B 4, S 512 under each checkpoint policy;
+# repro_torch.optim on smollm-360m's param dict; card against CPU on the
+# reduced configs.  MLA's attention is torch products (its q/k head of 192
+# against v's 128 and the absorbed form's 16 query heads over one latent key
+# are outside K5 and K4), so deepseek launches no K4/K5.
+MOE_GEN_B, MOE_GEN_P, MOE_GEN_NEW = 2, 1024, 64
+# naive against absorbed decode logits, teacher-forced from one prefill
+MOE_ABSORB_STEPS = 8
+SCOUT_LAYERS, SCOUT_B, SCOUT_P, SCOUT_NEW = 4, 1, 10240, 32
+# naive and absorbed MLA decode in bf16 on identical inputs, at full width,
+# every MLA layer of deepseek: its MLA prefilled on random hidden states of
+# B 2 x 1,025 (the cache one zero row longer), then one decode step at the
+# scalar position 1,024 and at the [B] positions (1,024, 1,017), each form
+# against the naive form in f32 on the same bf16 numbers and the two against
+# each other.  The output is wo's sum of 2,048 bf16 products: its error
+# against f32 is about 0.6% of the row's rms on either form (a CPU run at
+# full width), so the largest of 27 layers x 4,096 values reaches the tail
+# of ARCH_BF16_TOL's per-element bar (1.17 in that run).  Each output row's
+# rms error is held to ARCH_BF16_TOL's row_rms of that row's rms, the
+# per-element reading logged.  Planted: the step one position late (the
+# prefilled row at 1,024 attended as one key more, the rotation one off)
+MLA_CHECK_B, MLA_CHECK_P, MLA_CHECK_BACK = 2, 1024, 7
+# K5 and K4 against their plain versions at scout's shapes (B 1, H 40, Kv
+# 8, hd 128: G 5, bf16), those its generate launches: K5 through the chunk
+# reshape (10,240 tokens as 2 rows of 8,192) and over the global layer's
+# whole prompt, K4 over the chunk ring of 8,192 (pos' = pos % C: full, just
+# wrapped, and at the generate's first and last steps) and over the global
+# layer's full cache of 10,272 (its first step and its last slot).  The
+# plain versions run in f32 one block of query rows at a time (the dense
+# [H, S, S] scores of 10,240 tokens would take 17 GB).
+SCOUT_K4_CHUNK_POSITIONS = (8191, 8192, 10240, 10270)
+SCOUT_K4_FULL_POSITIONS = (10240, 10271)
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_TIMED = 5, 4, 512, 2
+MOE_POLICIES = (("full", {}), ("dots", {"remat_policy": "dots"}),
+                ("dots_nb", {"remat_policy": "dots_nb"}),
+                ("remat_sublayer", {"remat_sublayer": True}),
+                ("no_remat", {"no_remat": True}))
+# the policies run the same forward and backward: only the order of a sum
+# (index_add's atomics) may differ
+MOE_POLICY_LOSS_RTOL = 1e-5
+# card against CPU, both sides f32 (reduced configs, optimizer steps)
+MOE_CPU_TOL = dict(atol=1e-5, rtol=1e-5)
+OPTIM_STEPS, OPTIM_TOL = 3, dict(rtol=1e-6, atol=1e-7)
+
+
+def moe_model(cfg, dev, dtype, tag):
+    """``cfg`` initialised on the card from a seed, logged."""
+    import torch
+    from repro_torch.models import transformer as T
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    log(f"moe: {tag}: {cfg.n_layers} layers (first_k_dense "
+        f"{cfg.first_k_dense}) d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} mla {cfg.use_mla} (latent "
+        f"{cfg.kv_lora_rank}) experts {cfg.n_routed_experts} + "
+        f"{cfg.n_shared_experts} shared top-{cfg.moe_top_k} d_ff "
+        f"{cfg.moe_d_ff} vocab {cfg.vocab_size}: {T.param_count(cfg)} "
+        f"parameters ({T.param_count(cfg, active_only=True)} active), "
+        f"{(torch.cuda.memory_allocated(dev) - base) / 1e9:.3f} GB "
+        f"{str(dtype).removeprefix('torch.')}, init "
+        f"{time.perf_counter() - t0:.3f} s")
+    return model, base
+
+
+def moe_generate(cfg, model, prompts, new, tag, k5, k4):
+    """One counted ``generate``; returns (tokens, its stats line)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    toks, prefill_s, decode_s = generate(cfg, model, prompts, new)
+    counts = kernels.launch_counts()
+    arch_counts(tag, counts, k5, k4)
+    out = toks.cpu().numpy()
+    B, P = prompts.shape
+    check(out.shape == (B, new) and (out >= 0).all()
+          and (out < cfg.vocab_size).all(), f"moe: {tag} tokens {out}")
+    steps = new - 1
+    log(f"moe: {tag}: B {B} x {P} prompt tokens, {new} new: prefill "
+        f"{prefill_s * 1e3:.3f} ms, decode {decode_s / steps * 1e3:.3f} ms "
+        f"per tick over {steps} ticks, {B * new / (prefill_s + decode_s):.1f}"
+        f" tokens/s ({B * steps / decode_s:.1f} decoding); launches "
+        f"swa_attention {counts['swa_attention']}, decode_attention "
+        f"{counts['decode_attention']}")
+    return toks, counts
+
+
+def moe_absorb_check(cfg, model, prompts, forced, hold):
+    """Naive against absorbed MLA decode logits, teacher-forced on
+    ``forced`` from one prefill: the largest |diff| over the bar of
+    ``ARCH_BF16_TOL``, checked to be at most 1 where ``hold``."""
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    steps = min(MOE_ABSORB_STEPS, forced.shape[1])
+    logits, cache = T.prefill(cfg, model, prompts)
+    del logits
+    runs = []
+    for absorb in (False, True):
+        c = T.grow_cache(cfg, cache, B, P + steps,
+                         model.embed.table.dtype)   # a grown copy
+        cfg_a = cfg.variant(mla_absorb=absorb)
+        runs.append([T.decode_step(cfg_a, model, forced[:, i:i + 1], c,
+                                   P + i)[0] for i in range(steps)])
+    errs = [scaled_err(a, n) for n, a in zip(*runs)]
+    e = max(errs)
+    dtype = str(model.embed.table.dtype).removeprefix("torch.")
+    if hold:
+        check(e <= 1.0, f"moe: absorbed MLA decode logits ({dtype}) differ "
+              f"from naive by {e} of the bar {ARCH_BF16_TOL}")
+    diff = max((a.float() - n.float()).abs().max().item()
+               for n, a in zip(*runs))
+    log(f"moe: naive vs absorbed MLA decode, {dtype}, {cfg.n_layers} "
+        f"layers, {steps} teacher-forced steps from one prefill of B {B} x "
+        f"{P}: logits max |diff| {diff}, max |diff| / bar {e} (per step "
+        f"{[round(x, 4) for x in errs]}; bar {ARCH_BF16_TOL}, "
+        f"{'held' if hold else 'logged'})")
+    return e
+
+
+def row_rms_err(out, want):
+    """max over output rows of rms(out - want) / (the ``row_rms`` of
+    ``ARCH_BF16_TOL`` x rms(want)): at most 1 passes."""
+    import torch
+    torch.cuda.synchronize()
+    want = want.float()
+    diff = (out.float() - want).pow(2).mean(-1).sqrt()
+    rms = want.pow(2).mean(-1).sqrt()
+    return (diff / (ARCH_BF16_TOL["row_rms"] * rms)).max().item()
+
+
+def mla_layer_checks(cfg, model, dev):
+    """``mla_decode`` naive and absorbed in bf16 on identical inputs at
+    every MLA layer of ``model`` (``MLA_CHECK_*``): each against the naive
+    form in f32 and the two against each other, held by ``row_rms_err``
+    with ``scaled_err`` logged beside it; a planted step one position late
+    read against the same bar.  Returns the readings."""
+    import copy
+    import torch
+    from repro_torch.models import attention as A
+    B, P = MLA_CHECK_B, MLA_CHECK_P
+    gen = torch.Generator(device=dev).manual_seed(8)
+    absorbed = cfg.variant(mla_absorb=True)
+    forms = {"scalar": P, "[B]": torch.tensor(
+        [P, P - MLA_CHECK_BACK], dtype=torch.int32, device=dev)}
+    pairs = ("naive", "absorbed", "absorbed vs naive")
+    err = {"rows": dict.fromkeys(pairs, 0.0),
+           "elements": dict.fromkeys(pairs, 0.0), "planted": []}
+
+    def step(c, m, xs, at, cache, dtype=None):
+        fresh = {k: v.clone().to(dtype or v.dtype) for k, v in cache.items()}
+        with torch.no_grad():
+            return A.mla_decode(c, m, xs, fresh, at)[0]
+    mlas = [m for m in model.modules() if isinstance(m, A.MLA)]
+    for i, mla in enumerate(mlas):
+        x = torch.randn(B, P + 2, cfg.d_model, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        positions = torch.arange(P + 1, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            _, cache = A.mla_fwd(cfg, mla, x[:, :P + 1], positions)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 1))
+                 for k, v in cache.items()}
+        x_new = x[:, P + 1:]
+        mla32 = copy.deepcopy(mla).float()
+        for tag, pos in forms.items():
+            want = step(cfg, mla32, x_new.float(), pos, cache,
+                        torch.float32).to(torch.bfloat16)
+            naive = step(cfg, mla, x_new, pos, cache)
+            absd = step(absorbed, mla, x_new, pos, cache)
+            where = f"layer {i}, {tag} position, B {B} x {P + 1} cached"
+            for pair, out, ref in (("naive", naive, want),
+                                   ("absorbed", absd, want),
+                                   ("absorbed vs naive", absd, naive)):
+                check(out.shape == ref.shape and out.dtype == ref.dtype,
+                      f"mla_decode {pair} shape/dtype at {where}")
+                e = row_rms_err(out, ref)
+                check(e <= 1.0, f"mla_decode {pair} (bf16) differs by {e} "
+                      f"of the row bar {ARCH_BF16_TOL['row_rms']} at {where}")
+                err["rows"][pair] = max(err["rows"][pair], e)
+                err["elements"][pair] = max(err["elements"][pair],
+                                            scaled_err(out, ref))
+            err["planted"].append(row_rms_err(
+                step(absorbed, mla, x_new, pos + 1, cache), want))
+        del mla32, cache, x
+    check(min(err["planted"]) > 1.0,
+          f"moe: an MLA decode step one position late reads "
+          f"{err['planted']} of the row bar, which does not see it")
+    log(f"moe: mla_decode naive and absorbed, bf16 on identical inputs at "
+        f"all {len(mlas)} MLA layers of {cfg.name} (full width), one step "
+        f"at a scalar position {P} and at [B] positions ({P}, "
+        f"{P - MLA_CHECK_BACK}) over a cache prefilled with {P + 1} rows, "
+        f"against the naive form in f32 on the same bf16 numbers and "
+        f"absorbed against naive: max rms(diff) / (row_rms x rms) per "
+        f"output row (held) {err['rows']}; max |diff| / bar "
+        f"({ARCH_BF16_TOL}, logged) {err['elements']}; planted (the step "
+        f"one position late, row bar) min {min(err['planted'])} max "
+        f"{max(err['planted'])} over {len(err['planted'])} cases")
+    return err
+
+
+def moe_deepseek(dev):
+    """deepseek-v2-lite-16b at full size in bf16: generate (naive, then
+    absorbed MLA decode), the two held to each other, then the serve
+    phase's BatchedServer.  Returns {path: (K4, K5)}."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b")
+    model, base = moe_model(cfg, dev, torch.bfloat16, cfg.name)
+    rng = np.random.default_rng(2)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_GEN_B, MOE_GEN_P)).astype(np.int32)).to(dev)
+    from repro_torch.launch.serve import generate
+    t0 = time.perf_counter()
+    generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
+    log(f"moe:   warm-up (B {MOE_GEN_B}, 128 tokens, 3 steps) "
+        f"{time.perf_counter() - t0:.3f} s")
+    toks, _ = moe_generate(cfg, model, prompts, MOE_GEN_NEW,
+                           f"{cfg.name} generate, naive MLA decode", 0, 0)
+    moe_generate(cfg.variant(mla_absorb=True), model, prompts, MOE_GEN_NEW,
+                 f"{cfg.name} generate, absorbed MLA decode", 0, 0)
+    # logged, not held: in bf16 the two forms round the scores and weights
+    # differently, and a top-6 of 64 router turns such a difference into
+    # another expert; the forms are held to each other in f32 (moe_train)
+    moe_absorb_check(cfg, model, prompts, toks, hold=False)
+    # what routing cannot reach: the two forms layer by layer, held
+    mla_layer_checks(cfg, model, dev)
+    log(f"moe: {cfg.name} generate: peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB allocated "
+        f"({base / 1e9:.3f} GB of earlier phases)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve_run(cfg, model, serve_prompts(cfg.vocab_size)[:2], max_new=4)
+    stats = {"prefill_ms": [], "tick_ms": []}
+    from repro_torch import kernels
+    kernels.reset_launches()
+    prompts_s = serve_prompts(cfg.vocab_size)
+    reqs, ticks, wall = serve_run(cfg, model, prompts_s, stats, SERVE_NEW)
+    counts = kernels.launch_counts()
+    arch_counts(f"{cfg.name} BatchedServer", counts, 0, 0)
+    for r in reqs:
+        check(r.done and len(r.out) == SERVE_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"moe: {cfg.name} request {r.rid} out {r.out}")
+    log(f"moe: {cfg.name} BatchedServer: {len(prompts_s)} requests "
+        f"({SERVE_NEW} new each) over {SERVE_SLOTS} slots of "
+        f"{SERVE_MAX_SEQ}: {ticks} ticks in {wall:.3f} s, "
+        f"{len(prompts_s) * SERVE_NEW / wall:.1f} tokens/s; prefill ms per "
+        f"request mean {np.mean(stats['prefill_ms']):.3f}, decode ms per "
+        f"tick mean {np.mean(stats['tick_ms']):.3f} (median "
+        f"{np.median(stats['tick_ms']):.3f}); peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB allocated")
+    del model, reqs, toks, prompts
+    free_card()
+    return {f"{cfg.name} (MLA: no K4/K5)": (0, 0)}
+
+
+def plain_prefill(q, k, v, kind, width):
+    """The plain causal attention of a prompt under ``kind`` in f32, one
+    block of ``SDPA_BLOCK_Q`` query rows at a time, rounded to q's
+    dtype."""
+    import torch
+    from repro_torch.models import attention as A
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    pos = torch.arange(q.shape[1], device=q.device)
+    return torch.cat([A._sdpa_block(qf, kf, vf, pos, start, kind, width)
+                      for start in range(0, q.shape[1], A.SDPA_BLOCK_Q)],
+                     dim=1).to(q.dtype)
+
+
+def scout_kernel_checks(dev, cfg):
+    """K5 and K4 against their plain versions at scout's shapes
+    (``SCOUT_K4_*``), bf16 under the scaled bar of ``ARCH_BF16_TOL``, with
+    planted errors read against the same bar.  Returns the readings."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.models import attention as A
+    bf16 = torch.bfloat16
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    C, S, B = cfg.attn_chunk, SCOUT_P, SCOUT_B
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = {"k5": {}, "k4": 0.0, "planted_k5": {}, "planted_k4": []}
+    kernels.reset_launches()
+    q, k, v = attn_inputs((B, S, H, hd), (B, S, Kv, hd), bf16, gen, dev)
+    want = plain_prefill(q, k, v, "chunk", C)
+    err["k5"]["chunk"] = bf16_check(
+        "swa_attention (scout chunk reshape)",
+        A._prefill_attention(q, k, v, "chunk", C), want,
+        f"chunks of {C}, S {S}, G {H // Kv} bf16")
+    # planted: the chunk boundary one token late
+    err["planted_k5"]["chunk"] = scaled_err(
+        A._prefill_attention(q, k, v, "chunk", C + 1), want)
+    want = plain_prefill(q, k, v, "full", 0)
+    err["k5"]["global"] = bf16_check(
+        "swa_attention (scout global)", A._prefill_attention(
+            q, k, v, "full", 0), want, f"window S {S}, G {H // Kv} bf16")
+    # planted: the global layer windowed as wide as a chunk
+    err["planted_k5"]["global"] = scaled_err(
+        sops.swa_attention(q, k, v, window=C), want)
+    del q, k, v, want
+    k5_calls = kernels.launch_counts()["swa_attention"]
+    check(k5_calls == 4, f"scout: swa_attention launched {k5_calls} for 4")
+    check(min(err["planted_k5"].values()) > 1.0,
+          f"scout: planted K5 errors read {err['planted_k5']} of the bf16 "
+          f"bar, which does not see them")
+    calls = 0
+    for kind, W, positions in (("chunk", C, SCOUT_K4_CHUNK_POSITIONS),
+                               ("full", S + SCOUT_NEW,
+                                SCOUT_K4_FULL_POSITIONS)):
+        q, k, v = attn_inputs((B, 1, H, hd), (B, W, Kv, hd), bf16, gen, dev)
+        idx = torch.arange(W, device=dev)
+        for p in positions:
+            at = p % W if kind == "chunk" else p
+            live = torch.tensor(at, dtype=torch.int32, device=dev)
+            out = dops.decode_attention(q[:, 0], k, v, live)
+            calls += 1
+            qf, kf, vf = (t.float() for t in (q, k, v))
+            want = dref.decode_attention(qf[:, 0], kf, vf, live).to(bf16)
+            bias = torch.where(idx <= at, 0.0, -1e30).reshape(1, 1, 1, W)
+            where = f"{kind} W {W} G {H // Kv} pos {p} (pos' {at}) bf16"
+            err["k4"] = max(
+                err["k4"],
+                bf16_check("decode_attention (scout)", out, want, where),
+                bf16_check("decode_attention (scout bias)", out,
+                           A._sdpa(qf, kf, vf, bias)[:, 0].to(bf16), where))
+            # planted: pos' one slot off (one more, or one fewer where the
+            # cache is full)
+            off = torch.tensor(at + 1 if at < W - 1 else at - 1,
+                               dtype=torch.int32, device=dev)
+            err["planted_k4"].append(scaled_err(
+                dops.decode_attention(q[:, 0], k, v, off), want))
+            calls += 1
+        del q, k, v, qf, kf, vf
+    k4_calls = kernels.launch_counts()["decode_attention"]
+    check(k4_calls == calls,
+          f"scout: decode_attention launched {k4_calls} for {calls}")
+    log(f"moe: scout kernel checks (B {B}, H {H}, Kv {Kv}, hd {hd}, G "
+        f"{H // Kv}, bf16) against the plain versions in f32, max |diff| / "
+        f"bar ({ARCH_BF16_TOL}): swa_attention through the chunk reshape "
+        f"(S {S}, chunks of {C}) {err['k5']['chunk']}, over the global "
+        f"layer's prompt (window S) {err['k5']['global']} ({k5_calls} "
+        f"launches); decode_attention over the chunk ring of {C} at pos "
+        f"{SCOUT_K4_CHUNK_POSITIONS} and the full cache of {S + SCOUT_NEW} "
+        f"at pos {SCOUT_K4_FULL_POSITIONS}, against the plain version and "
+        f"the bias mask, {err['k4']} ({k4_calls} launches); planted: chunk "
+        f"boundary one token late {err['planted_k5']['chunk']}, global "
+        f"layer windowed at {C} {err['planted_k5']['global']}, pos' one "
+        f"slot off {err['planted_k4']}")
+    free_card()
+    return err
+
+
+def moe_scout(dev):
+    """llama4-scout-17b-a16e at full width over one period in bf16 through
+    generate; returns {path: (K4, K5)}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = full.variant(n_layers=SCOUT_LAYERS)
+    from repro_torch.models import transformer as T
+    log(f"moe: {full.name}: the whole model, {full.n_layers} layers, is "
+        f"{T.param_count(full)} parameters ({T.param_count(full) * 2 / 1e9:.1f}"
+        f" GB of bf16): one card cannot hold it; run over one period of "
+        f"{SCOUT_LAYERS} layers")
+    scout_kernel_checks(dev, cfg)
+    model, base = moe_model(cfg, dev, torch.bfloat16,
+                            f"{cfg.name} variant(n_layers={SCOUT_LAYERS})")
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SCOUT_B, SCOUT_P)).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
+    log(f"moe:   warm-up (128 tokens, 3 steps) "
+        f"{time.perf_counter() - t0:.3f} s")
+    steps = SCOUT_NEW - 1
+    _, counts = moe_generate(
+        cfg, model, prompts, SCOUT_NEW,
+        f"{cfg.name} 4 layers generate (chunk {cfg.attn_chunk}: K5 rows "
+        f"of {-(-SCOUT_P // cfg.attn_chunk)} chunks; global every "
+        f"{cfg.global_attn_every}; G {cfg.n_heads // cfg.n_kv_heads})",
+        cfg.n_layers, cfg.n_layers * steps)
+    log(f"moe: {cfg.name} 4 layers: peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB allocated "
+        f"({base / 1e9:.3f} GB of earlier phases)")
+    del model, prompts
+    free_card()
+    return {f"{full.name} 4 layers": (counts["decode_attention"],
+                                       counts["swa_attention"])}
+
+
+def moe_saved_gb(cfg, model, params, tokens):
+    """GB the training forward keeps for the backward under ``cfg``'s
+    checkpoint policy: allocated after the loss, before the backward,
+    less allocated before it."""
+    import torch
+    from repro_torch.kernels.cross_entropy.ops import lm_loss
+    from repro_torch.models import transformer as T
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    logits, aux = T.apply_params(cfg, model, leaves, tokens[:, :-1])
+    loss = lm_loss(logits, tokens[:, 1:]) + aux
+    del logits
+    torch.cuda.synchronize()
+    saved = (torch.cuda.memory_allocated() - before) / 1e9
+    del loss, aux, leaves
+    return saved
+
+
+def moe_train(dev):
+    """make_train_step on the 5-layer deepseek in f32 under every
+    checkpoint policy, from the same params and batch; returns the K3
+    launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth_tokens
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_config("deepseek-v2-lite-16b").variant(
+        n_layers=MOE_TRAIN_LAYERS)
+    model, base = moe_model(cfg, dev, torch.float32,
+                            f"{cfg.name} variant(n_layers="
+                            f"{MOE_TRAIN_LAYERS}) training")
+    params = T.param_dict(model)
+    batch = {"tokens": torch.from_numpy(synth_tokens(
+        MOE_TRAIN_B, MOE_TRAIN_S + 1, cfg.vocab_size, seed=6)).to(dev)}
+    with torch.no_grad():
+        _, aux = T.forward(cfg, model, batch["tokens"][:, :-1])
+    aux = float(aux)
+    make_train_step(cfg, lr=0.01)(model, params, batch)     # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    k3, rows = 0, {}
+    for name, kw in MOE_POLICIES:
+        pcfg = cfg.variant(**kw)
+        saved = moe_saved_gb(pcfg, model, params, batch["tokens"])
+        step = make_train_step(pcfg, lr=0.01)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(MOE_TRAIN_TIMED):
+            new, metrics = step(model, params, batch)
+            losses.append(metrics["loss"])
+            del new
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MOE_TRAIN_TIMED * 1e3
+        counts = kernels.launch_counts()
+        check(counts["cross_entropy"] == MOE_TRAIN_TIMED
+              and counts["swa_attention"] == counts["decode_attention"] == 0,
+              f"moe train {name}: launches {counts}, want cross_entropy "
+              f"{MOE_TRAIN_TIMED} (one a step)")
+        k3 += counts["cross_entropy"]
+        losses = [float(v) for v in losses]
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        rows[name] = (ms, saved, losses[0])
+        log(f"moe: train {cfg.name} {MOE_TRAIN_LAYERS} layers f32, B "
+            f"{MOE_TRAIN_B} S {MOE_TRAIN_S}, {name}: {ms:.3f} ms per step "
+            f"over {MOE_TRAIN_TIMED} steps, "
+            f"{MOE_TRAIN_B * MOE_TRAIN_S / ms * 1e3:.1f} tokens/s; saved "
+            f"for the backward {saved:.3f} GB; step peak {peak:.3f} GB "
+            f"above params and batch (the gradients and the new params); "
+            f"loss {losses} (aux {aux} included); cross_entropy launches "
+            f"{counts['cross_entropy']}")
+    cut = MOE_TRAIN_S - MOE_ABSORB_STEPS
+    moe_absorb_check(cfg, model, batch["tokens"][:2, :cut],
+                     batch["tokens"][:2, cut:MOE_TRAIN_S], hold=True)
+    ref = rows["full"][2]
+    for name, (_, _, loss) in rows.items():
+        check(abs(loss - ref) <= MOE_POLICY_LOSS_RTOL * abs(ref),
+              f"moe train: {name} loss {loss} against full's {ref}")
+    order = sorted(rows, key=lambda n: -rows[n][1])
+    log(f"moe: train memory saved for the backward, most first: "
+        f"{[(n, round(rows[n][1], 3)) for n in order]} (expected no_remat "
+        f">= dots >= dots_nb >= full: "
+        f"{rows['no_remat'][1] >= rows['dots'][1] >= rows['dots_nb'][1] >= rows['full'][1]})")
+    del model, params, batch
+    free_card()
+    return k3
+
+
+def moe_optim(dev):
+    """adam under linear_warmup_cosine and momentum SGD, each after
+    clip_by_global_norm, on smollm-360m's f32 param dict: three steps from
+    one gradient on the card and on the CPU."""
+    import torch
+    import repro_torch.optim as O
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(SERVE_ARCH)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                          device=dev)
+    params = T.param_dict(model)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3
+             for k, v in params.items()}
+    n = sum(v.numel() for v in params.values())
+    for label, opt in (
+            ("adam(linear_warmup_cosine(1e-3, 2, 10), weight_decay=0.1)",
+             O.adam(O.linear_warmup_cosine(1e-3, 2, 10), weight_decay=0.1)),
+            ("momentum_sgd(0.01)", O.momentum_sgd(0.01))):
+        out, ms = [], []
+        for where in (dev, "cpu"):
+            p = {k: v.to(where) for k, v in params.items()}
+            g = {k: v.to(where) for k, v in grads.items()}
+            state = opt.init(p)
+            for _ in range(OPTIM_STEPS):
+                if where == dev:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gc, norm = O.clip_by_global_norm(g, 1.0)
+                u, state = opt.update(gc, state, p)
+                p = O.apply_updates(p, u)
+                if where == dev:
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            check(state["step"].device.type == torch.device(where).type
+                  and int(state["step"]) == OPTIM_STEPS,
+                  f"moe optim {label}: step {state['step']}")
+            out.append(p)
+            del g, gc, u, state
+        # |card - CPU| over the band atol + rtol |CPU|: at most 1 passes
+        pairs = [(a.cpu(), b) for a, b in zip(out[0].values(),
+                                               out[1].values())]
+        diff = max((a - b).abs().max().item() for a, b in pairs)
+        band = max(((a - b).abs() / (OPTIM_TOL["atol"] + OPTIM_TOL["rtol"]
+                                      * b.abs())).max().item()
+                   for a, b in pairs)
+        check(band <= 1.0, f"moe optim {label}: card against CPU max |diff| "
+              f"{diff}, {band} of the band {OPTIM_TOL}")
+        log(f"moe: optim {label} with clip_by_global_norm(1.0) on "
+            f"{cfg.name}'s {len(params)} f32 leaves ({n} parameters), "
+            f"{OPTIM_STEPS} steps from one gradient: card against CPU max "
+            f"|diff| {diff}, {band} of the band {OPTIM_TOL}; ms per update "
+            f"on the card (clip + update + apply) "
+            f"{[round(x, 3) for x in ms]}")
+        del out
+    del model, params, grads
+    free_card()
+
+
+def moe_vs_cpu(dev):
+    """The reduced configs card against CPU, one CPU init: prefill of 80
+    tokens and 16 teacher-forced decode steps, and a training forward's
+    aux; deepseek in both MLA decode forms."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+    ds = get_config("deepseek-v2-lite-16b").reduced()
+    cfgs = {"deepseek-v2-lite-16b": ds,
+            "deepseek-v2-lite-16b absorbed": ds.variant(mla_absorb=True),
+            "llama4-scout-17b-a16e": get_config(
+                "llama4-scout-17b-a16e").reduced()}
+    for label, cfg in cfgs.items():
+        cpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        prompt = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, ARCH_CPU_PROMPT)).astype(np.int64))
+        lc, cc = T.prefill(cfg, cpu, prompt)
+        lg, cg = T.prefill(cfg, gpu, prompt.to(dev))
+        diffs = [(lg.cpu() - lc).abs().max().item()]
+        end = max([ARCH_CPU_PROMPT + ARCH_CPU_STEPS,
+                   *(w for _, w in attn.ring_specs(cfg))])
+        cc, cg = T.grow_cache(cfg, cc, 2, end), T.grow_cache(cfg, cg, 2, end)
+        forced = torch.argmax(lc[:, -1:], -1)
+        for i in range(ARCH_CPU_STEPS):
+            lc, cc = T.decode_step(cfg, cpu, forced, cc, ARCH_CPU_PROMPT + i)
+            lg, cg = T.decode_step(cfg, gpu, forced.to(dev), cg,
+                                   ARCH_CPU_PROMPT + i)
+            diffs.append((lg.cpu() - lc).abs().max().item())
+            check(torch.allclose(lg.cpu(), lc, **MOE_CPU_TOL),
+                  f"moe vs CPU: {label} step {i} differs by {diffs[-1]}")
+            forced = torch.argmax(lc, -1)
+        (_, ac), (_, ag) = (T.forward(cfg, m, t) for m, t in (
+            (cpu, prompt), (gpu, prompt.to(dev))))
+        check(torch.allclose(ag.cpu(), ac, rtol=1e-5),
+              f"moe vs CPU: {label} aux {float(ag)} against {float(ac)}")
+        log(f"moe vs CPU: {label} (reduced): prefill of {ARCH_CPU_PROMPT} "
+            f"tokens + {ARCH_CPU_STEPS} teacher-forced steps, logits max "
+            f"|diff| {max(diffs)} ({MOE_CPU_TOL}); aux {float(ag)} against "
+            f"{float(ac)}")
+
+
+def phase_moe(dev):
+    """The MoE + MLA archs and the training side on the card.  Returns
+    ({path: K4 launches}, {path: K5 launches}, K3 launches)."""
+    paths = moe_deepseek(dev)
+    mark("moe: deepseek-v2-lite-16b serving")
+    paths.update(moe_scout(dev))
+    mark("moe: llama4-scout-17b-a16e serving")
+    k3 = moe_train(dev)
+    mark("moe: training under five policies")
+    moe_optim(dev)
+    moe_vs_cpu(dev)
+    mark("moe: optim, card against CPU")
+    return ({p: k4 for p, (k4, _) in paths.items()},
+            {p: k5 for p, (_, k5) in paths.items()}, k3)
+
+
 # K3 cross_entropy: (nll, lse) within 1e-4 of the plain version in f32
 # (repro's bar for its kernel, tests/test_kernels.py) and 3e-2 in bf16; rows
 # of +-1e4 logits within 1e-3 (repro's bar for them: lse ~ 1e4, where one
@@ -3923,6 +4565,12 @@ def main() -> int:
     # frontends): one path per model
     arch_k4, arch_k5, k5_rows, k4_rows = phase_archs(dev)
     mark("archs")
+    # the MoE + MLA archs (deepseek's MLA takes neither K4 nor K5) and the
+    # training side (K3 once a step under each checkpoint policy)
+    moe_k4, moe_k5, moe_k3 = phase_moe(dev)
+    mark("moe")
+    arch_k4.update(moe_k4)
+    arch_k5.update(moe_k5)
     k4["launches_by_path"] = {"serve smollm-360m": k4["launches"], **arch_k4}
     k5["launches_by_path"] = {"serve smollm-360m": k5["launches"], **arch_k5}
     k4["launches"] += sum(arch_k4.values())
@@ -3931,6 +4579,10 @@ def main() -> int:
     k5["geometries"].update(k5_rows)
     k3["launches"], train_merges = phase_train(dev)
     mark("train")
+    k3["launches_by_path"] = {"train smollm-360m": k3["launches"],
+                              "moe train deepseek-v2-lite-16b 5 layers":
+                              moe_k3}
+    k3["launches"] += moe_k3
     # F1 is a fixture: no main path launches it
     f1_main = racy_kernel.KERNEL.launches - f1_before
     check(f1_main == 0,

@@ -47,8 +47,17 @@ DEVICE_LOOP_FUNCTIONS = {
     "repro_torch/telemetry/device.py": (
         "stale_bin", "_fold", "fleet_pop", "corridor_pop", "RingStats.count",
         "RingStats.wrap"),
-    "repro_torch/models/transformer.py": ("decode_step",),
-    "repro_torch/models/attention.py": ("attention_decode",),
+    "repro_torch/models/transformer.py": ("decode_step", "forward_hidden",
+                                          "_run_stack", "PeriodBlock.forward",
+                                          "prefill"),
+    "repro_torch/models/attention.py": ("attention_decode", "mla_fwd",
+                                        "mla_decode"),
+    "repro_torch/models/moe.py": ("_router", "moe_fwd", "moe_decode"),
+    "repro_torch/optim/optimizers.py": ("sgd", "momentum_sgd", "adam",
+                                        "apply_updates", "global_norm",
+                                        "clip_by_global_norm"),
+    "repro_torch/optim/schedule.py": ("constant", "cosine_decay",
+                                      "linear_warmup_cosine"),
     "repro_torch/launch/serve.py": ("generate",),
     "repro_torch/launch/steps.py": (
         "make_train_step", "make_prefill_step", "make_serve_step",

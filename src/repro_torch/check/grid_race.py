@@ -230,7 +230,10 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
     4,096, G 4), qwen1.5-4b's slots (G 1), internvl2-2b's batch (G 2) and
     musicgen-large's slots (G 1, hd 64), K5 at mistral-nemo-12b's windowed
     prefill (S 8,192 > W 4,096) and through the chunk reshape (chunks of
-    4,096 as rows of a B * ceil(S / C) batch)."""
+    4,096 as rows of a B * ceil(S / C) batch); and llama4-scout-17b-a16e's
+    10,240-token generate (G 5, bf16): K4 over its chunk ring of 8,192 and
+    its global layer's full cache of 10,272, K5 through the chunk reshape (2
+    chunks of 8,192) and over the global layer's whole prompt."""
     return {
         "weighted_agg.weighted_agg": [
             ("paper CNN f32", (CNN_SIZES, torch.float32)),
@@ -257,7 +260,11 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("qwen1.5-4b slots B 8 S 2048 G 1", (8, 2048, 20, 20, 128)),
             ("internvl2-2b B 4 S 800 G 2", (4, 800, 16, 8, 128)),
             ("musicgen-large slots B 8 S 1024 G 1 hd 64",
-             (8, 1024, 32, 32, 64))],
+             (8, 1024, 32, 32, 64)),
+            ("llama4-scout-17b-a16e chunk ring B 1 C 8192 G 5",
+             (1, 8192, 40, 8, 128)),
+            ("llama4-scout-17b-a16e global cache B 1 S 10272 G 5",
+             (1, 10272, 40, 8, 128))],
         "swa_attention.swa_attention": [
             ("prefill S 512 f32", (1, 512, 15, 5, 64, torch.float32)),
             ("prefill S 1024 f32", (1, 1024, 15, 5, 64, torch.float32)),
@@ -271,7 +278,11 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("mistral-nemo-12b window 4096 B 2 S 8192 bf16",
              (2, 8192, 32, 8, 128, torch.bfloat16)),
             ("chunk reshape B 2 x 2 chunks of 4096 bf16",
-             (4, 4096, 32, 8, 128, torch.bfloat16))],
+             (4, 4096, 32, 8, 128, torch.bfloat16)),
+            ("llama4-scout-17b-a16e chunk reshape 2 chunks of 8192 bf16",
+             (2, 8192, 40, 8, 128, torch.bfloat16)),
+            ("llama4-scout-17b-a16e global prefill S 10240 bf16",
+             (1, 10240, 40, 8, 128, torch.bfloat16))],
     }
 
 

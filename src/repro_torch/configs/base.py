@@ -225,10 +225,9 @@ def register(name: str):
     return deco
 
 
-# registered by ``repro`` but not ported yet: their mixers (MoE, MLA, Mamba,
-# RWKV) or their first_k_dense prefixes have no port
-UNPORTED = ("deepseek-v2-lite-16b", "jamba-v0.1-52b",
-            "llama4-scout-17b-a16e", "rwkv6-1.6b")
+# registered by ``repro`` but not ported yet: their mixers (Mamba, RWKV)
+# and LayerNorm stacks have no port
+UNPORTED = ("jamba-v0.1-52b", "rwkv6-1.6b")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -255,7 +254,8 @@ def _ensure_loaded():
     if _LOADED:
         return
     from repro_torch.configs import (  # noqa: F401
-        internvl2_2b, llama3_405b, mistral_nemo_12b, musicgen_large,
-        qwen1_5_4b, smollm_360m,
+        deepseek_v2_lite_16b, internvl2_2b, llama3_405b,
+        llama4_scout_17b_a16e, mistral_nemo_12b, musicgen_large, qwen1_5_4b,
+        smollm_360m,
     )
     _LOADED = True

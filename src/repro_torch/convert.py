@@ -10,7 +10,12 @@ Transformer: ``repro``'s pytree carries a leading period axis on every
 leaf ``stack.sub0.mixer.wq [n_periods, d, H, hd]`` is the port's
 ``stack.<i>.sub0.mixer.wq`` for i < n_periods (the QKV biases
 ``mixer.bq``/``bk``/``bv`` too, where the config has them); every other
-leaf (the untied ``lm_head.w`` among them) keeps its name and shape.  A
+leaf (the untied ``lm_head.w`` among them) keeps its name and shape;
+``repro``'s ``prefix`` list of ``first_k_dense`` sublayers is the port's
+``prefix`` ``ModuleList`` (``prefix.<i>.mlp.w_gate``).  MoE leaves
+(``mlp.router``, float32 in every model, ``mlp.w_gate [E, d, f]``,
+``mlp.shared.*``) and MLA leaves (``mixer.w_dkv``, ``mixer.kv_norm.scale``,
+...) keep ``repro``'s names and shapes.  A
 checkpoint of a transformer (either package's) holds
 that nested tree: ``checkpointing.load_checkpoint(path,
 transformer_params_to_numpy(model))`` then ``transformer_params_from_jax``.
@@ -50,10 +55,13 @@ def params_to_numpy(params: dict) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-def _flatten(tree: dict, prefix="") -> dict:
+def _flatten(tree, prefix="") -> dict:
+    """Dotted leaf names of a tree of dicts and lists (a list's items by
+    index, as ``repro``'s ``prefix`` list of sublayers)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(_flatten(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = v
@@ -129,4 +137,7 @@ def transformer_params_to_numpy(params) -> dict:
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = value
+    if "prefix" in tree:         # repro's first_k_dense layers: a list
+        tree["prefix"] = [tree["prefix"][i]
+                          for i in sorted(tree["prefix"], key=int)]
     return tree

@@ -5,6 +5,8 @@ greedily against the KV cache — the counterpart of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --reduced --device cpu
 
 Weights, prompts and a vision config's patch embeddings (the frontend
 stub's) are drawn from ``torch.Generator``s seeded by ``--seed``; they are

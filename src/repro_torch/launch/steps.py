@@ -3,7 +3,8 @@
 
 ``make_train_step`` is paper-faithful plain SGD (Eq. 2) over the mean
 next-token cross-entropy (Eq. 1), computed by K3
-(``kernels.cross_entropy.ops.lm_loss``).  A train step takes the model (its
+(``kernels.cross_entropy.ops.lm_loss``), plus the MoE layers'
+load-balance loss (zero for a dense model), as ``repro``'s.  A train step takes the model (its
 structure and buffers), a ``{name: tensor}`` param dict and the batch, and
 returns a new dict.  ``serve_step`` decodes ONE token against a cache
 written in place.  ``mafl_step`` is the RSU aggregation (Eq. 10+11) over a

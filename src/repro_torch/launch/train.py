@@ -12,6 +12,8 @@ upload with the MAFL weights (Eqs. 7-11; through K2 under
     PYTHONPATH=src python -m repro_torch.launch.train --use-kernel   # card
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --rounds 3
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --reduced --device cpu --rounds 3
 """
 from __future__ import annotations
 

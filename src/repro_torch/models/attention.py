@@ -1,5 +1,6 @@
-"""GQA softmax attention with RoPE, QKV biases, sliding-window and chunked
-masks, the counterpart of the GQA half of ``repro.models.attention``.
+"""Softmax attention, the counterpart of ``repro.models.attention``: GQA
+with RoPE, QKV biases, sliding-window and chunked masks, and DeepSeek's
+multi-head latent attention (MLA, at the end of this module).
 
 Cache layouts per layer (the transformer stacks a leading period axis), as
 ``repro``'s:
@@ -7,6 +8,7 @@ Cache layouts per layer (the transformer stacks a leading period axis), as
   full  : k, v [B, S, Kv, hd]   S the maximum context
   swa   : k, v [B, W, Kv, hd]   a ring over the window: position p at p % W
   chunk : k, v [B, C, Kv, hd]   the chunk in progress: position p at p % C
+  mla   : c_kv [B, S, lora], k_rope [B, S, rope]
 
 Serving runs two kernels.  Prefill runs K5 (``swa_attention``): window S
 for full attention, the sliding window for ``swa``, and for ``chunk`` the
@@ -18,8 +20,7 @@ W - 1)`` for ``swa`` (once the ring is full every slot is in the window),
 ``pos % C`` for ``chunk``.  Those are the keys ``repro``'s mask admits,
 summed in another order.  Each wrapper takes its plain version for CPU
 tensors and launches its CUDA kernel for CUDA tensors.  Ring caches take a
-scalar position only (``repro`` asserts so); MLA raises
-``NotImplementedError`` (ROADMAP queue 1, item 12).
+scalar position only (``repro`` asserts so).
 
 Training (``attention_fwd(..., train=True)``) takes the differentiable
 path of ``repro``'s ``_sdpa_any``: torch matmuls and softmax with an
@@ -41,10 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import MIXER_ATTN_GLOBAL
+from repro_torch.configs.base import ArchConfig, MIXER_ATTN_GLOBAL
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.swa_attention.ops import swa_attention
-from repro_torch.models.modules import apply_rope, dense_init, rope_freqs
+from repro_torch.models.modules import (RMSNorm, apply_rope, dense_init,
+                                        rope_freqs)
 
 UNPORTED = "not ported yet (ROADMAP queue 1, item 12)"
 NEG_INF = -1e30
@@ -77,8 +79,6 @@ class Attention(nn.Module):
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
-        if cfg.use_mla:
-            raise NotImplementedError(f"MLA attention is {UNPORTED}")
         hd = cfg.resolved_head_dim
         shapes = {"wq": (cfg.d_model, cfg.n_heads, hd),
                   "wk": (cfg.d_model, cfg.n_kv_heads, hd),
@@ -308,3 +308,159 @@ def init_attn_cache(cfg, batch, max_seq, mask_kind, width, dtype, device):
     shape = (batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+# MLA runs plain torch products on every path, as ``repro``'s is plain jnp:
+# its q/k head is nope + rope = 192 wide against v's 128, which K5 does not
+# take, and the absorbed decode is one 576-wide key shared by every query
+# head (G = n_heads = 16), past K4's G <= 8.
+class MLA(nn.Module):
+    """``wq [d, H, nope + rope]``, ``w_dkv [d, lora]``, ``w_krope [d,
+    rope]``, ``kv_norm`` (RMSNorm over the latent), ``w_uk [lora, H,
+    nope]``, ``w_uv [lora, H, v]``, ``wo [H, v, d]``: ``repro``'s
+    ``init_mla`` shapes."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__()
+        H, L = cfg.n_heads, cfg.kv_lora_rank
+        nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                          cfg.v_head_dim)
+        shapes = {"wq": (cfg.d_model, H, nope + rope),
+                  "w_dkv": (cfg.d_model, L),
+                  "w_krope": (cfg.d_model, rope),
+                  "w_uk": (L, H, nope), "w_uv": (L, H, vd),
+                  "wo": (H, vd, cfg.d_model)}
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device),
+                requires_grad=False))
+        self.kv_norm = RMSNorm(L, cfg.norm_eps, dtype, device)
+        self.register_buffer("rope_freqs", torch.from_numpy(
+            rope_freqs(rope, cfg.rope_theta)).to(device), persistent=False)
+
+    def reset_parameters(self, generator):
+        """``repro``'s ``init_mla`` distributions (unit norm scale)."""
+        dev, dt = self.wq.device, self.wq.dtype
+        for name in ("wq", "w_dkv", "w_krope", "w_uk", "w_uv"):
+            w = getattr(self, name)
+            w.copy_(dense_init(generator, w.shape[0], tuple(w.shape[1:]), dt,
+                               device=dev))
+        H, vd, d = self.wo.shape
+        self.wo.copy_(dense_init(generator, H * vd, d, dt,
+                                 device=dev).reshape(H, vd, d))
+        self.kv_norm.scale.fill_(1)
+
+
+def init_mla(cfg, generator, dtype=torch.float32, device=None):
+    p = MLA(cfg, dtype, device)
+    p.reset_parameters(generator)
+    return p
+
+
+def _mla_compress(cfg, p, x, positions):
+    """The latent ``c_kv [B, S, lora]`` (RMS-normed) and the shared
+    ``k_rope [B, S, rope]`` (rotated) of x."""
+    c_kv = p.kv_norm(x @ p.w_dkv)
+    k_rope = (x @ p.w_krope)[:, :, None, :]
+    k_rope = apply_rope(k_rope, positions, p.rope_freqs)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_q(cfg, p, x, positions):
+    q = _proj(x, p.wq)
+    nope = cfg.qk_nope_head_dim
+    return q[..., :nope], apply_rope(q[..., nope:], positions, p.rope_freqs)
+
+
+def _mla_scale(cfg):
+    return 1.0 / np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v, qpos, kpos):
+    """Causal MLA attention of queries at ``qpos`` over keys at ``kpos``;
+    scores in float32, the softmax cast back to v's dtype."""
+    scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope) +
+              torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
+    bias = _causal_bias(qpos, kpos, "full", 0)
+    w = torch.softmax(scores * _mla_scale(cfg) + bias, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthv->bshv", w, v)
+
+
+def _mla_block(cfg, q_nope, q_rope, k_nope, k_rope, v, positions, start):
+    stop = start + SDPA_BLOCK_Q
+    return _mla_attend(cfg, q_nope[:, start:stop], q_rope[:, start:stop],
+                       k_nope, k_rope, v, positions[start:stop], positions)
+
+
+def mla_fwd(cfg: ArchConfig, p, x, positions):
+    """Full-sequence MLA (train and prefill).  Dense scores up to
+    ``BLOCKED_SDPA_THRESHOLD``; beyond it (S a multiple of
+    ``SDPA_BLOCK_Q``) one checkpointed block of query rows at a time, as
+    ``_sdpa_any``.  Returns (y, cache ``{"c_kv", "k_rope"}``)."""
+    c_kv, k_rope = _mla_compress(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    k_nope = _proj(c_kv, p.w_uk)
+    v = _proj(c_kv, p.w_uv)
+    S = x.shape[1]
+    if S <= BLOCKED_SDPA_THRESHOLD or S % SDPA_BLOCK_Q:
+        out = _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v, positions,
+                          positions)
+    else:
+        out = torch.cat([checkpoint(_mla_block, cfg, q_nope, q_rope, k_nope,
+                                    k_rope, v, positions, start,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+                         for start in range(0, S, SDPA_BLOCK_Q)], dim=1)
+    return _out(p, out), {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(cfg: ArchConfig, p, x, cache, pos):
+    """One-token MLA decode, naive or absorbed (``cfg.mla_absorb``).
+    x: [B, 1, d]; ``pos``: an int, a 0-d tensor or a per-sequence ``[B]``
+    tensor.  Writes the new latent and rope key into ``cache`` in place, on
+    the device.  Returns (y, cache)."""
+    pos = as_positions(pos, x.device)
+    per_seq = pos.dim() == 1
+    posv = pos[:, None] if per_seq else pos.reshape(1)
+    c_new, kr_new = _mla_compress(cfg, p, x, posv)
+    _write(cache["c_kv"], c_new, pos, per_seq)
+    _write(cache["k_rope"], kr_new, pos, per_seq)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    q_nope, q_rope = _mla_q(cfg, p, x, posv)              # [B, 1, H, *]
+    S = c_kv.shape[1]
+    ok = (torch.arange(S, device=x.device)[None, :]
+          <= (pos[:, None] if per_seq else pos))
+    bias = torch.full(ok.shape, NEG_INF, dtype=torch.float32,
+                      device=x.device).masked_fill_(ok, 0.0)
+    bias = bias.reshape(-1, 1, 1, S)                      # [B or 1, 1, 1, S]
+    if cfg.mla_absorb:
+        # W_uk into the query and W_uv into the output: the scores and the
+        # context stay in the latent space
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p.w_uk)
+        scores = (torch.einsum("bshl,btl->bhst", q_lat, c_kv) +
+                  torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
+        w = torch.softmax(scores * _mla_scale(cfg) + bias,
+                          dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhst,btl->bshl", w, c_kv)
+        out = torch.einsum("bshl,lhv->bshv", ctx, p.w_uv)
+    else:
+        k_nope = _proj(c_kv, p.w_uk)
+        v = _proj(c_kv, p.w_uv)
+        scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope) +
+                  torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
+        w = torch.softmax(scores * _mla_scale(cfg) + bias,
+                          dim=-1).to(x.dtype)
+        out = torch.einsum("bhst,bthv->bshv", w, v)
+    return _out(p, out), cache
+
+
+def init_mla_cache(cfg, batch, max_seq, dtype, device):
+    """Zero ``c_kv [batch, max_seq, lora]`` and ``k_rope [batch, max_seq,
+    rope]``."""
+    return {"c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}

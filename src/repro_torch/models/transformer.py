@@ -1,52 +1,62 @@
-"""Decoder LM for dense-attention architectures, the counterpart of
+"""Decoder LM for every ported architecture, the counterpart of
 ``repro.models.transformer``.
 
-``Transformer`` holds ``embed``, ``final_norm`` and ``stack``, an
-``nn.ModuleList`` of the ``n_periods`` period blocks; block i holds
-``sub{j}`` with ``ln1``, ``ln2``, ``mixer`` and ``mlp``, as ``repro``'s
-pytree does with a leading period axis on ``stack``.  ``prefill`` builds the
-cache and ``decode_step`` takes one token against it.
+``Transformer`` holds ``embed``, ``final_norm``, ``stack``, an
+``nn.ModuleList`` of the ``n_periods`` period blocks, and with
+``first_k_dense`` a ``prefix`` ``ModuleList`` of dense sublayers run before
+the stack on every path; block i holds ``sub{j}`` with ``ln1``, ``ln2``,
+``mixer`` (GQA ``Attention`` or ``MLA``) and ``mlp`` (``SwiGLU`` or
+``MoE``), as ``repro``'s pytree does with a leading period axis on
+``stack``.  ``prefill`` builds the cache and ``decode_step`` takes one
+token against it.
 
 Training differentiates with respect to a ``{name: tensor}`` dict of the
-parameters (``param_dict``; 9 leaves per layer, 12 with QKV biases, plus
-the embedding, the final norm and an untied head, 290 at smollm-360m):
-``apply_params`` runs ``forward`` or
+parameters (``param_dict``): ``apply_params`` runs ``forward`` or
 ``forward_hidden`` with the module's parameters replaced by the dict
 (``torch.func.functional_call``), and ``value_and_grad`` takes gradients by
 plain autograd.  The module's own parameters never require grad, so
-serving builds no graph.  Each period of the stack runs under one
-``torch.utils.checkpoint`` (``repro``'s default ``remat_policy="full"``),
-with the period's parameters handed to the checkpointed function, so the
-recomputation in the backward sees the same tensors.
+serving builds no graph.  ``forward`` returns the MoE layers' summed
+load-balance loss beside the logits.  The checkpoint policies are
+``repro``'s ``_make_period_fn``'s (``_run_stack``): each period under one
+``torch.utils.checkpoint`` (``remat_policy="full"``), under a selective
+checkpoint that saves every matrix product (``"dots"``) or only the
+weight-activation ones (``"dots_nb"``), each sublayer under a checkpoint
+of its own inside the period's (``remat_sublayer``), or none
+(``no_remat``); the period's parameters are handed to the checkpointed
+function, so the recomputation in the backward sees the same tensors.
 
-The cache is ``{"stack": {"sub0": {"mixer": {"k", "v"}}}}`` as in
-``repro``, each leaf ``[n_periods, B, S, Kv, hd]``, S each sublayer's own:
-the maximum context for full attention, the ring's width for a
-sliding-window or chunked one (``attention.init_attn_cache``).  A period
-of ``[chunk, global]`` sublayers (``global_attn_every``) keeps one dict per
-``sub{j}``.  ``decode_step`` writes the cache in place and returns the
-same dict.
+The cache is ``{"stack": {"sub0": {"mixer": {...}}}, "prefix": [...]}`` as
+in ``repro``: each stack leaf ``[n_periods, B, S, ...]``, each prefix leaf
+``[B, S, ...]``; GQA leaves ``k``/``v`` ``[.., S, Kv, hd]``, S each
+sublayer's own (the maximum context for full attention, the ring's width
+for a sliding-window or chunked one: ``attention.init_attn_cache``), MLA
+leaves ``c_kv [.., S, lora]`` and ``k_rope [.., S, rope]``.
+``decode_step`` writes the cache in place and returns the same dict.
 
 A vision config (``frontend="vision"``) prepends ``frontend_embeds``
 ``[B, n_frontend_tokens, d]`` to the token embeddings, as ``repro``'s
 ``_embed_inputs`` does, and raises ``ValueError`` without them; an audio
 config's codes are ordinary token ids.
 
-MoE, Mamba, RWKV and MLA sublayers and ``first_k_dense`` prefix layers
-raise ``NotImplementedError``, as do the XLA checkpoint policies
-``remat_policy="dots"``/``"dots_nb"`` and ``remat_sublayer``: ROADMAP queue
-1, item 12.
+Mamba and RWKV sublayers and LayerNorm stacks raise
+``NotImplementedError``: ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import (ArchConfig, MIXER_ATTN,
-                                      MIXER_ATTN_GLOBAL, MLP_DENSE)
+                                      MIXER_ATTN_GLOBAL, MIXER_MLA, MLP_DENSE,
+                                      MLP_MOE, SubLayer)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.modules import (RMSNorm, SwiGLU, dense_init,
                                         embed_init, embed_lookup)
 
@@ -55,43 +65,63 @@ UNPORTED = attn.UNPORTED
 
 def _check_supported(cfg: ArchConfig) -> None:
     for sub in cfg.sublayers():
-        if sub.mixer not in (MIXER_ATTN, MIXER_ATTN_GLOBAL):
+        if sub.mixer not in (MIXER_ATTN, MIXER_ATTN_GLOBAL, MIXER_MLA):
             raise NotImplementedError(
                 f"{cfg.name}: {sub.mixer!r} mixers are {UNPORTED}")
-        if sub.mlp != MLP_DENSE:
+        if sub.mlp not in (MLP_DENSE, MLP_MOE):
             raise NotImplementedError(
                 f"{cfg.name}: {sub.mlp!r} MLPs are {UNPORTED}")
     if cfg.family == "ssm":
         raise NotImplementedError(f"{cfg.name}: LayerNorm stacks are "
                                   f"{UNPORTED}")
-    if cfg.first_k_dense:
-        raise NotImplementedError(f"{cfg.name}: first_k_dense prefix layers "
-                                  f"are {UNPORTED}")
 
 
 class SubLayerBlock(nn.Module):
-    """One (attention, dense MLP) pair with its two RMSNorms."""
+    """One (mixer, MLP) pair with its two RMSNorms: the mixer GQA
+    ``Attention`` or ``MLA``, the MLP ``SwiGLU`` or ``MoE``, as ``sub``
+    says."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, sub: SubLayer, dtype, device):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
-        self.mixer = attn.Attention(cfg, dtype, device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+        self.mixer = (attn.MLA if sub.mixer == MIXER_MLA
+                      else attn.Attention)(cfg, dtype, device)
+        self.mlp = (moe.MoE(cfg, dtype, device) if sub.mlp == MLP_MOE
+                    else SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
+
+    def reset_parameters(self, generator):
+        self.mixer.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, cfg, sub, h, positions):
+        """The training path of this sublayer: (h, aux)."""
+        h, aux, _ = _apply_sublayer(cfg, self, sub, h, positions, train=True)
+        return h, aux
 
 
 class PeriodBlock(nn.Module):
     def __init__(self, cfg, dtype, device):
         super().__init__()
-        for j, _ in enumerate(cfg.sublayers()):
-            self.add_module(f"sub{j}", SubLayerBlock(cfg, dtype, device))
-
-    def forward(self, cfg, h, positions):
-        """The period's sublayers on the training path."""
         for j, sub in enumerate(cfg.sublayers()):
-            h, _ = _apply_sublayer(cfg, getattr(self, f"sub{j}"), sub.mixer,
-                                   h, positions, train=True)
-        return h
+            self.add_module(f"sub{j}", SubLayerBlock(cfg, sub, dtype, device))
+
+    def forward(self, cfg: ArchConfig, h, aux, positions):
+        """The period's sublayers on the training path, each under a
+        checkpoint of its own with ``remat_sublayer``.  Returns (h, aux),
+        ``aux`` plus the period's MoE losses."""
+        for j, sub in enumerate(cfg.sublayers()):
+            block = getattr(self, f"sub{j}")
+            if cfg.remat_sublayer:
+                h, a = checkpoint(_functional, block,
+                                  dict(block.named_parameters()), cfg, sub,
+                                  h, positions, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                h, a = block(cfg, sub, h, positions)
+            if a is not None:
+                aux = aux + a
+        return h, aux
 
 
 class Embed(nn.Module):
@@ -121,6 +151,10 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
         self.stack = nn.ModuleList(
             PeriodBlock(cfg, dtype, device) for _ in range(cfg.n_periods))
+        if cfg.first_k_dense:
+            self.prefix = nn.ModuleList(
+                SubLayerBlock(cfg, cfg.prefix_sublayer(), dtype, device)
+                for _ in range(cfg.first_k_dense))
         if not cfg.tie_embeddings:
             self.lm_head = LMHead(cfg.d_model, cfg.vocab_size, dtype, device)
 
@@ -141,11 +175,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     model = Transformer(cfg, dtype, device)
     model.embed.table.copy_(embed_init(generator, cfg.vocab_size,
                                        cfg.d_model, dtype, device))
+    for block in _prefix(model):
+        block.reset_parameters(generator)
     for period in model.stack:
         for j, _ in enumerate(cfg.sublayers()):
-            sub = getattr(period, f"sub{j}")
-            sub.mixer.reset_parameters(generator)
-            sub.mlp.reset_parameters(generator)
+            getattr(period, f"sub{j}").reset_parameters(generator)
     if not cfg.tie_embeddings:
         model.lm_head.w.copy_(dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, dtype,
@@ -156,25 +190,52 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # sublayer application
 # ---------------------------------------------------------------------------
-def _apply_sublayer(cfg, p, mixer_kind, h, positions, train=False):
-    """Prefill (``train=False``, through K5) or training (``train=True``,
-    the differentiable attention).  Returns (h, cache); the training cache
-    is ``{"mixer": None}``."""
-    kind, width = attn.mask_spec_for(cfg, mixer_kind)
-    y, c = attn.attention_fwd(cfg, p.mixer, p.ln1(h), positions, kind, width,
-                              train=train)
+def _prefix(model):
+    """The ``first_k_dense`` prefix blocks (none without)."""
+    return getattr(model, "prefix", ())
+
+
+def _apply_sublayer(cfg, p, sub: SubLayer, h, positions, train=False):
+    """Prefill (``train=False``: GQA through K5) or training
+    (``train=True``: the differentiable attention).  Returns (h, aux,
+    cache): ``aux`` the MoE loss (None for a dense MLP), the training
+    cache ``{"mixer": None}``."""
+    x = p.ln1(h)
+    if sub.mixer == MIXER_MLA:
+        y, c = attn.mla_fwd(cfg, p.mixer, x, positions)
+    else:
+        kind, width = attn.mask_spec_for(cfg, sub.mixer)
+        y, c = attn.attention_fwd(cfg, p.mixer, x, positions, kind, width,
+                                  train=train)
     h = h + y
-    h = h + p.mlp(p.ln2(h))
-    return h, {"mixer": c}
+    x = p.ln2(h)
+    if sub.mlp == MLP_MOE:
+        y, aux = moe.moe_fwd(cfg, p.mlp, x)
+    else:
+        y, aux = p.mlp(x), None
+    return h + y, aux, {"mixer": None if train else c}
 
 
-def _apply_sublayer_decode(cfg, p, mixer_kind, h, cache, pos, slots):
+def _functional(block, params, *args):
+    """``block(*args)`` with ``params`` in place of its parameters: what a
+    checkpoint runs, so that its recomputation in the backward reads the
+    parameters it was given, outside any ``functional_call``."""
+    return torch.func.functional_call(block, params, args)
+
+
+def _apply_sublayer_decode(cfg, p, sub: SubLayer, h, cache, pos, slots):
     """One-token path; writes ``cache`` in place.  Returns h."""
-    kind, width = attn.mask_spec_for(cfg, mixer_kind)
-    y, _ = attn.attention_decode(cfg, p.mixer, p.ln1(h), cache["mixer"], pos,
-                                 kind, width, slots)
+    x = p.ln1(h)
+    if sub.mixer == MIXER_MLA:
+        y, _ = attn.mla_decode(cfg, p.mixer, x, cache["mixer"], pos)
+    else:
+        kind, width = attn.mask_spec_for(cfg, sub.mixer)
+        y, _ = attn.attention_decode(cfg, p.mixer, x, cache["mixer"], pos,
+                                     kind, width, slots)
     h = h + y
-    return h + p.mlp(p.ln2(h))
+    x = p.ln2(h)
+    y = moe.moe_decode(cfg, p.mlp, x)[0] if sub.mlp == MLP_MOE else p.mlp(x)
+    return h + y
 
 
 def _embed_inputs(cfg, model, tokens, frontend_embeds):
@@ -197,32 +258,47 @@ def _lm_head(cfg, model, h):
 # ---------------------------------------------------------------------------
 # forward (train)
 # ---------------------------------------------------------------------------
-def _period_call(cfg, block, params, h, positions):
-    return torch.func.functional_call(block, params, (cfg, h, positions))
+# the products a selective checkpoint saves, by policy: "dots" every matrix
+# product (jax's dots_saveable), "dots_nb" only the weight-activation ones,
+# recomputing the batch-dim products of the attention scores and the MoE
+# experts (dots_with_no_batch_dims_saveable)
+_aten = torch.ops.aten
+SAVED_PRODUCTS = {
+    "dots": [_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default],
+    "dots_nb": [_aten.mm.default, _aten.addmm.default],
+}
 
 
-def _run_stack(cfg, model, h, positions):
-    """The period blocks in order, each under one checkpoint unless
-    ``cfg.no_remat`` (``repro``'s ``_make_period_fn``)."""
-    if cfg.remat_sublayer:
-        raise NotImplementedError(f"remat_sublayer is {UNPORTED}")
-    if not cfg.no_remat and cfg.remat_policy in ("dots", "dots_nb"):
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} (an XLA checkpoint policy) "
-            f"is {UNPORTED}")
+def _context_fn(cfg):
+    """The period checkpoint's ``context_fn`` for ``cfg.remat_policy``
+    (any other policy than "dots"/"dots_nb" recomputes everything, as
+    ``repro``'s ``_make_period_fn`` does)."""
+    saved = SAVED_PRODUCTS.get(cfg.remat_policy)
+    if saved is None:
+        return noop_context_fn
+    return partial(create_selective_checkpoint_contexts, saved)
+
+
+def _run_stack(cfg: ArchConfig, model: Transformer, h, aux, positions):
+    """The period blocks in order, each under one checkpoint with
+    ``cfg.remat_policy``'s context unless ``cfg.no_remat`` (``repro``'s
+    ``_make_period_fn``).  Returns (h, aux)."""
     if cfg.shard_activations:
         raise NotImplementedError("shard_activations is not ported yet "
                                   "(ROADMAP queue 1, item 13)")
     for block in model.stack:
         if cfg.no_remat:
-            h = block(cfg, h, positions)
+            h, aux = block(cfg, h, aux, positions)
         else:
             # the period's current parameters go in as an argument: the
             # recomputation in the backward runs outside any functional_call
-            h = checkpoint(_period_call, cfg, block,
-                           dict(block.named_parameters()), h, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-    return h
+            h, aux = checkpoint(_functional, block,
+                                dict(block.named_parameters()), cfg, h, aux,
+                                positions, use_reentrant=False,
+                                preserve_rng_state=False,
+                                context_fn=_context_fn(cfg))
+    return h, aux
 
 
 def forward_hidden(cfg: ArchConfig, model: Transformer, tokens,
@@ -232,7 +308,11 @@ def forward_hidden(cfg: ArchConfig, model: Transformer, tokens,
     h = _embed_inputs(cfg, model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    h = _run_stack(cfg, model, h, positions)
+    for block in _prefix(model):
+        h, a = block(cfg, cfg.prefix_sublayer(), h, positions)
+        if a is not None:
+            aux = aux + a
+    h, aux = _run_stack(cfg, model, h, aux, positions)
     return model.final_norm(h), aux
 
 
@@ -240,7 +320,8 @@ def forward(cfg: ArchConfig, model: Transformer, tokens,
             frontend_embeds=None):
     """tokens: [B, S] int, after a vision config's ``frontend_embeds``.
     Returns (logits [B, P + S, V], aux), P the frontend tokens; ``aux`` is
-    a 0-d f32 zero (dense MLPs have no auxiliary loss)."""
+    the 0-d f32 sum of the MoE layers' load-balance losses (zero without
+    MoE layers)."""
     h, aux = forward_hidden(cfg, model, tokens, frontend_embeds)
     return _lm_head(cfg, model, h), aux
 
@@ -294,37 +375,58 @@ def prefill(cfg: ArchConfig, model: Transformer, tokens,
     h = _embed_inputs(cfg, model, tokens, frontend_embeds)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    prefix = []
+    for block in _prefix(model):
+        h, _, c = _apply_sublayer(cfg, block, cfg.prefix_sublayer(), h,
+                                  positions)
+        prefix.append(c)
     subs = cfg.sublayers()
     per_layer = {f"sub{j}": [] for j in range(len(subs))}
     for period in model.stack:
         for j, sub in enumerate(subs):
-            h, c = _apply_sublayer(cfg, getattr(period, f"sub{j}"),
-                                   sub.mixer, h, positions)
+            h, _, c = _apply_sublayer(cfg, getattr(period, f"sub{j}"), sub,
+                                      h, positions)
             per_layer[f"sub{j}"].append(c["mixer"])
     stack = {name: {"mixer": {leaf: torch.stack([c[leaf] for c in cs])
-                              for leaf in ("k", "v")}}
+                              for leaf in cs[0]}}
              for name, cs in per_layer.items()}
+    cache = {"stack": stack}
+    if prefix:
+        cache["prefix"] = prefix
     h = model.final_norm(h)
-    return _lm_head(cfg, model, h), {"stack": stack}
+    return _lm_head(cfg, model, h), cache
+
+
+def _slots(cfg, mixer_kind, leaves, pos):
+    """A GQA sublayer's ``attention.ring_slots`` for this step (None for
+    MLA, which has no ring); ``leaves`` its cache, the sequence axis
+    second to last but two (``k [.., S, Kv, hd]``)."""
+    if mixer_kind == MIXER_MLA:
+        return None
+    return attn.ring_slots(pos, attn.mask_spec_for(cfg, mixer_kind)[0],
+                           leaves["k"].shape[-3])
 
 
 def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
     """token: [B, 1] int; ``pos``: an int, a 0-d tensor or a per-sequence
-    ``[B]`` tensor of absolute positions.  Writes the new K/V into
-    ``cache`` in place.  Returns (logits [B, 1, V], cache)."""
+    ``[B]`` tensor of absolute positions.  Writes the new K/V (or MLA
+    latents) into ``cache`` in place.  Returns (logits [B, 1, V], cache)."""
     h = embed_lookup(model.embed.table, token)
     pos = attn.as_positions(pos, h.device)
+    pre = cfg.prefix_sublayer()
+    for block, c in zip(_prefix(model), cache.get("prefix", ())):
+        h = _apply_sublayer_decode(cfg, block, pre, h, c, pos,
+                                   _slots(cfg, pre.mixer, c["mixer"], pos))
     subs = cfg.sublayers()
     # each sublayer's slot and pos', once a step rather than once a layer
-    slots = [attn.ring_slots(pos, attn.mask_spec_for(cfg, sub.mixer)[0],
-                             cache["stack"][f"sub{j}"]["mixer"]["k"].shape[2])
+    slots = [_slots(cfg, sub.mixer, cache["stack"][f"sub{j}"]["mixer"], pos)
              for j, sub in enumerate(subs)]
     for i, period in enumerate(model.stack):
         for j, sub in enumerate(subs):
             leaves = cache["stack"][f"sub{j}"]["mixer"]
-            layer = {"mixer": {"k": leaves["k"][i], "v": leaves["v"][i]}}
+            layer = {"mixer": {k: v[i] for k, v in leaves.items()}}
             h = _apply_sublayer_decode(cfg, getattr(period, f"sub{j}"),
-                                       sub.mixer, h, layer, pos, slots[j])
+                                       sub, h, layer, pos, slots[j])
     h = model.final_norm(h)
     return _lm_head(cfg, model, h), cache
 
@@ -332,52 +434,98 @@ def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
 # ---------------------------------------------------------------------------
 # cache construction
 # ---------------------------------------------------------------------------
+def _seq_len(cfg, mixer_kind, max_seq):
+    """(the cache's sequence length, whether it grows with the context) of
+    a sublayer: ``max_seq`` for full attention and MLA, ``min(width,
+    max_seq)`` for a ring."""
+    if mixer_kind == MIXER_MLA:
+        return max_seq, True
+    kind, width = attn.mask_spec_for(cfg, mixer_kind)
+    if kind == "full":
+        return max_seq, True
+    return min(width, max_seq), False
+
+
+def _mixer_cache(cfg, mixer_kind, batch, max_seq, dtype, device):
+    if mixer_kind == MIXER_MLA:
+        return attn.init_mla_cache(cfg, batch, max_seq, dtype, device)
+    kind, width = attn.mask_spec_for(cfg, mixer_kind)
+    return attn.init_attn_cache(cfg, batch, max_seq, kind, width, dtype,
+                                device)
+
+
 def init_cache(cfg: ArchConfig, batch, max_seq, dtype=torch.float32,
                device=None):
-    """Zero caches, each leaf ``[n_periods, batch, S, Kv, hd]`` on
-    ``device`` (``None``: the card), S = ``max_seq`` for full attention and
-    ``min(width, max_seq)`` for a ring."""
+    """Zero caches on ``device`` (``None``: the card): each stack leaf
+    ``[n_periods, batch, S, ...]``, each prefix leaf ``[batch, S, ...]``,
+    S = ``max_seq`` for full attention and MLA, ``min(width, max_seq)``
+    for a ring."""
     _check_supported(cfg)
     device = resolve_device(device)
     stack = {}
     for j, sub in enumerate(cfg.sublayers()):
-        kind, width = attn.mask_spec_for(cfg, sub.mixer)
-        c = attn.init_attn_cache(cfg, batch, max_seq, kind, width, dtype,
-                                 device)
+        c = _mixer_cache(cfg, sub.mixer, batch, max_seq, dtype, device)
         stack[f"sub{j}"] = {"mixer": {
             k: v.new_zeros((cfg.n_periods, *v.shape)) for k, v in c.items()}}
-    return {"stack": stack}
+    cache = {"stack": stack}
+    if cfg.first_k_dense:
+        cache["prefix"] = [
+            {"mixer": _mixer_cache(cfg, cfg.prefix_sublayer().mixer, batch,
+                                   max_seq, dtype, device)}
+            for _ in range(cfg.first_k_dense)]
+    return cache
+
+
+def _grow(leaves, lead, batch, seq, grows, dtype, where):
+    """One sublayer's cache leaves at ``seq`` positions: a growing leaf
+    zero-padded at the tail into a new tensor, a ring passed through."""
+    out = {}
+    for k, c in leaves.items():
+        n = len(lead)
+        target = (*lead, batch, seq, *c.shape[n + 2:])
+        if tuple(c.shape[:n + 1]) != target[:n + 1] or c.shape[n + 1] > seq \
+                or (not grows and c.shape[n + 1] != seq):
+            raise ValueError(f"grow_cache: {where} {k} {tuple(c.shape)} "
+                             f"does not fit {target}")
+        if not grows:
+            out[k] = c.to(dtype)
+            continue
+        g = torch.zeros(target, dtype=dtype, device=c.device)
+        g[(slice(None),) * (n + 1) + (slice(0, c.shape[n + 1]),)] = c
+        out[k] = g
+    return out
 
 
 def grow_cache(cfg: ArchConfig, cache, batch, max_seq, dtype=torch.float32):
     """Pad a prefill-produced cache out to ``max_seq`` decode capacity:
-    full-attention caches grow along the sequence axis, zero-padded at the
-    tail (future slots), into new tensors; ring caches are already in
-    decode layout and pass through (as ``dtype``).  Raises ``ValueError``
-    where a leaf does not fit, as a ring of ``width`` slots does not fit a
-    ``max_seq`` below it (``repro``'s pad fails there too)."""
-    out = {}
+    full-attention and MLA caches grow along the sequence axis,
+    zero-padded at the tail (future slots), into new tensors; ring caches
+    are already in decode layout and pass through (as ``dtype``).  Raises
+    ``ValueError`` where a leaf does not fit, as a ring of ``width`` slots
+    does not fit a ``max_seq`` below it (``repro``'s pad fails there
+    too)."""
+    out = {"stack": {}}
     for j, sub in enumerate(cfg.sublayers()):
-        kind, width = attn.mask_spec_for(cfg, sub.mixer)
-        seq = max_seq if kind == "full" else min(width, max_seq)
-        leaves = {}
-        for k, c in cache["stack"][f"sub{j}"]["mixer"].items():
-            target = (cfg.n_periods, batch, seq, *c.shape[3:])
-            if tuple(c.shape[:2]) != target[:2] or c.shape[2] > seq or (
-                    kind != "full" and c.shape[2] != seq):
-                raise ValueError(f"grow_cache: sub{j} {k} {tuple(c.shape)} "
-                                 f"does not fit {target}")
-            if kind != "full":
-                leaves[k] = c.to(dtype)
-                continue
-            g = torch.zeros(target, dtype=dtype, device=c.device)
-            g[:, :, :c.shape[2]] = c
-            leaves[k] = g
-        out[f"sub{j}"] = {"mixer": leaves}
-    return {"stack": out}
+        seq, grows = _seq_len(cfg, sub.mixer, max_seq)
+        out["stack"][f"sub{j}"] = {"mixer": _grow(
+            cache["stack"][f"sub{j}"]["mixer"], (cfg.n_periods,), batch, seq,
+            grows, dtype, f"sub{j}")}
+    if "prefix" in cache:
+        seq, grows = _seq_len(cfg, cfg.prefix_sublayer().mixer, max_seq)
+        out["prefix"] = [{"mixer": _grow(c["mixer"], (), batch, seq, grows,
+                                         dtype, f"prefix {i}")}
+                         for i, c in enumerate(cache["prefix"])]
+    return out
 
 
-def param_count(cfg: ArchConfig) -> int:
-    """Parameter count, from the shapes alone (built on the meta device)."""
-    return sum(p.numel() for p in
-               Transformer(cfg, torch.bfloat16, "meta").parameters())
+def param_count(cfg: ArchConfig, active_only=False) -> int:
+    """Parameter count, from the shapes alone (built on the meta device);
+    ``active_only`` counts only the top-k routed experts of each MoE
+    layer, as ``repro``'s does."""
+    total = sum(p.numel() for p in
+                Transformer(cfg, torch.bfloat16, "meta").parameters())
+    if active_only and cfg.n_routed_experts:
+        E, k = cfg.n_routed_experts, cfg.moe_top_k
+        n_moe = sum(s.mlp == MLP_MOE for s in cfg.sublayers()) * cfg.n_periods
+        total -= n_moe * (E - k) * 3 * cfg.d_model * cfg.moe_d_ff
+    return total

@@ -16,7 +16,10 @@ attention take one position for the batch, as ``repro`` asserts), and
 admission prefills text only, so vision configs, which need patch
 embeddings, cannot be served either: both raise ``ValueError`` at
 construction rather than mid-run.  Audio configs serve their codes as
-token ids.
+token ids.  MoE and MLA configs (deepseek-v2-lite-16b) serve as dense ones
+do: the MLA latents are written at each slot's own position by
+``attention.mla_decode``, and a ``first_k_dense`` prefix's cache rows are
+written beside the stack's.
 """
 from __future__ import annotations
 
@@ -97,12 +100,18 @@ class BatchedServer:
             tokens = torch.from_numpy(req.prompt[None]).to(self.device)
             logits, cache = self._prefill(self.model, {"tokens": tokens})
             # the slot's whole cache row: the prompt's entries, zeros past
-            # it (the values of repro's grow-then-set)
+            # it (the values of repro's grow-then-set); stack leaves carry
+            # the period axis first, prefix leaves (first_k_dense) none
             for name, sub in cache["stack"].items():
                 for leaf, c in sub["mixer"].items():
                     row = self.cache["stack"][name]["mixer"][leaf][:, slot]
                     row[:, :P] = c[:, 0]
                     row[:, P:] = 0
+            for i, layer in enumerate(cache.get("prefix", ())):
+                for leaf, c in layer["mixer"].items():
+                    row = self.cache["prefix"][i]["mixer"][leaf][slot]
+                    row[:P] = c[0]
+                    row[P:] = 0
             # repro-check: waive[BND003] one sync per admit, as in repro
             first = int(torch.argmax(logits[0, -1]))
             req.out.append(first)

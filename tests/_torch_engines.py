@@ -284,16 +284,6 @@ PYTREE_BATCH = 16
 CAPPED = tfaults.FaultSpec(**{**HEAVY, "staleness_cap": 3})
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    """torch on one intra-op thread for a module's tests, restored after
-    (use with ``pytestmark = pytest.mark.usefixtures("one_thread")``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def fleet_run(name, flat, init=None, **kw):
     """A single-RSU world on the port's fleet engine, on the CPU, from
     ``repro``'s init (``init``) or the port's own, at ``PYTREE_BATCH``;

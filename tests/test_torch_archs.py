@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from _torch_archs import CASES, arch_pair, cache_leaves
-from _torch_engines import one_thread  # noqa: F401
+from _torch_threads import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.configs import mistral_nemo_12b as jmistral
 from repro.models import frontends as jfrontends
@@ -44,7 +44,10 @@ def _fields(cfg):
 
 
 def test_registry_lists_the_dense_archs():
-    assert set(NEW_ARCHS) | {"smollm-360m"} == set(list_archs())
+    """The dense archs, smollm-360m and (since the MoE + MLA slice)
+    deepseek-v2-lite-16b and llama4-scout-17b-a16e."""
+    moe = {"deepseek-v2-lite-16b", "llama4-scout-17b-a16e"}
+    assert set(NEW_ARCHS) | {"smollm-360m"} | moe == set(list_archs())
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

@@ -22,7 +22,7 @@ import torch
 from _torch_archs import (CASES, LOGIT_TOL, arch_pair, as_jax, as_torch,
                           assert_caches, frontend, jax_decode, jax_prefill,
                           tokens)
-from _torch_engines import one_thread  # noqa: F401
+from _torch_threads import one_thread  # noqa: F401
 from repro.models import transformer as jT
 from repro.serving import BatchedServer as JServer
 from repro_torch.models import transformer as tT

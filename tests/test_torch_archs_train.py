@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from _torch_archs import arch_pair, frontend, tokens
-from _torch_engines import one_thread  # noqa: F401
+from _torch_threads import one_thread  # noqa: F401
 from repro.checkpointing import checkpoint as jck
 from repro.launch import steps as jsteps
 from repro_torch.checkpointing import checkpoint as tck

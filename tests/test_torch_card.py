@@ -1601,3 +1601,165 @@ def test_pytree_on_card_is_the_flat_program(cuda_device, name, kw):
     for k in flat.final_params:
         torch.testing.assert_close(tk.final_params[k], flat.final_params[k],
                                    rtol=0.0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# MoE, MLA, the checkpoint policies and the optimizers on the card
+# ---------------------------------------------------------------------------
+# both sides f32: the card's and the CPU's products sum in other orders, a
+# few ulps per layer on activations and logits of size ~0.1-1
+MOE_CPU_TOL = dict(atol=1e-5, rtol=1e-5)
+MOE_ARCHS = {"deepseek": "deepseek-v2-lite-16b",
+             "scout": "llama4-scout-17b-a16e"}
+
+
+def _to_card(module, dev):
+    import copy
+    return copy.deepcopy(module).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(MOE_ARCHS))
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_on_card_matches_cpu(cuda_device, arch, cf):
+    """``moe_fwd`` (at ``capacity_factor`` 0.5 tokens drop) and
+    ``moe_decode`` on the card against the CPU, from one CPU init."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCHS[arch]).reduced().variant(capacity_factor=cf)
+    cpu = moe.MoE(cfg, device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    gpu = _to_card(cpu, cuda_device)
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    for fn, inp in ((moe.moe_fwd, x), (moe.moe_decode, x[:, :1])):
+        yc, ac = fn(cfg, cpu, inp)
+        yg, ag = fn(cfg, gpu, inp.to(cuda_device))
+        assert torch.allclose(yg.cpu(), yc, **MOE_CPU_TOL), fn.__name__
+        assert torch.allclose(ag.cpu(), ac, rtol=1e-5), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absorb", [False, True], ids=["naive", "absorbed"])
+def test_mla_on_card_matches_cpu(cuda_device, absorb):
+    """``mla_fwd`` below and above the blocked threshold, then decode steps
+    at a scalar and at per-sequence positions, card against CPU; the
+    latent cache written on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    cfg = get_config("deepseek-v2-lite-16b").reduced().variant(
+        mla_absorb=absorb)
+    cpu = A.init_mla(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = _to_card(cpu, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    for S in (40, 1152):
+        x = torch.randn(1, S, cfg.d_model, generator=gen) * 0.5
+        pos = torch.arange(S, dtype=torch.int32)
+        yc, _ = A.mla_fwd(cfg, cpu, x, pos)
+        yg, _ = A.mla_fwd(cfg, gpu, x.to(cuda_device), pos.to(cuda_device))
+        assert torch.allclose(yg.cpu(), yc, **MOE_CPU_TOL), S
+    cc = A.init_mla_cache(cfg, 2, 24, torch.float32, "cpu")
+    cg = A.init_mla_cache(cfg, 2, 24, torch.float32, cuda_device)
+    for i in range(6):
+        pos = torch.tensor([i, 2 * i], dtype=torch.int32) if i % 2 else i
+        x = torch.randn(2, 1, cfg.d_model, generator=gen) * 0.5
+        yc, cc = A.mla_decode(cfg, cpu, x, cc, pos)
+        yg, cg = A.mla_decode(cfg, gpu, x.to(cuda_device), cg,
+                              pos.to(cuda_device) if torch.is_tensor(pos)
+                              else pos)
+        assert torch.allclose(yg.cpu(), yc, **MOE_CPU_TOL), i
+    for k in cc:
+        assert torch.allclose(cg[k].cpu(), cc[k], **MOE_CPU_TOL), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(MOE_ARCHS))
+def test_moe_archs_on_card_match_cpu(cuda_device, arch):
+    """Reduced deepseek (MLA, no K4/K5 launch) and scout ([chunk 64,
+    global]: K5 once a layer per prefill, K4 once a layer a step): prefill
+    of 80 tokens and 16 teacher-forced steps, card against CPU, and the
+    aux of a training forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(MOE_ARCHS[arch]).reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = _to_card(cpu, cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int64))
+    kernels.reset_launches()
+    lc, cc = T.prefill(cfg, cpu, prompt)
+    lg, cg = T.prefill(cfg, gpu, prompt.to(cuda_device))
+    assert torch.allclose(lg.cpu(), lc, **MOE_CPU_TOL)
+    cc = T.grow_cache(cfg, cc, 2, 96)
+    cg = T.grow_cache(cfg, cg, 2, 96)
+    forced = torch.argmax(lc[:, -1:], -1)
+    for i in range(16):
+        lc, cc = T.decode_step(cfg, cpu, forced, cc, 80 + i)
+        lg, cg = T.decode_step(cfg, gpu, forced.to(cuda_device), cg, 80 + i)
+        assert torch.allclose(lg.cpu(), lc, **MOE_CPU_TOL), i
+        forced = torch.argmax(lc, -1)
+    counts = kernels.launch_counts()
+    attn_layers = 0 if cfg.use_mla else cfg.n_layers
+    assert counts["swa_attention"] == attn_layers
+    assert counts["decode_attention"] == 16 * attn_layers
+    (_, ac), (_, ag) = (T.forward(cfg, m, t) for m, t in (
+        (cpu, prompt), (gpu, prompt.to(cuda_device))))
+    assert torch.allclose(ag.cpu(), ac, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_remat_policies_on_card(cuda_device):
+    """One ``make_train_step`` of reduced deepseek under each checkpoint
+    policy on the card: K3 once a step, the losses and new parameters
+    those of ``full`` (index_add's atomics may reorder a sum: f32 band)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    base = get_config("deepseek-v2-lite-16b").reduced()
+    model = T.init_params(base, torch.Generator(device=cuda_device)
+                          .manual_seed(0), device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, base.vocab_size, (2, 49)).astype(np.int64)).to(cuda_device)
+    runs = {}
+    for name, kw in (("full", {}), ("dots", dict(remat_policy="dots")),
+                     ("dots_nb", dict(remat_policy="dots_nb")),
+                     ("remat_sublayer", dict(remat_sublayer=True)),
+                     ("no_remat", dict(no_remat=True))):
+        kernels.reset_launches()
+        runs[name] = make_train_step(base.variant(**kw), lr=0.05)(
+            model, T.param_dict(model), {"tokens": toks})
+        assert kernels.launch_counts()["cross_entropy"] == 1, name
+    want_p, want_m = runs["full"]
+    for name, (p, m) in runs.items():
+        assert torch.allclose(m["loss"], want_m["loss"], rtol=1e-6), name
+        for k in p:
+            assert torch.allclose(p[k], want_p[k], atol=1e-6), (name, k)
+
+
+@pytest.mark.cuda
+def test_optimizers_on_card_match_cpu(cuda_device):
+    """adam under ``linear_warmup_cosine`` and momentum SGD, each after
+    ``clip_by_global_norm``, three steps from one gradient: card against
+    CPU, the step counter staying on the card."""
+    import repro_torch.optim as O
+    gen = torch.Generator().manual_seed(0)
+    params = {f"w{i}": torch.randn(s, generator=gen)
+              for i, s in enumerate(((64, 33), (1000,), (7, 5, 3)))}
+    grads = {k: torch.randn(v.shape, generator=gen) for k, v in
+             params.items()}
+    for opt in (O.adam(O.linear_warmup_cosine(1e-2, 2, 10), weight_decay=0.1),
+                O.momentum_sgd(0.05)):
+        out = []
+        for dev in ("cpu", cuda_device):
+            p = {k: v.to(dev) for k, v in params.items()}
+            g, _ = O.clip_by_global_norm({k: v.to(dev)
+                                          for k, v in grads.items()}, 1.0)
+            state = opt.init(p)
+            for _ in range(3):
+                u, state = opt.update(g, state, p)
+                p = O.apply_updates(p, u)
+            assert state["step"].device == torch.device(dev)
+            out.append(p)
+        for k in params:
+            assert torch.allclose(out[1][k].cpu(), out[0][k], rtol=1e-6,
+                                  atol=1e-7), k

@@ -16,6 +16,9 @@ from repro.check.boundary import check_source as jcheck_source
 from repro_torch.check import config, findings
 from repro_torch.check.boundary import check_file, check_source
 from repro_torch.check.findings import Finding, apply_waivers, load_waivers
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "src/repro_torch/check/corpus"

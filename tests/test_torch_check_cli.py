@@ -15,6 +15,9 @@ import pytest
 from repro.check.runner import main as jmain
 from repro_torch.check import findings, plan_shapes
 from repro_torch.check.runner import collect_files, main
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src/repro_torch"

@@ -18,6 +18,9 @@ from repro_torch.channel import ChannelParams
 from repro_torch.check import dtype_flow, plan_shapes
 from repro_torch.check.dtype_flow import OpRecorder, check_ops
 from repro_torch.core.jit_engine import plan_fleet
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_plan_shapes_probe_clean():

@@ -20,6 +20,9 @@ from repro_torch.check.corpus import racy_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.geometry import LaunchGeometry, Output
 from repro_torch.kernels.weighted_agg import ops as wa_ops
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 F1_CASE = grid_race.Case(
     "repro_torch/check/corpus/racy_kernel.py", "racy_sum", "racy_sum",

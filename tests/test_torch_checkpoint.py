@@ -22,6 +22,9 @@ from repro_torch.convert import (transformer_params_from_jax,
                                  transformer_params_to_numpy)
 from repro_torch.core.flat import ParamLayout as TParamLayout
 from repro_torch.models import transformer as tT
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _mixed_trees(seed=0):

@@ -21,6 +21,9 @@ import repro_torch.core.client as tclient
 import repro_torch.core.mafl as tmafl
 import repro_torch.models.cnn as tcnn
 from repro_torch.convert import params_from_jax, params_to_numpy
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 SCAN_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -16,6 +16,9 @@ import repro_torch.core.scenarios as tsc
 import repro_torch.corridor.engine as tengine
 from _torch_corridor import QUICK
 from repro_torch.corridor import run_corridor_simulation
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _count(monkeypatch, name):

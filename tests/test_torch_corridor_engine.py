@@ -12,6 +12,9 @@ import pytest
 
 from _torch_corridor import (  # noqa: F401
     QUICK, _assert_engine_conforms, _pair, init)
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("kw", [

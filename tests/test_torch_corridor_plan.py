@@ -19,6 +19,9 @@ import repro_torch.core.scenarios as tsc
 import repro_torch.corridor.engine as tengine
 import repro_torch.corridor.plan as tplan
 from repro_torch.models.cnn import CNN_SHAPES
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 PLAN_ARRAYS = ("veh", "cycle", "dl_round", "up_rsu", "times", "train_delay",
                "upload_delay", "download_time", "row0")

@@ -11,6 +11,10 @@ import repro.core.scenarios as jsc
 import repro_torch.corridor.engine as tengine
 from _torch_corridor import (  # noqa: F401
     QUICK, _assert_engine_conforms, _port, init)
+import pytest
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _ring_reads(init, monkeypatch, kw):

@@ -15,6 +15,10 @@ from _torch_corridor import (  # noqa: F401
     _assert_params, _pair, _port, _trace, init)
 from _torch_world import (ACC_TOL, FLEET_TIME_TOL, FLEET_WEIGHT_TOL,
                           PARAM_TOL)
+import pytest
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_serial_matches_repro_serial(init):

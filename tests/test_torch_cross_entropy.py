@@ -20,6 +20,9 @@ from repro.kernels.cross_entropy import ref as jref
 from repro_torch import kernels
 from repro_torch.kernels.cross_entropy import ops as tops
 from repro_torch.kernels.cross_entropy import ref as tref
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NLL_TOL = dict(atol=1e-4, rtol=0)
 EXTREME_TOL = dict(atol=1e-3, rtol=0)

@@ -24,6 +24,9 @@ import repro_torch.corridor.plan as tplan
 import repro_torch.faults as tfaults
 import repro_torch.selection as tsel
 from tests._hypothesis_compat import given, settings, st
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # repro's churn-heavy spec (tests/test_faults.py): faults fire on short runs
 HEAVY = dict(p_dropout=0.25, p_blackout=0.15, blackout_mean=20.0,

@@ -19,6 +19,9 @@ import pytest
 from _torch_engines import (assert_faults_off,  # noqa: F401
                             faults_fleet_pair, init)
 from _torch_world import assert_conforms
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["batched"])

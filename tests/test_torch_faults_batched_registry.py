@@ -10,6 +10,9 @@ import pytest
 
 from _torch_engines import faults_fleet_pair, init  # noqa: F401
 from _torch_world import assert_conforms
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("name", ["fleet-k1000-flaky",

@@ -10,6 +10,9 @@ import pytest
 
 from _torch_engines import (HEAVY, assert_corridor_conforms,  # noqa: F401
                             assert_faults_off, corridor_pair, init)
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["serial"])

@@ -28,6 +28,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.aggregation import chain_coeffs
 from repro_torch.core.flat import ParamLayout
 from repro_torch.kernels.weighted_agg import ops, ref
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 P_RAGGED = LANE * 300          # not a multiple of any power-of-two tile
 U_CASES = [0, 1, 2, 7, 9]

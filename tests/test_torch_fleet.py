@@ -17,6 +17,9 @@ import repro_torch.core.scenarios as tsc
 from _torch_world import (FLEET_TIME_TOL, PARAM_TOL, assert_fleet_conforms,
                           jax_init, run_both)
 from repro_torch.convert import params_from_jax
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 PLAN_ARRAYS = ("veh", "cycle", "dl_round", "times", "train_delay",
                "upload_delay", "download_time")

@@ -20,6 +20,9 @@ import repro_torch.core.mafl as tmafl
 import repro_torch.core.scenarios as tsc
 import repro_torch.core.weights as tw
 import repro_torch.data as tdata
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_synth_mnist_exact():

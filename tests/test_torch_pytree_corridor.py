@@ -13,7 +13,8 @@ import torch
 import repro_torch.core.scenarios as tsc
 import repro_torch.corridor.engine as tengine
 from _torch_engines import (QUICK, assert_corridor_conforms,  # noqa: F401
-                            corridor_run, init, leaves_equal, one_thread)
+                            corridor_run, init, leaves_equal)
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.corridor import run_corridor_simulation
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 

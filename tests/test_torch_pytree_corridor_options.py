@@ -6,7 +6,8 @@ from __future__ import annotations
 import pytest
 
 from _torch_engines import (HEAVY, QUICK, assert_pytree_is_flat,  # noqa: F401
-                            corridor_run, one_thread)
+                            corridor_run)
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.faults import FaultSpec
 from repro_torch.selection import SelectionSpec
 

@@ -12,7 +12,8 @@ import repro_torch.core.aggregation as tagg
 import repro_torch.core.jit_engine as tjit
 import repro_torch.core.scenarios as tsc
 from _torch_engines import (CAPPED, PYTREE_BATCH, fleet_run,  # noqa: F401
-                            init, one_thread)
+                            init)
+from _torch_threads import one_thread  # noqa: F401
 from _torch_world import assert_fleet_conforms, run_both
 from repro_torch.kernels.weighted_agg import ops as agg_ops
 

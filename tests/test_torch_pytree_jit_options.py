@@ -6,7 +6,8 @@ from __future__ import annotations
 import pytest
 
 from _torch_engines import (CAPPED, assert_pytree_is_flat,  # noqa: F401
-                            fleet_run, one_thread)
+                            fleet_run)
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.selection import SelectionSpec
 
 pytestmark = pytest.mark.usefixtures("one_thread")

@@ -28,6 +28,9 @@ import repro_torch.core.scenarios as tsc
 import repro_torch.corridor.plan as tplan
 import repro_torch.faults as tfaults
 import repro_torch.selection as tsel
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SEEDS = range(6)
 

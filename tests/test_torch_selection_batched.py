@@ -19,6 +19,9 @@ import repro_torch.selection as tsel
 from _torch_engines import (SPECS, init, selection_fleet_pair,  # noqa: F401
                             worlds)
 from _torch_world import assert_conforms
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["batched"])

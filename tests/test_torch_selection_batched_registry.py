@@ -10,6 +10,9 @@ import pytest
 
 from _torch_engines import init, registry_selection_pair  # noqa: F401
 from _torch_world import assert_conforms
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("name, engine", [

@@ -20,6 +20,9 @@ import repro_torch.corridor.engine as tengine
 from _torch_engines import (QUICK, assert_corridor_conforms,  # noqa: F401
                             corridor_pair, init, perturbed,
                             registry_selection_pair)
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["corridor"])

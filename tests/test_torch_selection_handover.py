@@ -11,6 +11,9 @@ import pytest
 import repro_torch.core.scenarios as tsc
 from _torch_engines import (QUICK, assert_corridor_conforms,  # noqa: F401
                             corridor_pair, init, registry_selection_pair)
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["serial"])

@@ -33,6 +33,9 @@ from _torch_engines import (SPECS, init, selection_fleet_pair,  # noqa: F401
                             worlds)
 from _torch_world import PARAM_TOL, assert_fleet_conforms
 from repro_torch.convert import params_from_jax
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["jit"])

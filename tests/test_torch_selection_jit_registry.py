@@ -17,6 +17,9 @@ from _torch_engines import (DEVICE_CUT_TOL,  # noqa: F401
                             assert_corridor_conforms, init, perturbed,
                             registry_selection_pair, worlds)
 from _torch_world import PARAM_TOL
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("engine", ["jit"])

@@ -12,6 +12,9 @@ from repro.serving import BatchedServer as JServer
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tT
 from repro_torch.serving import BatchedServer
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

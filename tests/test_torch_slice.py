@@ -13,6 +13,9 @@ import repro_torch.core.mafl as tmafl
 import repro_torch.core.scenarios as tsc
 from _torch_world import assert_conforms, jax_init, run_both
 from repro_torch.convert import params_from_jax
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

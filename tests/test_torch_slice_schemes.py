@@ -13,6 +13,9 @@ import repro.core.aggregation as jagg
 import repro_torch.core.aggregation as tagg
 from _torch_world import assert_conforms, jax_init, run_both
 from repro_torch.models.cnn import CNN_SHAPES
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

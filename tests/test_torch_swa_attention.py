@@ -13,6 +13,9 @@ import torch
 from repro.kernels.swa_attention import ops as jops
 from repro.kernels.swa_attention import ref as jref
 from repro_torch.kernels.swa_attention import ops
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

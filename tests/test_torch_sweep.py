@@ -25,6 +25,9 @@ import repro_torch.selection as tsel
 from repro_torch import kernels
 from repro_torch.check import grid_race, plan_shapes
 from repro_torch.kernels.weighted_agg import ops, ref
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SEL_SPECS = {"weighted-topk": dict(policy="weighted-topk", k=3,
                                    resel_every=4),

@@ -19,6 +19,9 @@ import repro.core.scenarios as jsc
 import repro_torch.core.scenarios as tsc
 from _torch_sweep import GRID, assert_band, digest, port_vmap_from_jax
 from _torch_world import assert_fleet_conforms
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_one_world_batch_is_the_solo_run_and_repros():

@@ -10,6 +10,10 @@ import repro.core.scenarios as jsc
 import repro_torch.core.scenarios as tsc
 from _torch_sweep import GRID, port_vmap_from_jax
 from _torch_world import assert_fleet_conforms
+import pytest
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_beta_seed_grid_matches_repro():

@@ -17,6 +17,9 @@ from _torch_engines import DEVICE_CUT_TOL
 from _torch_sweep import (assert_singletons_are_solo, digest, port_solo,
                           port_vmap_from_jax)
 from _torch_world import assert_fleet_conforms
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SELECTION_BATCHES = {
     "admit-all + weighted-topk": ((0,), ((), (

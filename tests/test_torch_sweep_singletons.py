@@ -11,6 +11,9 @@ import pytest
 
 import repro_torch.core.scenarios as tsc
 from _torch_sweep import assert_singletons_are_solo
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("case", ["bf16 ring"])

@@ -8,6 +8,9 @@ import pytest
 
 from repro.data import synth_tokens as jsynth_tokens
 from repro_torch.data import synth_tokens
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("n, seq_len, vocab, seed", [

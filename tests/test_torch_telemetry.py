@@ -38,6 +38,9 @@ from repro.channel import ChannelParams as JParams
 from repro_torch.channel import ChannelParams as TParams
 from repro_torch.convert import params_from_jax
 from repro_torch.telemetry.__main__ import main as tmain
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,9 @@ import repro_torch.core.scenarios as tsc
 from _torch_engines import GAP_TOL, OFF, digest
 from repro.corridor.plan import plan_corridor as jplan_corridor
 from repro_torch.telemetry import MetricsSpec
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 QUICK = "corridor-quick-r2-k8"
 ENGINES = ["corridor", "serial"]

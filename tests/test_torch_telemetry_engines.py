@@ -38,6 +38,9 @@ import repro_torch.selection as tsel
 from repro.channel import ChannelParams as JParams
 from repro_torch.channel import ChannelParams as TParams
 from _torch_engines import GAP_TOL, OFF, digest
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROUNDS = 8
 ENGINES = ["serial", "batched", "jit"]

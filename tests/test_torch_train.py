@@ -28,6 +28,9 @@ from repro_torch.core.client import make_lm_local_step
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as tT
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 LOSS_TOL = dict(atol=0, rtol=1e-5)
@@ -138,10 +141,13 @@ def test_train_step_unported_inputs_raise():
     batch = {"tokens": torch.zeros(1, 5, dtype=torch.int32)}
     with pytest.raises(ValueError, match="frontend_embeds"):
         tsteps.make_train_step(vision)(model, tT.param_dict(model), batch)
-    for bad in (dict(remat_policy="dots"), dict(remat_policy="dots_nb"),
-                dict(remat_sublayer=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tT.forward(tcfg.variant(**bad), model, batch["tokens"])
+    # the checkpoint policies are ported (item 12, part 2): they run and
+    # give the logits of the default policy bitwise
+    want, _ = tT.forward(tcfg, model, batch["tokens"])
+    for policy in (dict(remat_policy="dots"), dict(remat_policy="dots_nb"),
+                   dict(remat_sublayer=True)):
+        got, _ = tT.forward(tcfg.variant(**policy), model, batch["tokens"])
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="item 13"):
         tT.forward(tcfg.variant(shard_activations=True), model,
                    batch["tokens"])

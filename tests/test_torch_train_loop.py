@@ -14,6 +14,9 @@ from repro.checkpointing import load_checkpoint as jload_checkpoint
 from repro_torch.checkpointing import latest_checkpoint
 from repro_torch.convert import transformer_params_to_numpy
 from repro_torch.launch import train as ttrain
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("scheme", ["mafl", "afl"])

@@ -6,6 +6,9 @@ from __future__ import annotations
 import pytest
 
 from _torch_train_loop import assert_training_loop_matches_repro
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("scheme", ["mafl", "afl"])

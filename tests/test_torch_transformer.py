@@ -19,6 +19,9 @@ from _torch_world import transformer_pair
 from repro.models import transformer as jT
 from repro_torch.convert import transformer_params_to_numpy
 from repro_torch.models import transformer as tT
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 CACHE_TOL = dict(atol=1e-5, rtol=0)
@@ -120,15 +123,28 @@ def test_teacher_forced_decode(pair, per_seq):
 
 
 def test_unported_layers_raise():
+    """MoE MLPs, MLA mixers and ``first_k_dense`` prefixes build and run
+    (item 12, part 3); Mamba and RWKV mixers still raise naming item 12;
+    the checkpoint policies run and give ``full``'s logits bitwise."""
     from repro_torch.configs import get_config
     cfg = get_config("smollm-360m").reduced()
-    for bad in (dict(moe_every=1, n_routed_experts=4, moe_top_k=2,
-                     moe_d_ff=64), dict(use_mla=True),
-                dict(first_k_dense=1, n_layers=3)):
+    tokens = torch.zeros(1, 4, dtype=torch.int64)
+    for ok in (dict(moe_every=1, n_routed_experts=4, moe_top_k=2,
+                    moe_d_ff=64),
+               dict(use_mla=True, kv_lora_rank=32, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16),
+               dict(first_k_dense=1, n_layers=3)):
+        c = cfg.variant(**ok)
+        m = tT.init_params(c, torch.Generator().manual_seed(0), device="cpu")
+        logits, _ = tT.forward(c, m, tokens)
+        assert logits.shape == (1, 4, c.vocab_size)
+        assert torch.isfinite(logits).all()
+    for bad in (dict(attn_every=2), dict(family="ssm")):
         with pytest.raises(NotImplementedError, match="item 12"):
             tT.Transformer(cfg.variant(**bad), device="cpu")
-    model = tT.Transformer(cfg, device="cpu")
-    tokens = torch.zeros(1, 4, dtype=torch.int64)
-    for bad in (dict(remat_policy="dots"), dict(remat_sublayer=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tT.forward(cfg.variant(**bad), model, tokens)
+    model = tT.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    want, _ = tT.forward(cfg, model, tokens)
+    for policy in (dict(remat_policy="dots"), dict(remat_sublayer=True)):
+        got, _ = tT.forward(cfg.variant(**policy), model, tokens)
+        assert torch.equal(got, want)

@@ -24,6 +24,9 @@ from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.weighted_agg import ops, ref
 from repro_torch.models.cnn import CNN_SHAPES
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # mixing (1 - alpha, 1.0) and literal (beta, weight) scalar pairs
 SCALARS = [(1.0 - 0.0734125, 1.0), (0.5, 0.8719), (0.3, 1.7)]
