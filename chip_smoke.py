@@ -186,6 +186,21 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    momentum SGD, ``clip_by_global_norm``) on smollm-360m's param dict,
    card against CPU; card against CPU on reduced deepseek (both decode
    forms) and scout, logits within 1e-5.
+8c. SSM layers (``phase_ssm``, after ``phase_moe``), each model freed
+   before the next: rwkv6-1.6b whole in bf16 (24 layers, 3.2 GB) through
+   ``generate`` (B 2, prompts of 1,024, 64 new) and behind phase 7's
+   ``BatchedServer`` (its first 8 requests, 32 new): no K4/K5 launch; K5
+   and K4 against their plain versions at jamba-v0.1-52b's attention
+   shapes (G 4, hd 128, bf16, ``ARCH_BF16_TOL``, planted errors); jamba
+   at full width over one period of 8 layers (13.3 B parameters; the
+   whole model is 103 GB of bf16) through ``generate`` (B 2, prompts of
+   1,024, 32 new: K5 once, K4 once a step); ``make_train_step`` on rwkv6
+   cut to 4 layers in f32 (B 2, S 256) under ``full`` and ``no_remat``
+   (K3 once a step, losses equal, memory kept for the backward logged);
+   card against CPU on the reduced configs (prefill and decode logits
+   within ``SSM_CPU_TOL``, every state leaf, one train step's params).
+   One decode tick of each model and two rwkv6 prefills are profiled
+   with the other profiler readings: launches per tick and per token.
 9. serve, card against host: the same config cut to 4 layers, one CPU
    init, two of the prompts: prefill and 16 teacher-forced decode steps on
    both, logits within atol 1e-3 / rtol 1e-3.
@@ -362,8 +377,8 @@ def profile_call(label, fn, wall_ms):
     """``fn()`` under torch.profiler: the kernels that take the most device
     time, and their sum over the wall time of the profiled call and of an
     unprofiled one (``wall_ms``; the profiler slows the host, so the first
-    share is a lower bound).  Returns the device ms (None if the profiler
-    recorded no device activity)."""
+    share is a lower bound).  Returns (the device ms, the kernel launches
+    recorded), (None, 0) if the profiler recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -383,14 +398,14 @@ def profile_call(label, fn, wall_ms):
     if not rows:
         log(f"profile: {label}: no device activity recorded "
             f"(device busy share not measured)")
-        return None
+        return None, 0
     log(f"profile: {label}: device kernels {dev_ms:.3f} ms in {launched} "
         f"launches; wall {prof_ms:.3f} ms profiled (busy share "
         f"{dev_ms / prof_ms:.4f}), {wall_ms:.3f} ms unprofiled (busy share "
         f"{dev_ms / wall_ms:.4f}); top kernels by device time:")
     for t, n, key in rows[:10]:
         log(f"profile:   {t:10.3f} ms {n:7d} x  {key[:90]}")
-    return dev_ms
+    return dev_ms, launched
 
 
 def profile_run(name, engine, rounds, wall_ms):
@@ -3323,8 +3338,9 @@ def moe_model(cfg, dev, dtype, tag):
     return model, base
 
 
-def moe_generate(cfg, model, prompts, new, tag, k5, k4):
-    """One counted ``generate``; returns (tokens, its stats line)."""
+def moe_generate(cfg, model, prompts, new, tag, k5, k4, phase="moe"):
+    """One counted ``generate``, logged under ``phase``; returns (tokens,
+    the launch counts, ms per decode tick)."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.serve import generate
@@ -3336,15 +3352,15 @@ def moe_generate(cfg, model, prompts, new, tag, k5, k4):
     out = toks.cpu().numpy()
     B, P = prompts.shape
     check(out.shape == (B, new) and (out >= 0).all()
-          and (out < cfg.vocab_size).all(), f"moe: {tag} tokens {out}")
+          and (out < cfg.vocab_size).all(), f"{phase}: {tag} tokens {out}")
     steps = new - 1
-    log(f"moe: {tag}: B {B} x {P} prompt tokens, {new} new: prefill "
+    log(f"{phase}: {tag}: B {B} x {P} prompt tokens, {new} new: prefill "
         f"{prefill_s * 1e3:.3f} ms, decode {decode_s / steps * 1e3:.3f} ms "
         f"per tick over {steps} ticks, {B * new / (prefill_s + decode_s):.1f}"
         f" tokens/s ({B * steps / decode_s:.1f} decoding); launches "
         f"swa_attention {counts['swa_attention']}, decode_attention "
         f"{counts['decode_attention']}")
-    return toks, counts
+    return toks, counts, decode_s / steps * 1e3
 
 
 def moe_absorb_check(cfg, model, prompts, forced, hold):
@@ -3475,7 +3491,7 @@ def moe_deepseek(dev):
     generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
     log(f"moe:   warm-up (B {MOE_GEN_B}, 128 tokens, 3 steps) "
         f"{time.perf_counter() - t0:.3f} s")
-    toks, _ = moe_generate(cfg, model, prompts, MOE_GEN_NEW,
+    toks, _, _ = moe_generate(cfg, model, prompts, MOE_GEN_NEW,
                            f"{cfg.name} generate, naive MLA decode", 0, 0)
     moe_generate(cfg.variant(mla_absorb=True), model, prompts, MOE_GEN_NEW,
                  f"{cfg.name} generate, absorbed MLA decode", 0, 0)
@@ -3635,7 +3651,7 @@ def moe_scout(dev):
     log(f"moe:   warm-up (128 tokens, 3 steps) "
         f"{time.perf_counter() - t0:.3f} s")
     steps = SCOUT_NEW - 1
-    _, counts = moe_generate(
+    _, counts, _ = moe_generate(
         cfg, model, prompts, SCOUT_NEW,
         f"{cfg.name} 4 layers generate (chunk {cfg.attn_chunk}: K5 rows "
         f"of {-(-SCOUT_P // cfg.attn_chunk)} chunks; global every "
@@ -3859,6 +3875,418 @@ def phase_moe(dev):
     moe_optim(dev)
     moe_vs_cpu(dev)
     mark("moe: optim, card against CPU")
+    return ({p: k4 for p, (k4, _) in paths.items()},
+            {p: k5 for p, (_, k5) in paths.items()}, k3)
+
+
+# SSM layers (phase_ssm, after phase_moe), random weights from a seed, each
+# model freed in turn: rwkv6-1.6b whole (24 layers of time-mix and
+# channel-mix under LayerNorm, d_model 2048, 32 heads of 64) in bf16
+# through generate (B 2 x 1,024, 64 new) and behind the serve phase's
+# BatchedServer (8 slots of 2,048, its first 8 requests, 32 new): no K4 or
+# K5; K5 and K4 against their plain versions at jamba-v0.1-52b's attention
+# shapes (B 2, H 32, Kv 8: G 4, hd 128, bf16; K5 over a 1,024-token prompt,
+# K4 over the 1,056-slot cache at generate's first and last steps) under
+# ARCH_BF16_TOL, with planted errors; jamba at full width over one period
+# of 8 layers (7 Mamba, 1 attention, 4 MoE of 16 experts top-2; the whole
+# model is 103 GB of bf16) through generate (B 2 x 1,024, 32 new: K5 once,
+# K4 once a step); rwkv6 cut to 4 layers trained in f32 (B 2, S 256: four
+# checkpointed chunks of the scan) under full and no_remat (K3 once a
+# step); card against CPU on the reduced configs.  The recurrences are
+# torch ops a step (repro's are lax.scan, not Pallas).  One decode tick of
+# each model and two rwkv6 prefills (32 and 64 tokens: their difference is
+# the scan's launches per token) are profiled with the other profiler
+# readings, last.
+SSM_GEN_B, SSM_GEN_P = 2, 1024
+RWKV_GEN_NEW, RWKV_SERVE_REQUESTS, RWKV_SERVE_NEW = 64, 8, 32
+JAMBA_LAYERS, JAMBA_GEN_NEW = 8, 32
+SSM_TRAIN_LAYERS, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_TIMED = 4, 2, 256, 2
+SSM_POLICIES = (("full", {}), ("no_remat", {"no_remat": True}))
+SSM_PROFILE_PROMPTS = (32, 64)
+# card against CPU, both sides f32: logits within SSM_CPU_TOL, the port's
+# bar against repro on the CPU (tests/_torch_archs.py's LOGIT_TOL): the
+# time-mix's per-head group norm (eps 64e-5) scales up the rounding of its
+# wkv state, so reduced rwkv6's prefill logits differ by 2.25e-5 card
+# against CPU (an H100 80GB HBM3 at 700 W), past MOE_CPU_TOL's 1e-5, and
+# by up to 1.55e-5 between the port and repro on the CPU; a state leaf
+# within atol max(1e-5, 4e-6 x its largest |value|): the wkv state sums 81
+# decayed k v^T products into values up to ~50, where the card's f32 sums
+# differ from the CPU's by 1.04e-6 of the largest value (6.6e-7 between
+# the port and repro on the CPU, tests/test_torch_archs_ssm.py), growing
+# with the steps summed; one train step's parameters within MOE_CPU_TOL
+SSM_CPU_TOL = dict(atol=1e-4, rtol=1e-4)
+SSM_STATE_SCALE = 4e-6
+SSM_CPU_TRAIN_S = 128
+
+
+def ssm_model(cfg, dev, dtype, tag):
+    """``cfg`` initialised on the card from a seed, logged with the card;
+    returns (model, allocated before it)."""
+    import torch
+    from repro_torch.models import transformer as T
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    pattern = [f"{s.mixer}+{s.mlp}" for s in cfg.sublayers()]
+    log(f"ssm: {tag}: {cfg.n_layers} layers (period {pattern}) d_model "
+        f"{cfg.d_model} vocab {cfg.vocab_size}: {T.param_count(cfg)} "
+        f"parameters, {(torch.cuda.memory_allocated(dev) - base) / 1e9:.3f}"
+        f" GB {str(dtype).removeprefix('torch.')}, init "
+        f"{time.perf_counter() - t0:.3f} s; card {card_line()}")
+    return model, base
+
+
+def ssm_peak(dev, tag, base):
+    import torch
+    log(f"ssm: {tag}: peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f}"
+        f" GB allocated ({base / 1e9:.3f} GB of earlier phases); card "
+        f"{card_line()}")
+
+
+def ssm_profile_later(cfg, dtype, tag, tick_ms, prompts=()):
+    """Queue the profiler readings of ``cfg`` at full width (built anew
+    from the same seed, then freed): each prefill of ``prompts`` tokens
+    (beside its unprofiled wall, taken here) and one decode tick after a
+    128-token prompt (beside ``tick_ms``, the counted run's tick).  The
+    prefill pair gives the recurrence's launches per token."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    def measure():
+        model = T.init_params(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(0), dtype=dtype, device=DEVICE)
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (SSM_GEN_B, max(prompts + (128,))))
+            .astype(np.int32)).to(DEVICE)
+        launched = {}
+        for P in prompts:
+            def fn(P=P):
+                return T.prefill(cfg, model, toks[:, :P])
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            _, launched[P] = profile_call(
+                f"ssm: {tag} prefill B {SSM_GEN_B} x {P}", fn, wall)
+        if len(launched) == 2:
+            (p0, n0), (p1, n1) = sorted(launched.items())
+            per = (n1 - n0) / (p1 - p0)
+            log(f"ssm: {tag}: prefill launches per token {per:.2f} "
+                f"({per / cfg.n_layers:.2f} a layer; {n0} at {p0} tokens, "
+                f"{n1} at {p1}, as recorded by the profiler)")
+        _, cache = T.prefill(cfg, model, toks[:, :128])
+        cache = T.grow_cache(cfg, cache, SSM_GEN_B, 130, dtype)
+        token = toks[:, :1]
+        T.decode_step(cfg, model, token, cache, 128)
+        _, n = profile_call(f"ssm: {tag} one decode tick (B {SSM_GEN_B})",
+                            lambda: T.decode_step(cfg, model, token, cache,
+                                                  129), tick_ms)
+        log(f"ssm: {tag}: {n} launches per decode tick "
+            f"({n / cfg.n_layers:.1f} a layer) as recorded by the profiler")
+        del model, cache
+        free_card()
+    PROFILED.append(measure)
+
+
+def ssm_rwkv(dev):
+    """rwkv6-1.6b whole in bf16 through generate and behind
+    BatchedServer; returns {path: (K4, K5)}."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    cfg = get_config("rwkv6-1.6b")
+    model, base = ssm_model(cfg, dev, torch.bfloat16, cfg.name)
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (SSM_GEN_B, SSM_GEN_P)).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
+    log(f"ssm:   warm-up (B {SSM_GEN_B}, 128 tokens, 3 steps) "
+        f"{time.perf_counter() - t0:.3f} s")
+    _, _, tick_ms = moe_generate(cfg, model, prompts, RWKV_GEN_NEW,
+                                 f"{cfg.name} generate", 0, 0, "ssm")
+    ssm_peak(dev, f"{cfg.name} generate", base)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompts_s = serve_prompts(cfg.vocab_size)[:RWKV_SERVE_REQUESTS]
+    stats = {"prefill_ms": [], "tick_ms": []}
+    kernels.reset_launches()
+    reqs, ticks, wall = serve_run(cfg, model, prompts_s, stats,
+                                  RWKV_SERVE_NEW)
+    arch_counts(f"{cfg.name} BatchedServer", kernels.launch_counts(), 0, 0)
+    for r in reqs:
+        check(r.done and len(r.out) == RWKV_SERVE_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.out),
+              f"ssm: {cfg.name} request {r.rid} out {r.out}")
+    tokens = sum(len(p) for p in prompts_s)
+    log(f"ssm: {cfg.name} BatchedServer: {len(prompts_s)} requests of "
+        f"{min(map(len, prompts_s))}-{max(map(len, prompts_s))} prompt "
+        f"tokens ({tokens} in all; {RWKV_SERVE_NEW} new each) over "
+        f"{SERVE_SLOTS} slots of {SERVE_MAX_SEQ}: {ticks} ticks in "
+        f"{wall:.3f} s, {len(prompts_s) * RWKV_SERVE_NEW / wall:.1f} "
+        f"tokens/s; prefill ms per request mean "
+        f"{np.mean(stats['prefill_ms']):.3f} "
+        f"({np.sum(stats['prefill_ms']) / tokens:.4f} per prompt token), "
+        f"decode ms per tick mean {np.mean(stats['tick_ms']):.3f} (median "
+        f"{np.median(stats['tick_ms']):.3f}); launches K4 0, K5 0")
+    ssm_peak(dev, f"{cfg.name} BatchedServer", base)
+    ssm_profile_later(cfg, torch.bfloat16, cfg.name, tick_ms,
+                      SSM_PROFILE_PROMPTS)
+    del model, reqs, prompts
+    free_card()
+    return {f"{cfg.name} generate": (0, 0),
+            f"{cfg.name} BatchedServer": (0, 0)}
+
+
+def ssm_kernel_checks(dev, cfg):
+    """K5 and K4 against their plain versions at jamba's attention shapes
+    (those its generate launches), bf16 under ``ARCH_BF16_TOL``, with
+    planted errors: K5 windowed at half the prompt (held to read above the
+    bar), K4 one key short (logged).  Returns the readings."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.models import attention as A
+    bf16 = torch.bfloat16
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S, W = SSM_GEN_B, SSM_GEN_P, SSM_GEN_P + JAMBA_GEN_NEW
+    where = f"B {B}, H {H}, Kv {Kv} (G {H // Kv}), hd {hd}, bf16"
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kernels.reset_launches()
+    q, k, v = attn_inputs((B, S, H, hd), (B, S, Kv, hd), bf16, gen, dev)
+    want = plain_prefill(q, k, v, "full", 0)
+    k5 = bf16_check("swa_attention (jamba)", A._prefill_attention(
+        q, k, v, "full", 0), want, f"{where}, S {S}, window S")
+    planted_k5 = scaled_err(sops.swa_attention(q, k, v, window=S // 2), want)
+    del q, k, v, want
+    q, k, v = attn_inputs((B, 1, H, hd), (B, W, Kv, hd), bf16, gen, dev)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    idx = torch.arange(W, device=dev)
+    k4, planted_k4 = 0.0, []
+    for p in (S, W - 2):           # generate's first and last decode steps
+        live = torch.tensor(p, dtype=torch.int32, device=dev)
+        out = dops.decode_attention(q[:, 0], k, v, live)
+        want = dref.decode_attention(qf[:, 0], kf, vf, live).to(bf16)
+        bias = torch.where(idx <= p, 0.0, -1e30).reshape(1, 1, 1, W)
+        at = f"{where}, cache {W}, pos {p}"
+        k4 = max(k4, bf16_check("decode_attention (jamba)", out, want, at),
+                 bf16_check("decode_attention (jamba bias)", out,
+                            A._sdpa(qf, kf, vf, bias)[:, 0].to(bf16), at))
+        short = torch.tensor(p - 1, dtype=torch.int32, device=dev)
+        planted_k4.append(scaled_err(
+            dops.decode_attention(q[:, 0], k, v, short), want))
+    counts = kernels.launch_counts()
+    check(counts["swa_attention"] == 2 and counts["decode_attention"] == 4,
+          f"ssm: jamba kernel checks launched {counts}")
+    check(planted_k5 > 1.0, f"ssm: K5 windowed at {S // 2} reads "
+          f"{planted_k5} of the bf16 bar, which does not see it")
+    log(f"ssm: jamba kernel checks ({where}) against the plain versions in "
+        f"f32, max |diff| / bar ({ARCH_BF16_TOL}): swa_attention over a "
+        f"{S}-token prompt (window S) {k5}; decode_attention over the "
+        f"{W}-slot cache at pos {S} and {W - 2}, against the plain version "
+        f"and the bias mask, {k4}; planted: K5 windowed at {S // 2} "
+        f"{planted_k5} (held > 1), K4 one key short {planted_k4} "
+        f"(logged)")
+    del q, k, v, qf, kf, vf
+    free_card()
+    return {"k5": k5, "k4": k4}
+
+
+def ssm_jamba(dev):
+    """jamba-v0.1-52b at full width over one period of 8 layers in bf16
+    through generate; returns {path: (K4, K5)}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.variant(n_layers=JAMBA_LAYERS)
+    log(f"ssm: {full.name}: the whole model, {full.n_layers} layers, is "
+        f"{T.param_count(full)} parameters ({T.param_count(full) * 2 / 1e9:.1f}"
+        f" GB of bf16): one card cannot hold it; run over one period of "
+        f"{JAMBA_LAYERS} layers")
+    ssm_kernel_checks(dev, cfg)
+    model, base = ssm_model(cfg, dev, torch.bfloat16,
+                            f"{cfg.name} variant(n_layers={JAMBA_LAYERS})")
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (SSM_GEN_B, SSM_GEN_P)).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
+    log(f"ssm:   warm-up (B {SSM_GEN_B}, 128 tokens, 3 steps) "
+        f"{time.perf_counter() - t0:.3f} s")
+    attn = sum(s.mixer == "attn" for s in cfg.sublayers()) * cfg.n_periods
+    steps = JAMBA_GEN_NEW - 1
+    _, counts, tick_ms = moe_generate(
+        cfg, model, prompts, JAMBA_GEN_NEW,
+        f"{cfg.name} {JAMBA_LAYERS} layers generate ({attn} attention "
+        f"layer, G {cfg.n_heads // cfg.n_kv_heads})", attn, attn * steps,
+        "ssm")
+    ssm_peak(dev, f"{cfg.name} {JAMBA_LAYERS} layers generate", base)
+    ssm_profile_later(cfg, torch.bfloat16, f"{cfg.name} {JAMBA_LAYERS} "
+                      f"layers", tick_ms)
+    del model, prompts
+    free_card()
+    return {f"{full.name} {JAMBA_LAYERS} layers": (
+        counts["decode_attention"], counts["swa_attention"])}
+
+
+def ssm_train(dev):
+    """make_train_step on rwkv6 cut to 4 layers in f32 under full and
+    no_remat, from the same params and batch; returns the K3 launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import synth_tokens
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_config("rwkv6-1.6b").variant(n_layers=SSM_TRAIN_LAYERS)
+    model, base = ssm_model(cfg, dev, torch.float32,
+                            f"{cfg.name} variant(n_layers="
+                            f"{SSM_TRAIN_LAYERS}) training")
+    params = T.param_dict(model)
+    batch = {"tokens": torch.from_numpy(synth_tokens(
+        SSM_TRAIN_B, SSM_TRAIN_S + 1, cfg.vocab_size, seed=6)).to(dev)}
+    make_train_step(cfg, lr=0.01)(model, params, batch)     # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    k3, losses = 0, {}
+    for name, kw in SSM_POLICIES:
+        pcfg = cfg.variant(**kw)
+        saved = moe_saved_gb(pcfg, model, params, batch["tokens"])
+        step = make_train_step(pcfg, lr=0.01)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(SSM_TRAIN_TIMED):
+            new, metrics = step(model, params, batch)
+            out.append(metrics["loss"])
+            del new
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SSM_TRAIN_TIMED * 1e3
+        counts = kernels.launch_counts()
+        check(counts["cross_entropy"] == SSM_TRAIN_TIMED
+              and counts["swa_attention"] == counts["decode_attention"] == 0,
+              f"ssm train {name}: launches {counts}, want cross_entropy "
+              f"{SSM_TRAIN_TIMED} (one a step)")
+        k3 += counts["cross_entropy"]
+        losses[name] = [float(v) for v in out]
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        log(f"ssm: train {cfg.name} {SSM_TRAIN_LAYERS} layers f32, B "
+            f"{SSM_TRAIN_B} S {SSM_TRAIN_S} ({SSM_TRAIN_S // 64} "
+            f"checkpointed chunks of the scan), {name}: {ms:.3f} ms per step "
+            f"over {SSM_TRAIN_TIMED} steps, "
+            f"{SSM_TRAIN_B * SSM_TRAIN_S / ms * 1e3:.1f} tokens/s; kept for "
+            f"the backward {saved:.3f} GB; step peak {peak:.3f} GB above "
+            f"params and batch; loss {losses[name]}; cross_entropy launches "
+            f"{counts['cross_entropy']}; card {card_line()}")
+    ref = losses["full"][0]
+    for name, ls in losses.items():
+        check(abs(ls[0] - ref) <= MOE_POLICY_LOSS_RTOL * abs(ref),
+              f"ssm train: {name} loss {ls[0]} against full's {ref}")
+    del model, params, batch
+    free_card()
+    return k3
+
+
+def state_err(got, want):
+    """max |got - want| over the state bar, atol max(1e-5, SSM_STATE_SCALE
+    x max |want|): at most 1 passes."""
+    want = want.float()
+    bar = max(MOE_CPU_TOL["atol"],
+              SSM_STATE_SCALE * want.abs().max().item())
+    return (got.float().cpu() - want).abs().max().item() / bar
+
+
+def ssm_vs_cpu(dev):
+    """The reduced configs card against CPU, one CPU init: prefill logits
+    of 80 tokens, one decode step's logits, every state leaf after each,
+    and one training step's parameters (S 128: two checkpointed chunks).
+    Every reading is logged before any is held."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+
+    def over(got, want, tol):
+        """max |got - want| / (atol + rtol |want|): at most 1 passes."""
+        want = want.float()
+        return ((got.float().cpu() - want).abs()
+                / (tol["atol"] + tol["rtol"] * want.abs())).max().item()
+    for name in ("rwkv6-1.6b", "jamba-v0.1-52b"):
+        cfg = get_config(name).reduced()
+        cpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(3)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, ARCH_CPU_PROMPT)).astype(np.int64))
+        read = {"logits": [], "logits / bar": [], "states / bar": {}}
+
+        def logits(lg, lc):
+            read["logits"].append((lg.cpu() - lc).abs().max().item())
+            read["logits / bar"].append(over(lg, lc, SSM_CPU_TOL))
+
+        def states(cc, cg):
+            for j, sub in enumerate(cfg.sublayers()):
+                for group, leaves in cc["stack"][f"sub{j}"].items():
+                    if T.is_state(sub, group):
+                        for k, v in leaves.items():
+                            key = f"sub{j}.{group}.{k}"
+                            e = state_err(cg["stack"][f"sub{j}"][group][k], v)
+                            read["states / bar"][key] = max(
+                                read["states / bar"].get(key, 0.0), e)
+        lc, cc = T.prefill(cfg, cpu, prompt)
+        lg, cg = T.prefill(cfg, gpu, prompt.to(dev))
+        logits(lg, lc)
+        states(cc, cg)
+        cc = T.grow_cache(cfg, cc, 2, ARCH_CPU_PROMPT + 1)
+        cg = T.grow_cache(cfg, cg, 2, ARCH_CPU_PROMPT + 1)
+        forced = torch.argmax(lc[:, -1:], -1)
+        lc, cc = T.decode_step(cfg, cpu, forced, cc, ARCH_CPU_PROMPT)
+        lg, cg = T.decode_step(cfg, gpu, forced.to(dev), cg, ARCH_CPU_PROMPT)
+        logits(lg, lc)
+        states(cc, cg)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, SSM_CPU_TRAIN_S + 1)).astype(np.int64))
+        step = make_train_step(cfg, lr=0.05)
+        pc, mc = step(cpu, T.param_dict(cpu), {"tokens": toks})
+        pg, mg = step(gpu, T.param_dict(gpu), {"tokens": toks.to(dev)})
+        pdiff = max((pg[k].cpu() - pc[k]).abs().max().item() for k in pc)
+        pbar = max(over(pg[k], pc[k], MOE_CPU_TOL) for k in pc)
+        loss = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
+        log(f"ssm vs CPU: {name} (reduced, f32): prefill of "
+            f"{ARCH_CPU_PROMPT} tokens and one decode step, logits max "
+            f"|diff| {read['logits']}, / bar ({SSM_CPU_TOL}) "
+            f"{read['logits / bar']}; state leaves, max |diff| / bar (atol "
+            f"max(1e-5, {SSM_STATE_SCALE} x max |leaf|)) "
+            f"{read['states / bar']}; one train step at S {SSM_CPU_TRAIN_S}"
+            f": params max |diff| {pdiff}, / bar ({MOE_CPU_TOL}) {pbar}, "
+            f"loss {float(mg['loss'])} against {float(mc['loss'])}")
+        check(max(read["logits / bar"]) <= 1.0
+              and max(read["states / bar"].values()) <= 1.0
+              and pbar <= 1.0 and loss <= 1e-5,
+              f"ssm vs CPU: {name} past a bar: {read}, params {pbar}, loss "
+              f"relative {loss}")
+
+
+def phase_ssm(dev):
+    """The SSM archs on the card.  Returns ({path: K4 launches}, {path: K5
+    launches}, K3 launches)."""
+    paths = ssm_rwkv(dev)
+    mark("ssm: rwkv6-1.6b serving")
+    paths.update(ssm_jamba(dev))
+    mark("ssm: jamba-v0.1-52b serving")
+    k3 = ssm_train(dev)
+    ssm_vs_cpu(dev)
+    mark("ssm: training, card against CPU")
     return ({p: k4 for p, (k4, _) in paths.items()},
             {p: k5 for p, (_, k5) in paths.items()}, k3)
 
@@ -4569,8 +4997,14 @@ def main() -> int:
     # training side (K3 once a step under each checkpoint policy)
     moe_k4, moe_k5, moe_k3 = phase_moe(dev)
     mark("moe")
+    # the SSM archs: jamba's attention layer takes K5 and K4, rwkv6 neither;
+    # K3 once a training step
+    ssm_k4, ssm_k5, ssm_k3 = phase_ssm(dev)
+    mark("ssm")
     arch_k4.update(moe_k4)
     arch_k5.update(moe_k5)
+    arch_k4.update(ssm_k4)
+    arch_k5.update(ssm_k5)
     k4["launches_by_path"] = {"serve smollm-360m": k4["launches"], **arch_k4}
     k5["launches_by_path"] = {"serve smollm-360m": k5["launches"], **arch_k5}
     k4["launches"] += sum(arch_k4.values())
@@ -4581,8 +5015,9 @@ def main() -> int:
     mark("train")
     k3["launches_by_path"] = {"train smollm-360m": k3["launches"],
                               "moe train deepseek-v2-lite-16b 5 layers":
-                              moe_k3}
-    k3["launches"] += moe_k3
+                              moe_k3,
+                              "ssm train rwkv6-1.6b 4 layers": ssm_k3}
+    k3["launches"] += moe_k3 + ssm_k3
     # F1 is a fixture: no main path launches it
     f1_main = racy_kernel.KERNEL.launches - f1_before
     check(f1_main == 0,

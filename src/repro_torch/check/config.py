@@ -53,6 +53,10 @@ DEVICE_LOOP_FUNCTIONS = {
     "repro_torch/models/attention.py": ("attention_decode", "mla_fwd",
                                         "mla_decode"),
     "repro_torch/models/moe.py": ("_router", "moe_fwd", "moe_decode"),
+    "repro_torch/models/rwkv.py": ("time_mix_fwd", "time_mix_decode",
+                                   "channel_mix_fwd", "channel_mix_decode"),
+    "repro_torch/models/mamba.py": ("mamba_fwd", "mamba_decode"),
+    "repro_torch/models/modules.py": ("chunked_scan",),
     "repro_torch/optim/optimizers.py": ("sgd", "momentum_sgd", "adam",
                                         "apply_updates", "global_norm",
                                         "clip_by_global_norm"),

@@ -5,9 +5,7 @@ Every architecture is a frozen ``ArchConfig`` registered under its public id
 (``repro_torch.models.transformer``).  ``reduced()`` returns the smoke-test
 variant (2 layers, d_model<=512, <=4 experts).
 
-The port registers the architectures whose layers it has; the others that
-``repro`` registers raise ``NotImplementedError`` from ``get_config``,
-naming the ROADMAP item that ports them.
+The port registers every architecture ``repro`` registers.
 """
 from __future__ import annotations
 
@@ -225,17 +223,8 @@ def register(name: str):
     return deco
 
 
-# registered by ``repro`` but not ported yet: their mixers (Mamba, RWKV)
-# and LayerNorm stacks have no port
-UNPORTED = ("jamba-v0.1-52b", "rwkv6-1.6b")
-
-
 def get_config(name: str) -> ArchConfig:
     _ensure_loaded()
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP queue 1, item 12: "
-            f"the transformer extension); ported: {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
@@ -254,8 +243,8 @@ def _ensure_loaded():
     if _LOADED:
         return
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_lite_16b, internvl2_2b, llama3_405b,
+        deepseek_v2_lite_16b, internvl2_2b, jamba_v01_52b, llama3_405b,
         llama4_scout_17b_a16e, mistral_nemo_12b, musicgen_large, qwen1_5_4b,
-        smollm_360m,
+        rwkv6_1_6b, smollm_360m,
     )
     _LOADED = True

@@ -15,7 +15,10 @@ leaf (the untied ``lm_head.w`` among them) keeps its name and shape;
 ``prefix`` ``ModuleList`` (``prefix.<i>.mlp.w_gate``).  MoE leaves
 (``mlp.router``, float32 in every model, ``mlp.w_gate [E, d, f]``,
 ``mlp.shared.*``) and MLA leaves (``mixer.w_dkv``, ``mixer.kv_norm.scale``,
-...) keep ``repro``'s names and shapes.  A
+...) keep ``repro``'s names and shapes, as do the SSM layers' (Mamba's
+``mixer.in_proj`` ... ``mixer.A_log``/``mixer.D``, RWKV's ``mixer.w0``,
+``mixer.u``, ``mlp.mu`` ..., float32 where ``repro``'s are) and
+LayerNorm's ``scale`` and ``bias``.  A
 checkpoint of a transformer (either package's) holds
 that nested tree: ``checkpointing.load_checkpoint(path,
 transformer_params_to_numpy(model))`` then ``transformer_params_from_jax``.

@@ -42,13 +42,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, MIXER_ATTN_GLOBAL
+from repro_torch.configs.base import (ArchConfig, MIXER_ATTN,
+                                      MIXER_ATTN_GLOBAL)
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.swa_attention.ops import swa_attention
 from repro_torch.models.modules import (RMSNorm, apply_rope, dense_init,
                                         rope_freqs)
 
-UNPORTED = "not ported yet (ROADMAP queue 1, item 12)"
 NEG_INF = -1e30
 BLOCKED_SDPA_THRESHOLD = 1024   # S above which the q-blocked path is used
 SDPA_BLOCK_Q = 128
@@ -66,9 +66,11 @@ def mask_spec_for(cfg, mixer_kind):
 
 
 def ring_specs(cfg):
-    """(mask_kind, width) of each sublayer of a period whose cache is a
-    ring (``swa`` or ``chunk``); empty for full attention throughout."""
-    specs = (mask_spec_for(cfg, sub.mixer) for sub in cfg.sublayers())
+    """(mask_kind, width) of each attention sublayer of a period whose
+    cache is a ring (``swa`` or ``chunk``); empty for full attention
+    throughout and for MLA, Mamba and RWKV mixers."""
+    specs = (mask_spec_for(cfg, sub.mixer) for sub in cfg.sublayers()
+             if sub.mixer in (MIXER_ATTN, MIXER_ATTN_GLOBAL))
     return [(kind, width) for kind, width in specs if kind != "full"]
 
 

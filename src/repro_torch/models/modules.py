@@ -4,14 +4,16 @@
 Parameters keep ``repro``'s shapes (a weight is ``[in_dim, *out_shape]``),
 so weights convert between the packages by a checked copy
 (:mod:`repro_torch.convert`).  Norm statistics and RoPE angles are computed
-in float32 whatever the parameter dtype.  ``layernorm`` and
-``chunked_scan`` come with the SSM layers (ROADMAP queue 1, item 12).
+in float32 whatever the parameter dtype.  ``layernorm`` normalises the SSM
+stacks (``family == "ssm"``); ``chunked_scan`` runs the Mamba and RWKV
+recurrences.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(generator, in_dim, out_shape, dtype, scale=None,
@@ -52,6 +54,31 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x, self.eps)
 
 
+def layernorm(scale, bias, x, eps):
+    """Population variance (``jnp.var``), statistics in float32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """``scale`` (ones) and ``bias`` (zeros), ``repro``'s
+    ``layernorm_init`` leaves."""
+
+    def __init__(self, dim, eps, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device),
+                                 requires_grad=False)
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x, self.eps)
+
+
 def embed_lookup(table, tokens):
     return table[tokens]
 
@@ -76,6 +103,43 @@ def apply_rope(x, positions, freqs):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# scans
+# ---------------------------------------------------------------------------
+def _scan(body, carry, xs):
+    """``lax.scan``: ``body(carry, x_t) -> (carry, y_t)`` over the leading
+    axis of every tensor of the tuple ``xs``; returns (carry, the y_t
+    stacked)."""
+    ys = []
+    for t in range(xs[0].shape[0]):
+        carry, y = body(carry, tuple(a[t] for a in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def chunked_scan(body, carry, xs, chunk: int):
+    """``repro``'s ``chunked_scan``: the scan in chunks of ``chunk`` steps,
+    each chunk under a checkpoint that saves nothing but its inputs, so the
+    backward keeps one carry per chunk and recomputes the chunk's steps
+    (O(S / chunk + chunk) live states).  A length that ``chunk`` does not
+    divide, or that is at most ``chunk``, runs as one plain scan.
+
+    ``body`` must read no module attribute: a chunk's recomputation in the
+    backward runs outside the ``functional_call`` that substituted the
+    parameters, so every tensor it needs is bound into it (or in ``xs``)
+    beforehand."""
+    length = xs[0].shape[0]
+    if length % chunk != 0 or length <= chunk:
+        return _scan(body, carry, xs)
+    ys = []
+    for start in range(0, length, chunk):
+        carry, y = checkpoint(_scan, body, carry,
+                              tuple(a[start:start + chunk] for a in xs),
+                              use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------

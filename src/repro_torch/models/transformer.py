@@ -4,11 +4,13 @@
 ``Transformer`` holds ``embed``, ``final_norm``, ``stack``, an
 ``nn.ModuleList`` of the ``n_periods`` period blocks, and with
 ``first_k_dense`` a ``prefix`` ``ModuleList`` of dense sublayers run before
-the stack on every path; block i holds ``sub{j}`` with ``ln1``, ``ln2``,
-``mixer`` (GQA ``Attention`` or ``MLA``) and ``mlp`` (``SwiGLU`` or
-``MoE``), as ``repro``'s pytree does with a leading period axis on
-``stack``.  ``prefill`` builds the cache and ``decode_step`` takes one
-token against it.
+the stack on every path; block i holds ``sub{j}`` with ``ln1``, ``ln2``
+(``LayerNorm`` for an SSM family, ``RMSNorm`` otherwise, as is
+``final_norm``), ``mixer`` (GQA ``Attention``, ``MLA``, ``mamba.Mamba`` or
+``rwkv.TimeMix``) and ``mlp`` (``SwiGLU``, ``MoE`` or ``rwkv.ChannelMix``),
+as ``repro``'s pytree does with a leading period axis on ``stack``.
+``prefill`` builds the cache and ``decode_step`` takes one token against
+it.
 
 Training differentiates with respect to a ``{name: tensor}`` dict of the
 parameters (``param_dict``): ``apply_params`` runs ``forward`` or
@@ -26,20 +28,23 @@ of its own inside the period's (``remat_sublayer``), or none
 function, so the recomputation in the backward sees the same tensors.
 
 The cache is ``{"stack": {"sub0": {"mixer": {...}}}, "prefix": [...]}`` as
-in ``repro``: each stack leaf ``[n_periods, B, S, ...]``, each prefix leaf
-``[B, S, ...]``; GQA leaves ``k``/``v`` ``[.., S, Kv, hd]``, S each
+in ``repro``: each stack leaf ``[n_periods, B, ...]``, each prefix leaf
+``[B, ...]``; GQA leaves ``k``/``v`` ``[.., S, Kv, hd]``, S each
 sublayer's own (the maximum context for full attention, the ring's width
 for a sliding-window or chunked one: ``attention.init_attn_cache``), MLA
-leaves ``c_kv [.., S, lora]`` and ``k_rope [.., S, rope]``.
-``decode_step`` writes the cache in place and returns the same dict.
+leaves ``c_kv [.., S, lora]`` and ``k_rope [.., S, rope]``.  Mamba and
+RWKV sublayers hold state with no sequence axis: Mamba ``conv [.., dc - 1,
+di]`` and ``ssm [.., di, ds]``, the time-mix ``wkv [.., H, N, N]`` and
+``shift [.., d]``, and beside ``mixer`` an ``mlp`` group with the
+channel-mix's ``shift [.., d]``.  ``decode_step`` writes the cache in
+place (a state leaf's new value copied into its period's slice) and
+returns the same dict.
 
 A vision config (``frontend="vision"``) prepends ``frontend_embeds``
 ``[B, n_frontend_tokens, d]`` to the token embeddings, as ``repro``'s
 ``_embed_inputs`` does, and raises ``ValueError`` without them; an audio
 config's codes are ordinary token ids.
 
-Mamba and RWKV sublayers and LayerNorm stacks raise
-``NotImplementedError``: ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
@@ -52,43 +57,52 @@ from torch.utils.checkpoint import (checkpoint,
                                     noop_context_fn)
 
 from repro_torch.configs.base import (ArchConfig, MIXER_ATTN,
-                                      MIXER_ATTN_GLOBAL, MIXER_MLA, MLP_DENSE,
-                                      MLP_MOE, SubLayer)
+                                      MIXER_ATTN_GLOBAL, MIXER_MAMBA,
+                                      MIXER_MLA, MIXER_RWKV, MLP_MOE,
+                                      MLP_RWKV, SubLayer)
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
-from repro_torch.models.modules import (RMSNorm, SwiGLU, dense_init,
-                                        embed_init, embed_lookup)
+from repro_torch.models import mamba, moe, rwkv
+from repro_torch.models.modules import (LayerNorm, RMSNorm, SwiGLU,
+                                        dense_init, embed_init, embed_lookup)
 
-UNPORTED = attn.UNPORTED
+# mixers whose cache is a state with no sequence axis
+SSM_MIXERS = (MIXER_MAMBA, MIXER_RWKV)
+_MIXERS = {MIXER_ATTN: attn.Attention, MIXER_ATTN_GLOBAL: attn.Attention,
+           MIXER_MLA: attn.MLA, MIXER_MAMBA: mamba.Mamba,
+           MIXER_RWKV: rwkv.TimeMix}
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    for sub in cfg.sublayers():
-        if sub.mixer not in (MIXER_ATTN, MIXER_ATTN_GLOBAL, MIXER_MLA):
-            raise NotImplementedError(
-                f"{cfg.name}: {sub.mixer!r} mixers are {UNPORTED}")
-        if sub.mlp not in (MLP_DENSE, MLP_MOE):
-            raise NotImplementedError(
-                f"{cfg.name}: {sub.mlp!r} MLPs are {UNPORTED}")
-    if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: LayerNorm stacks are "
-                                  f"{UNPORTED}")
+def _norm(cfg, dtype, device):
+    """``repro``'s ``_norm_init``: LayerNorm for an SSM family, RMSNorm
+    otherwise."""
+    return (LayerNorm if cfg.family == "ssm" else RMSNorm)(
+        cfg.d_model, cfg.norm_eps, dtype, device)
+
+
+def is_state(sub: SubLayer, group: str) -> bool:
+    """Whether a sublayer's cache group (``"mixer"`` or ``"mlp"``) is a
+    state with no sequence axis: a Mamba or RWKV mixer's, or the
+    channel-mix's shift."""
+    return group == "mlp" or sub.mixer in SSM_MIXERS
 
 
 class SubLayerBlock(nn.Module):
-    """One (mixer, MLP) pair with its two RMSNorms: the mixer GQA
-    ``Attention`` or ``MLA``, the MLP ``SwiGLU`` or ``MoE``, as ``sub``
-    says."""
+    """One (mixer, MLP) pair with its two norms: the mixer GQA
+    ``Attention``, ``MLA``, ``Mamba`` or ``TimeMix``, the MLP ``SwiGLU``,
+    ``MoE`` or ``ChannelMix``, as ``sub`` says."""
 
     def __init__(self, cfg, sub: SubLayer, dtype, device):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
-        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
-        self.mixer = (attn.MLA if sub.mixer == MIXER_MLA
-                      else attn.Attention)(cfg, dtype, device)
-        self.mlp = (moe.MoE(cfg, dtype, device) if sub.mlp == MLP_MOE
-                    else SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
+        self.ln1 = _norm(cfg, dtype, device)
+        self.ln2 = _norm(cfg, dtype, device)
+        self.mixer = _MIXERS[sub.mixer](cfg, dtype, device)
+        if sub.mlp == MLP_MOE:
+            self.mlp = moe.MoE(cfg, dtype, device)
+        elif sub.mlp == MLP_RWKV:
+            self.mlp = rwkv.ChannelMix(cfg, dtype, device)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
 
     def reset_parameters(self, generator):
         self.mixer.reset_parameters(generator)
@@ -146,9 +160,8 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, dtype=torch.float32, device=None):
         super().__init__()
-        _check_supported(cfg)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dtype, device)
+        self.final_norm = _norm(cfg, dtype, device)
         self.stack = nn.ModuleList(
             PeriodBlock(cfg, dtype, device) for _ in range(cfg.n_periods))
         if cfg.first_k_dense:
@@ -168,7 +181,8 @@ class Transformer(nn.Module):
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> Transformer:
     """``repro``'s init distributions (normal embeddings times 0.02,
-    variance-scaled dense weights, unit norm scales), drawn from
+    variance-scaled dense weights, unit norm scales, zero LayerNorm biases,
+    the SSM layers' own), drawn from
     ``generator`` on its own device and placed on ``device`` (``None``: the
     card)."""
     device = resolve_device(device)
@@ -198,22 +212,33 @@ def _prefix(model):
 def _apply_sublayer(cfg, p, sub: SubLayer, h, positions, train=False):
     """Prefill (``train=False``: GQA through K5) or training
     (``train=True``: the differentiable attention).  Returns (h, aux,
-    cache): ``aux`` the MoE loss (None for a dense MLP), the training
-    cache ``{"mixer": None}``."""
+    cache): ``aux`` the MoE loss (None for another MLP), the cache
+    ``{"mixer": ...}`` and, after a channel-mix, ``{"mlp": ...}`` (the
+    training cache ``{"mixer": None}``)."""
     x = p.ln1(h)
     if sub.mixer == MIXER_MLA:
         y, c = attn.mla_fwd(cfg, p.mixer, x, positions)
+    elif sub.mixer == MIXER_MAMBA:
+        y, c = mamba.mamba_fwd(cfg, p.mixer, x)
+    elif sub.mixer == MIXER_RWKV:
+        y, c = rwkv.time_mix_fwd(cfg, p.mixer, x)
     else:
         kind, width = attn.mask_spec_for(cfg, sub.mixer)
         y, c = attn.attention_fwd(cfg, p.mixer, x, positions, kind, width,
                                   train=train)
+    cache = {"mixer": None if train else c}
     h = h + y
     x = p.ln2(h)
+    aux = None
     if sub.mlp == MLP_MOE:
         y, aux = moe.moe_fwd(cfg, p.mlp, x)
+    elif sub.mlp == MLP_RWKV:
+        y, cm = rwkv.channel_mix_fwd(cfg, p.mlp, x)
+        if not train:
+            cache["mlp"] = cm
     else:
-        y, aux = p.mlp(x), None
-    return h + y, aux, {"mixer": None if train else c}
+        y = p.mlp(x)
+    return h + y, aux, cache
 
 
 def _functional(block, params, *args):
@@ -223,18 +248,36 @@ def _functional(block, params, *args):
     return torch.func.functional_call(block, params, args)
 
 
+def _set_state(leaves, new):
+    """Copy a state's new value into its leaves (views into the stacked
+    cache) in place."""
+    for k, v in new.items():
+        leaves[k].copy_(v)
+
+
 def _apply_sublayer_decode(cfg, p, sub: SubLayer, h, cache, pos, slots):
     """One-token path; writes ``cache`` in place.  Returns h."""
     x = p.ln1(h)
     if sub.mixer == MIXER_MLA:
         y, _ = attn.mla_decode(cfg, p.mixer, x, cache["mixer"], pos)
+    elif sub.mixer in SSM_MIXERS:
+        fn = (mamba.mamba_decode if sub.mixer == MIXER_MAMBA
+              else rwkv.time_mix_decode)
+        y, new = fn(cfg, p.mixer, x, cache["mixer"])
+        _set_state(cache["mixer"], new)
     else:
         kind, width = attn.mask_spec_for(cfg, sub.mixer)
         y, _ = attn.attention_decode(cfg, p.mixer, x, cache["mixer"], pos,
                                      kind, width, slots)
     h = h + y
     x = p.ln2(h)
-    y = moe.moe_decode(cfg, p.mlp, x)[0] if sub.mlp == MLP_MOE else p.mlp(x)
+    if sub.mlp == MLP_MOE:
+        y = moe.moe_decode(cfg, p.mlp, x)[0]
+    elif sub.mlp == MLP_RWKV:
+        y, new = rwkv.channel_mix_decode(cfg, p.mlp, x, cache["mlp"])
+        _set_state(cache["mlp"], new)
+    else:
+        y = p.mlp(x)
     return h + y
 
 
@@ -386,9 +429,10 @@ def prefill(cfg: ArchConfig, model: Transformer, tokens,
         for j, sub in enumerate(subs):
             h, _, c = _apply_sublayer(cfg, getattr(period, f"sub{j}"), sub,
                                       h, positions)
-            per_layer[f"sub{j}"].append(c["mixer"])
-    stack = {name: {"mixer": {leaf: torch.stack([c[leaf] for c in cs])
-                              for leaf in cs[0]}}
+            per_layer[f"sub{j}"].append(c)
+    stack = {name: {group: {leaf: torch.stack([c[group][leaf] for c in cs])
+                            for leaf in cs[0][group]}
+                    for group in cs[0]}
              for name, cs in per_layer.items()}
     cache = {"stack": stack}
     if prefix:
@@ -399,9 +443,9 @@ def prefill(cfg: ArchConfig, model: Transformer, tokens,
 
 def _slots(cfg, mixer_kind, leaves, pos):
     """A GQA sublayer's ``attention.ring_slots`` for this step (None for
-    MLA, which has no ring); ``leaves`` its cache, the sequence axis
-    second to last but two (``k [.., S, Kv, hd]``)."""
-    if mixer_kind == MIXER_MLA:
+    MLA, Mamba and RWKV, which have no ring); ``leaves`` its cache, the
+    sequence axis second to last but two (``k [.., S, Kv, hd]``)."""
+    if mixer_kind == MIXER_MLA or mixer_kind in SSM_MIXERS:
         return None
     return attn.ring_slots(pos, attn.mask_spec_for(cfg, mixer_kind)[0],
                            leaves["k"].shape[-3])
@@ -409,8 +453,9 @@ def _slots(cfg, mixer_kind, leaves, pos):
 
 def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
     """token: [B, 1] int; ``pos``: an int, a 0-d tensor or a per-sequence
-    ``[B]`` tensor of absolute positions.  Writes the new K/V (or MLA
-    latents) into ``cache`` in place.  Returns (logits [B, 1, V], cache)."""
+    ``[B]`` tensor of absolute positions.  Writes the new K/V (MLA
+    latents, SSM states) into ``cache`` in place.  Returns (logits [B, 1,
+    V], cache)."""
     h = embed_lookup(model.embed.table, token)
     pos = attn.as_positions(pos, h.device)
     pre = cfg.prefix_sublayer()
@@ -423,8 +468,8 @@ def decode_step(cfg: ArchConfig, model: Transformer, token, cache, pos):
              for j, sub in enumerate(subs)]
     for i, period in enumerate(model.stack):
         for j, sub in enumerate(subs):
-            leaves = cache["stack"][f"sub{j}"]["mixer"]
-            layer = {"mixer": {k: v[i] for k, v in leaves.items()}}
+            layer = {group: {k: v[i] for k, v in leaves.items()}
+                     for group, leaves in cache["stack"][f"sub{j}"].items()}
             h = _apply_sublayer_decode(cfg, getattr(period, f"sub{j}"),
                                        sub, h, layer, pos, slots[j])
     h = model.final_norm(h)
@@ -446,42 +491,64 @@ def _seq_len(cfg, mixer_kind, max_seq):
     return min(width, max_seq), False
 
 
-def _mixer_cache(cfg, mixer_kind, batch, max_seq, dtype, device):
-    if mixer_kind == MIXER_MLA:
-        return attn.init_mla_cache(cfg, batch, max_seq, dtype, device)
-    kind, width = attn.mask_spec_for(cfg, mixer_kind)
-    return attn.init_attn_cache(cfg, batch, max_seq, kind, width, dtype,
-                                device)
+def _sublayer_cache(cfg, sub, batch, max_seq, dtype, device):
+    """``repro``'s ``_sublayer_cache``: the mixer's zero cache and, after a
+    channel-mix, its zero ``shift``."""
+    if sub.mixer == MIXER_MLA:
+        c = attn.init_mla_cache(cfg, batch, max_seq, dtype, device)
+    elif sub.mixer == MIXER_MAMBA:
+        c = mamba.init_mamba_cache(cfg, batch, dtype, device)
+    elif sub.mixer == MIXER_RWKV:
+        r = rwkv.init_rwkv_cache(cfg, batch, dtype, device)
+        c = {"wkv": r["wkv"], "shift": r["shift_tm"]}
+    else:
+        kind, width = attn.mask_spec_for(cfg, sub.mixer)
+        c = attn.init_attn_cache(cfg, batch, max_seq, kind, width, dtype,
+                                 device)
+    cache = {"mixer": c}
+    if sub.mlp == MLP_RWKV:
+        cache["mlp"] = {"shift": torch.zeros((batch, cfg.d_model),
+                                             dtype=dtype, device=device)}
+    return cache
 
 
 def init_cache(cfg: ArchConfig, batch, max_seq, dtype=torch.float32,
                device=None):
     """Zero caches on ``device`` (``None``: the card): each stack leaf
-    ``[n_periods, batch, S, ...]``, each prefix leaf ``[batch, S, ...]``,
-    S = ``max_seq`` for full attention and MLA, ``min(width, max_seq)``
-    for a ring."""
-    _check_supported(cfg)
+    ``[n_periods, batch, ...]``, each prefix leaf ``[batch, ...]``; a
+    sequence axis of ``max_seq`` for full attention and MLA, ``min(width,
+    max_seq)`` for a ring, none for an SSM state (float32 ``wkv`` and
+    ``ssm``, the rest in ``dtype``)."""
     device = resolve_device(device)
     stack = {}
     for j, sub in enumerate(cfg.sublayers()):
-        c = _mixer_cache(cfg, sub.mixer, batch, max_seq, dtype, device)
-        stack[f"sub{j}"] = {"mixer": {
-            k: v.new_zeros((cfg.n_periods, *v.shape)) for k, v in c.items()}}
+        c = _sublayer_cache(cfg, sub, batch, max_seq, dtype, device)
+        stack[f"sub{j}"] = {group: {
+            k: v.new_zeros((cfg.n_periods, *v.shape)) for k, v in g.items()}
+            for group, g in c.items()}
     cache = {"stack": stack}
     if cfg.first_k_dense:
         cache["prefix"] = [
-            {"mixer": _mixer_cache(cfg, cfg.prefix_sublayer().mixer, batch,
-                                   max_seq, dtype, device)}
+            _sublayer_cache(cfg, cfg.prefix_sublayer(), batch, max_seq,
+                            dtype, device)
             for _ in range(cfg.first_k_dense)]
     return cache
 
 
 def _grow(leaves, lead, batch, seq, grows, dtype, where):
     """One sublayer's cache leaves at ``seq`` positions: a growing leaf
-    zero-padded at the tail into a new tensor, a ring passed through."""
+    zero-padded at the tail into a new tensor, a ring passed through, a
+    state (``seq`` None) passed through as it is (float32 ``wkv`` and
+    ``ssm`` stay float32, as ``repro``'s pad leaves them)."""
     out = {}
     for k, c in leaves.items():
         n = len(lead)
+        if seq is None:
+            if tuple(c.shape[:n + 1]) != (*lead, batch):
+                raise ValueError(f"grow_cache: {where} {k} {tuple(c.shape)} "
+                                 f"does not fit {(*lead, batch)}")
+            out[k] = c
+            continue
         target = (*lead, batch, seq, *c.shape[n + 2:])
         if tuple(c.shape[:n + 1]) != target[:n + 1] or c.shape[n + 1] > seq \
                 or (not grows and c.shape[n + 1] != seq):
@@ -500,20 +567,24 @@ def grow_cache(cfg: ArchConfig, cache, batch, max_seq, dtype=torch.float32):
     """Pad a prefill-produced cache out to ``max_seq`` decode capacity:
     full-attention and MLA caches grow along the sequence axis,
     zero-padded at the tail (future slots), into new tensors; ring caches
-    are already in decode layout and pass through (as ``dtype``).  Raises
+    are already in decode layout and pass through (as ``dtype``), SSM
+    states pass through unchanged.  Raises
     ``ValueError`` where a leaf does not fit, as a ring of ``width`` slots
     does not fit a ``max_seq`` below it (``repro``'s pad fails there
     too)."""
-    out = {"stack": {}}
-    for j, sub in enumerate(cfg.sublayers()):
-        seq, grows = _seq_len(cfg, sub.mixer, max_seq)
-        out["stack"][f"sub{j}"] = {"mixer": _grow(
-            cache["stack"][f"sub{j}"]["mixer"], (cfg.n_periods,), batch, seq,
-            grows, dtype, f"sub{j}")}
+    def grow(sub, c, lead, where):
+        out = {}
+        for group, leaves in c.items():
+            seq, grows = ((None, False) if is_state(sub, group)
+                          else _seq_len(cfg, sub.mixer, max_seq))
+            out[group] = _grow(leaves, lead, batch, seq, grows, dtype,
+                               f"{where} {group}")
+        return out
+    out = {"stack": {f"sub{j}": grow(sub, cache["stack"][f"sub{j}"],
+                                     (cfg.n_periods,), f"sub{j}")
+                     for j, sub in enumerate(cfg.sublayers())}}
     if "prefix" in cache:
-        seq, grows = _seq_len(cfg, cfg.prefix_sublayer().mixer, max_seq)
-        out["prefix"] = [{"mixer": _grow(c["mixer"], (), batch, seq, grows,
-                                         dtype, f"prefix {i}")}
+        out["prefix"] = [grow(cfg.prefix_sublayer(), c, (), f"prefix {i}")
                          for i, c in enumerate(cache["prefix"])]
     return out
 

@@ -19,7 +19,10 @@ construction rather than mid-run.  Audio configs serve their codes as
 token ids.  MoE and MLA configs (deepseek-v2-lite-16b) serve as dense ones
 do: the MLA latents are written at each slot's own position by
 ``attention.mla_decode``, and a ``first_k_dense`` prefix's cache rows are
-written beside the stack's.
+written beside the stack's.  SSM configs (rwkv6-1.6b, jamba-v0.1-52b)
+hold a state per slot with no sequence axis: admission copies the
+prompt's final state into the slot's row whole, and each tick advances
+every slot's state, free slots too.
 """
 from __future__ import annotations
 
@@ -99,25 +102,38 @@ class BatchedServer:
                                  f"exceeds max_seq={self.max_seq}")
             tokens = torch.from_numpy(req.prompt[None]).to(self.device)
             logits, cache = self._prefill(self.model, {"tokens": tokens})
-            # the slot's whole cache row: the prompt's entries, zeros past
-            # it (the values of repro's grow-then-set); stack leaves carry
-            # the period axis first, prefix leaves (first_k_dense) none
-            for name, sub in cache["stack"].items():
-                for leaf, c in sub["mixer"].items():
-                    row = self.cache["stack"][name]["mixer"][leaf][:, slot]
-                    row[:, :P] = c[:, 0]
-                    row[:, P:] = 0
+            # the slot's whole cache row (the values of repro's
+            # grow-then-set): a sequence leaf's prompt entries and zeros
+            # past them, a state leaf (SSM mixers, the channel-mix shift)
+            # copied whole; stack leaves carry the period axis first,
+            # prefix leaves (first_k_dense) none
+            for j, sub in enumerate(self.cfg.sublayers()):
+                self._write_row(sub, cache["stack"][f"sub{j}"],
+                                self.cache["stack"][f"sub{j}"], slot, P, 1)
             for i, layer in enumerate(cache.get("prefix", ())):
-                for leaf, c in layer["mixer"].items():
-                    row = self.cache["prefix"][i]["mixer"][leaf][slot]
-                    row[:P] = c[0]
-                    row[P:] = 0
+                self._write_row(self.cfg.prefix_sublayer(), layer,
+                                self.cache["prefix"][i], slot, P, 0)
             # repro-check: waive[BND003] one sync per admit, as in repro
             first = int(torch.argmax(logits[0, -1]))
             req.out.append(first)
             self.slot_req[slot] = req
             self.slot_pos[slot] = P
             self._last_tokens[slot, 0] = first
+
+    @staticmethod
+    def _write_row(sub, new, cache, slot, P, lead):
+        """Write a prefill's one-sequence cache ``new`` of one sublayer
+        into row ``slot`` of ``cache`` (``lead`` axes before the batch)."""
+        for group, leaves in new.items():
+            for leaf, c in leaves.items():
+                row = cache[group][leaf].select(lead, slot)
+                one = c.select(lead, 0)
+                if T.is_state(sub, group):
+                    row.copy_(one)
+                    continue
+                seq = (slice(None),) * lead
+                row[seq + (slice(0, P),)] = one
+                row[seq + (slice(P, None),)] = 0
 
     def tick(self):
         """One decode step for every slot (free slots ride along)."""

@@ -20,6 +20,7 @@ import torch
 from _torch_archs import CASES, arch_pair, cache_leaves
 from _torch_threads import one_thread  # noqa: F401
 from repro.configs import get_config as jget_config
+from repro.configs import list_archs as jlist_archs
 from repro.configs import mistral_nemo_12b as jmistral
 from repro.models import frontends as jfrontends
 from repro.models import transformer as jT
@@ -44,10 +45,14 @@ def _fields(cfg):
 
 
 def test_registry_lists_the_dense_archs():
-    """The dense archs, smollm-360m and (since the MoE + MLA slice)
-    deepseek-v2-lite-16b and llama4-scout-17b-a16e."""
+    """The dense archs, smollm-360m, (since the MoE + MLA slice)
+    deepseek-v2-lite-16b and llama4-scout-17b-a16e, and (since the SSM
+    slice) rwkv6-1.6b and jamba-v0.1-52b: every arch ``repro``
+    registers."""
     moe = {"deepseek-v2-lite-16b", "llama4-scout-17b-a16e"}
-    assert set(NEW_ARCHS) | {"smollm-360m"} | moe == set(list_archs())
+    ssm = {"rwkv6-1.6b", "jamba-v0.1-52b"}
+    assert set(NEW_ARCHS) | {"smollm-360m"} | moe | ssm == set(list_archs())
+    assert set(list_archs()) == set(jlist_archs())
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

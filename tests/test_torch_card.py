@@ -1763,3 +1763,151 @@ def test_optimizers_on_card_match_cpu(cuda_device):
         for k in params:
             assert torch.allclose(out[1][k].cpu(), out[0][k], rtol=1e-6,
                                   atol=1e-7), k
+
+
+# ---------------------------------------------------------------------------
+# the SSM layers (Mamba, RWKV6) on the card
+# ---------------------------------------------------------------------------
+SSM_ARCHS = {"jamba": "jamba-v0.1-52b", "rwkv": "rwkv6-1.6b"}
+# outputs and logits: the port's bar against repro on the CPU
+# (tests/_torch_archs.py's LOGIT_TOL), as chip_smoke.py's SSM_CPU_TOL: the
+# time-mix's group norm (eps 64e-5) scales up its state's rounding, and
+# reduced rwkv6's prefill logits differ by 2.25e-5 card against CPU (H100
+# 80GB HBM3, 700 W); a state leaf within atol max(1e-5, 4e-6 x its largest
+# |value|), as chip_smoke.py's SSM_STATE_SCALE (the wkv state, ~50 after 81
+# steps, differs by 1.04e-6 of that card against CPU)
+SSM_CPU_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _state_close(got, want):
+    """(whether ``got`` is within the state bar of ``want``, max |diff|
+    over the bar)."""
+    atol = max(1e-5, 4e-6 * want.abs().max().item())
+    err = (got.cpu() - want).abs().max().item() / atol
+    return err <= 1.0, err
+
+
+def _ssm_module(kind):
+    """(reduced cfg, the module on the CPU from a seed, its fwd, its
+    decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba, rwkv
+    arch, cls, fwd, dec = {
+        "mamba": ("jamba", mamba.Mamba, mamba.mamba_fwd, mamba.mamba_decode),
+        "time_mix": ("rwkv", rwkv.TimeMix, rwkv.time_mix_fwd,
+                     rwkv.time_mix_decode),
+        "channel_mix": ("rwkv", rwkv.ChannelMix, rwkv.channel_mix_fwd,
+                        rwkv.channel_mix_decode)}[kind]
+    cfg = get_config(SSM_ARCHS[arch]).reduced()
+    m = cls(cfg, device="cpu")
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    return cfg, m, fwd, dec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mamba", "time_mix", "channel_mix"])
+def test_ssm_modules_on_card_match_cpu(cuda_device, kind):
+    """Each SSM module's forward at S 128 (two checkpointed chunks of the
+    scan) and three decode steps from its cache, card against CPU, the
+    states included."""
+    cfg, cpu, fwd, dec = _ssm_module(kind)
+    gpu = _to_card(cpu, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 128, cfg.d_model, generator=gen) * 0.5
+    yc, cc = fwd(cfg, cpu, x)
+    yg, cg = fwd(cfg, gpu, x.to(cuda_device))
+    assert torch.allclose(yg.cpu(), yc, **SSM_CPU_TOL)
+    for i in range(3):
+        x = torch.randn(2, 1, cfg.d_model, generator=gen) * 0.5
+        yc, cc = dec(cfg, cpu, x, cc)
+        yg, cg = dec(cfg, gpu, x.to(cuda_device), cg)
+        assert torch.allclose(yg.cpu(), yc, **SSM_CPU_TOL), i
+        for k in cc:
+            ok, err = _state_close(cg[k], cc[k])
+            assert ok, (i, k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+def test_ssm_archs_on_card_match_cpu(cuda_device, arch):
+    """Reduced jamba ([mamba + dense, attn + MoE]: K5 once per prefill, K4
+    once a step) and rwkv6 (no K4/K5): prefill of 80 tokens and 16
+    teacher-forced steps, card against CPU, every state leaf with them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(SSM_ARCHS[arch]).reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = _to_card(cpu, cuda_device)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int64))
+    kernels.reset_launches()
+    lc, cc = T.prefill(cfg, cpu, prompt)
+    lg, cg = T.prefill(cfg, gpu, prompt.to(cuda_device))
+    assert torch.allclose(lg.cpu(), lc, **SSM_CPU_TOL)
+    cc = T.grow_cache(cfg, cc, 2, 96)
+    cg = T.grow_cache(cfg, cg, 2, 96)
+    forced = torch.argmax(lc[:, -1:], -1)
+    for i in range(16):
+        lc, cc = T.decode_step(cfg, cpu, forced, cc, 80 + i)
+        lg, cg = T.decode_step(cfg, gpu, forced.to(cuda_device), cg, 80 + i)
+        assert torch.allclose(lg.cpu(), lc, **SSM_CPU_TOL), i
+        forced = torch.argmax(lc, -1)
+    for j, sub in enumerate(cfg.sublayers()):
+        for group, leaves in cc["stack"][f"sub{j}"].items():
+            if T.is_state(sub, group):
+                for k, v in leaves.items():
+                    ok, err = _state_close(
+                        cg["stack"][f"sub{j}"][group][k], v)
+                    assert ok, (j, k, err)
+    attn = sum(s.mixer == "attn" for s in cfg.sublayers()) * cfg.n_periods
+    counts = kernels.launch_counts()
+    assert counts["swa_attention"] == attn
+    assert counts["decode_attention"] == 16 * attn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(SSM_ARCHS))
+def test_ssm_decode_step_never_waits_for_the_card(cuda_device, arch):
+    """A decode step of the reduced SSM archs (states copied in place,
+    jamba's K4 at per-slot positions) runs with CUDA synchronisation made
+    an error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(SSM_ARCHS[arch]).reduced()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          device=cuda_device)
+    cache = T.init_cache(cfg, 3, 64, device=cuda_device)
+    token = torch.zeros(3, 1, dtype=torch.int32, device=cuda_device)
+    pos = torch.tensor([0, 5, 63], dtype=torch.int32, device=cuda_device)
+    T.decode_step(cfg, model, token, cache, pos)     # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = T.decode_step(cfg, model, token, cache, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_ssm_train_step_on_card_matches_cpu(cuda_device):
+    """One ``make_train_step`` of reduced rwkv6 at S 128 (the scan in two
+    checkpointed chunks), K3 as the loss: loss and new parameters card
+    against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_config("rwkv6-1.6b").reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = _to_card(cpu, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 129)).astype(np.int64))
+    step = make_train_step(cfg, lr=0.05)
+    pc, mc = step(cpu, T.param_dict(cpu), {"tokens": toks})
+    kernels.reset_launches()
+    pg, mg = step(gpu, T.param_dict(gpu), {"tokens": toks.to(cuda_device)})
+    assert kernels.launch_counts()["cross_entropy"] == 1
+    assert torch.allclose(mg["loss"].cpu(), mc["loss"], rtol=1e-5)
+    for k in pc:
+        assert pg[k].dtype == pc[k].dtype, k
+        assert torch.allclose(pg[k].cpu(), pc[k], **MOE_CPU_TOL), k

@@ -123,9 +123,10 @@ def test_teacher_forced_decode(pair, per_seq):
 
 
 def test_unported_layers_raise():
-    """MoE MLPs, MLA mixers and ``first_k_dense`` prefixes build and run
-    (item 12, part 3); Mamba and RWKV mixers still raise naming item 12;
-    the checkpoint policies run and give ``full``'s logits bitwise."""
+    """Nothing of item 12 raises any more: MoE MLPs, MLA mixers and
+    ``first_k_dense`` prefixes (part 3), Mamba mixers and LayerNorm stacks
+    of RWKV sublayers (part 4) build and run; the checkpoint policies run
+    and give ``full``'s logits bitwise."""
     from repro_torch.configs import get_config
     cfg = get_config("smollm-360m").reduced()
     tokens = torch.zeros(1, 4, dtype=torch.int64)
@@ -133,15 +134,13 @@ def test_unported_layers_raise():
                     moe_d_ff=64),
                dict(use_mla=True, kv_lora_rank=32, qk_nope_head_dim=16,
                     qk_rope_head_dim=8, v_head_dim=16),
-               dict(first_k_dense=1, n_layers=3)):
+               dict(first_k_dense=1, n_layers=3), dict(attn_every=2),
+               dict(family="ssm", rwkv_head_size=32)):
         c = cfg.variant(**ok)
         m = tT.init_params(c, torch.Generator().manual_seed(0), device="cpu")
         logits, _ = tT.forward(c, m, tokens)
         assert logits.shape == (1, 4, c.vocab_size)
         assert torch.isfinite(logits).all()
-    for bad in (dict(attn_every=2), dict(family="ssm")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tT.Transformer(cfg.variant(**bad), device="cpu")
     model = tT.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     want, _ = tT.forward(cfg, model, tokens)
