@@ -1769,13 +1769,15 @@ def test_optimizers_on_card_match_cpu(cuda_device):
 # the SSM layers (Mamba, RWKV6) on the card
 # ---------------------------------------------------------------------------
 SSM_ARCHS = {"jamba": "jamba-v0.1-52b", "rwkv": "rwkv6-1.6b"}
-# outputs and logits: the port's bar against repro on the CPU
-# (tests/_torch_archs.py's LOGIT_TOL), as chip_smoke.py's SSM_CPU_TOL: the
+# outputs and logits within MOE_CPU_TOL, except the time-mix's outputs and
+# rwkv6's logits, within SSM_CPU_TOL: the port's bar against repro on the
+# CPU (tests/_torch_archs.py's LOGIT_TOL), as chip_smoke.py's; the
 # time-mix's group norm (eps 64e-5) scales up its state's rounding, and
 # reduced rwkv6's prefill logits differ by 2.25e-5 card against CPU (H100
-# 80GB HBM3, 700 W); a state leaf within atol max(1e-5, 4e-6 x its largest
-# |value|), as chip_smoke.py's SSM_STATE_SCALE (the wkv state, ~50 after 81
-# steps, differs by 1.04e-6 of that card against CPU)
+# 80GB HBM3, 700 W; reduced jamba's by 6.2e-6); a state leaf within atol
+# max(1e-5, 4e-6 x its largest |value|), as chip_smoke.py's SSM_STATE_SCALE
+# (the wkv state, ~50 after 81 steps, differs by 1.04e-6 of that card
+# against CPU)
 SSM_CPU_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -1811,17 +1813,18 @@ def test_ssm_modules_on_card_match_cpu(cuda_device, kind):
     scan) and three decode steps from its cache, card against CPU, the
     states included."""
     cfg, cpu, fwd, dec = _ssm_module(kind)
+    tol = SSM_CPU_TOL if kind == "time_mix" else MOE_CPU_TOL
     gpu = _to_card(cpu, cuda_device)
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(2, 128, cfg.d_model, generator=gen) * 0.5
     yc, cc = fwd(cfg, cpu, x)
     yg, cg = fwd(cfg, gpu, x.to(cuda_device))
-    assert torch.allclose(yg.cpu(), yc, **SSM_CPU_TOL)
+    assert torch.allclose(yg.cpu(), yc, **tol)
     for i in range(3):
         x = torch.randn(2, 1, cfg.d_model, generator=gen) * 0.5
         yc, cc = dec(cfg, cpu, x, cc)
         yg, cg = dec(cfg, gpu, x.to(cuda_device), cg)
-        assert torch.allclose(yg.cpu(), yc, **SSM_CPU_TOL), i
+        assert torch.allclose(yg.cpu(), yc, **tol), i
         for k in cc:
             ok, err = _state_close(cg[k], cc[k])
             assert ok, (i, k, err)
@@ -1836,6 +1839,7 @@ def test_ssm_archs_on_card_match_cpu(cuda_device, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     cfg = get_config(SSM_ARCHS[arch]).reduced()
+    tol = SSM_CPU_TOL if arch == "rwkv" else MOE_CPU_TOL
     cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     gpu = _to_card(cpu, cuda_device)
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1843,14 +1847,14 @@ def test_ssm_archs_on_card_match_cpu(cuda_device, arch):
     kernels.reset_launches()
     lc, cc = T.prefill(cfg, cpu, prompt)
     lg, cg = T.prefill(cfg, gpu, prompt.to(cuda_device))
-    assert torch.allclose(lg.cpu(), lc, **SSM_CPU_TOL)
+    assert torch.allclose(lg.cpu(), lc, **tol)
     cc = T.grow_cache(cfg, cc, 2, 96)
     cg = T.grow_cache(cfg, cg, 2, 96)
     forced = torch.argmax(lc[:, -1:], -1)
     for i in range(16):
         lc, cc = T.decode_step(cfg, cpu, forced, cc, 80 + i)
         lg, cg = T.decode_step(cfg, gpu, forced.to(cuda_device), cg, 80 + i)
-        assert torch.allclose(lg.cpu(), lc, **SSM_CPU_TOL), i
+        assert torch.allclose(lg.cpu(), lc, **tol), i
         forced = torch.argmax(lc, -1)
     for j, sub in enumerate(cfg.sublayers()):
         for group, leaves in cc["stack"][f"sub{j}"].items():
