@@ -123,6 +123,25 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    (else none), ``ring_agg`` none; ms/round beside the flat run's.  Then
    paper-k10 (``jit``) and corridor-quick-r2-k8 (``corridor``),
    ``flat=False``, 8 rounds, card against CPU within phase 5's bands.
+6g. mesh (``phase_mesh``, after phase 6f's card-vs-CPU check): the
+   simulator over ranks of a ``launch/mesh.py`` mesh.  World size 1 over
+   NCCL in this process: fleet-k1000 (30 rounds, flat, ``jit``) with
+   ``make_host_mesh()`` and with a ``("data",)`` mesh of 1, bitwise the
+   unsharded card run (trace, times, params, accuracy), ``ring_agg``
+   launches = the plan's chains.  World size 2 over gloo, two spawned
+   ranks on this one card (``all_reduce`` and ``broadcast`` of card
+   tensors checked first): fleet-k1000 with its waves over ``"data"``,
+   corridor-r4-k400 (40 rounds, EMA tau 0.3, ``flat=False``,
+   ``use_kernel``) and corridor-quick-r2-k8 (8 rounds) with their cohorts
+   over ``"rsu"``, each against its unsharded card run: the (round,
+   vehicle, rsu) trace exact, times in phase 4's f32 band, params within
+   ``MESH_PARAM_ATOL`` (1e-5, ``repro``'s bar for its sharded corridor),
+   launches on every rank = the plan's (K1 the fleet plan's chains; K2 the
+   pops on the rank's cohorts plus the EMA reconciles); ms/round beside
+   the unsharded run's, with the host time in ``all_reduce``; then
+   ``cross_pod_reconcile`` over a (2,) ``"pod"`` mesh at tau 1 and 0.5
+   under ``use_kernel`` within 1e-6 of the plain f32 reconcile (K2 once
+   at tau 0.5 on each rank).
 7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
@@ -2280,6 +2299,290 @@ SWA_TIMED = (("prefill S=1024 f32", 1024, "f32"),
              ("prefill S=512 f32", 512, "f32"),
              ("prefill S=1024 bf16", 1024, "bf16"),
              ("prefill S=512 bf16", 512, "bf16"))
+
+
+# ---------------------------------------------------------------------------
+# phase_mesh: the simulator over ranks of a mesh (launch/mesh.py)
+# ---------------------------------------------------------------------------
+# each run of the phase: tag -> (engine, world, rounds, options); the fleet
+# engine shards its waves over "data", the corridor its cohorts over "rsu"
+# (the pytree program: the sharded stack keeps it)
+MESH_RUNS = {
+    "fleet-k1000": ("jit", "fleet-k1000", 30, {}),
+    "corridor-r4-k400 ema": ("corridor", "corridor-r4-k400", 40,
+                             dict(reconcile_mode="ema", reconcile_tau=0.3,
+                                  use_kernel=True, flat=False)),
+    "corridor-quick-r2-k8": ("corridor", "corridor-quick-r2-k8", 8,
+                             dict(flat=False)),
+}
+MESH_AXIS = {"jit": "data", "corridor": "rsu"}
+MESH_WORLD = 2
+# params of a sharded run against the unsharded run on the card: repro's
+# bar for its sharded corridor (tests/test_corridor.py); a split wave
+# trains through convolutions of another batch size, and the reconcile's
+# mean over 4 cohorts is a mean of two ranks' means
+MESH_PARAM_ATOL = 1e-5
+# cross_pod_reconcile against the plain f32 reconcile: K2 and the plain
+# EMA round their products apart by an ulp
+MESH_POD_ATOL = 1e-6
+
+
+def mesh_run(engine, name, rounds, opts, mesh, device):
+    """One run of ``MESH_RUNS`` on ``device`` under ``mesh`` (None:
+    unsharded); returns (result, seconds, launch counts).  The fleet world
+    goes through ``run_simulation_jit``: ``run_scenario`` hands a mesh to
+    the corridor engine only."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.jit_engine import run_simulation_jit
+    from repro_torch.core.scenarios import (build_world, get_scenario,
+                                            run_scenario)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if engine == "jit":
+        sc = get_scenario(name)
+        veh, ti, tl, p = build_world(sc)
+        res = run_simulation_jit(
+            veh, ti, tl, scheme=sc.scheme, rounds=rounds, l_iters=sc.l_iters,
+            lr=sc.lr, params=p, eval_every=EVAL_EVERY, use_kernel=True,
+            mesh=mesh, device=device, **opts)
+    else:
+        res = run_scenario(name, engine=engine, device=device, rounds=rounds,
+                           eval_every=EVAL_EVERY, mesh=mesh, **opts)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def mesh_digest(res, seconds, counts):
+    """A run as numpy: trace, times, params, accuracy, seconds, launches."""
+    return {"trace": [(r.round, r.vehicle, r.rsu) for r in res.rounds],
+            "times": np.array([[r.time, r.upload_delay, r.train_delay,
+                                r.weight] for r in res.rounds]),
+            "params": {k: v.detach().cpu().numpy()
+                       for k, v in res.final_params.items()},
+            "acc": list(res.acc_history), "seconds": seconds,
+            "counts": counts}
+
+
+def mesh_cohorts(device):
+    """Two cohort models of ``cross_pod_reconcile``: rank r holds the
+    numpy init scaled by r + 1."""
+    import torch
+    return [{k: torch.from_numpy(v * (r + 1)).to(device)
+             for k, v in numpy_init().items()} for r in range(MESH_WORLD)]
+
+
+def mesh_rank(rank, world, store, device):
+    """A rank of phase_mesh's world over gloo: ``all_reduce`` and
+    ``broadcast`` on the card's tensors, then every ``MESH_RUNS`` run
+    (after one short warm-up on each mesh) with its launches and the host
+    time spent in ``all_reduce``, then ``cross_pod_reconcile`` over a
+    ``"pod"`` axis.  Writes its results to ``store.rank<r>``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.hierarchical import cross_pod_reconcile
+    from repro_torch.launch.mesh import make_mesh
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+        device = "cuda:0"
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    real_all_reduce = dist.all_reduce
+    coll = {"calls": 0, "seconds": 0.0}
+
+    def timed_all_reduce(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_all_reduce(*a, **kw)
+        coll["seconds"] += time.perf_counter() - t0
+        coll["calls"] += 1
+        return out
+
+    out = {}
+    try:
+        t = torch.full((4,), float(rank + 1), device=device)
+        dist.all_reduce(t)
+        b = torch.full((4,), float(rank + 7), device=device)
+        dist.broadcast(b, src=0)
+        out["collectives"] = (t.tolist(), b.tolist(), str(t.device))
+        meshes = {a: make_mesh((world,), (a,), device)
+                  for a in ("data", "rsu", "pod")}
+        for engine, name, _, opts in MESH_RUNS.values():  # warm-up
+            mesh_run(engine, name, 4, opts, meshes[MESH_AXIS[engine]],
+                     device)
+        dist.all_reduce = timed_all_reduce
+        for tag, (engine, name, rounds, opts) in MESH_RUNS.items():
+            coll.update(calls=0, seconds=0.0)
+            res, s, counts = mesh_run(engine, name, rounds, opts,
+                                      meshes[MESH_AXIS[engine]], device)
+            out[tag] = dict(mesh_digest(res, s, counts), **{
+                f"all_reduce_{k}": v for k, v in coll.items()})
+        dist.all_reduce = real_all_reduce
+        mine = mesh_cohorts(device)[rank]
+        for tau in (1.0, 0.5):
+            kernels.reset_launches()
+            got = cross_pod_reconcile(mine, meshes["pod"], shard_spec="pod",
+                                      tau=tau, use_kernel=True)
+            out["pod", tau] = ({k: v.cpu().numpy() for k, v in got.items()},
+                               kernels.launch_counts())
+    finally:
+        dist.all_reduce = real_all_reduce
+        dist.destroy_process_group()
+    with open(f"{store}.rank{rank}", "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_compare(tag, got, want, bitwise):
+    """A sharded run against the unsharded one: the (round, vehicle, rsu)
+    trace exact, times in the fleet engine's f32 band, accuracy within the
+    golden bar, params bitwise or within ``MESH_PARAM_ATOL``; returns the
+    params' max difference."""
+    check(got["trace"] == want["trace"], f"mesh: {tag}: trace differs")
+    check(np.allclose(got["times"], want["times"], **JIT_TIME_TOL),
+          f"mesh: {tag}: times differ")
+    err = max(float(np.abs(got["params"][k] - v).max())
+              for k, v in want["params"].items())
+    if bitwise:
+        check(all(got["params"][k].tobytes() == v.tobytes()
+                  for k, v in want["params"].items())
+              and np.array_equal(got["times"], want["times"])
+              and got["acc"] == want["acc"],
+              f"mesh: {tag}: not bitwise the unsharded run ({err})")
+    check(err <= MESH_PARAM_ATOL,
+          f"mesh: {tag}: params {err} from the unsharded run")
+    check(all(abs(a - b) <= ACC_TOL for (_, a), (_, b)
+              in zip(got["acc"], want["acc"])),
+          f"mesh: {tag}: accuracy {got['acc']} vs {want['acc']}")
+    return err
+
+
+def mesh_expected(tag, rank):
+    """The plan's launches of ``MESH_RUNS[tag]`` on one rank of the
+    ``MESH_WORLD`` ranks: K1 once a chain of the fleet plan on every
+    rank; K2, under ``use_kernel`` on the pytree corridor, once a pop on
+    the rank's cohorts and once an EMA reconcile."""
+    engine, name, rounds, opts = MESH_RUNS[tag]
+    if engine == "jit":
+        return {"ring_agg": expected_chains(name, rounds),
+                "weighted_agg": 0}
+    sc, plan, _ = corridor_plan(name, rounds)
+    rl = sc.n_rsus // MESH_WORLD
+    pops = int(np.sum(plan.up_rsu // rl == rank))
+    k2 = (pops + (rounds // sc.reconcile_every
+                  if opts.get("reconcile_mode") == "ema" else 0)
+          if opts.get("use_kernel") else 0)
+    return {"ring_agg": 0, "weighted_agg": k2}
+
+
+def phase_mesh(device=DEVICE):
+    """The distribution slice on the card.  World size 1 over NCCL:
+    fleet-k1000 (30 rounds, flat) with ``make_host_mesh()`` and with a
+    ``("data",)`` mesh of 1, bitwise the unsharded run, K1 = the plan's
+    chains.  World size 2 over gloo, two spawned ranks on the one card:
+    every ``MESH_RUNS`` run against its unsharded run on the card (traces
+    exact, params within ``MESH_PARAM_ATOL``, K1/K2 = the plan's on every
+    rank), ms/round beside the unsharded run's with the share in
+    ``all_reduce``, and ``cross_pod_reconcile`` at tau 1 and 0.5 under
+    ``use_kernel`` against the plain f32 reconcile.  Returns the phase's K1
+    and K2 launches."""
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.core.hierarchical import ema_toward, reconcile_models
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    k1 = k2 = 0
+    base = {}
+    for tag, (engine, name, rounds, opts) in MESH_RUNS.items():
+        mesh_run(engine, name, rounds, opts, None, device)     # warm-up
+        base[tag] = mesh_digest(*mesh_run(engine, name, rounds, opts, None,
+                                          device))
+    # world size 1: one NCCL rank (gloo on the CPU) in this process
+    fleet = MESH_RUNS["fleet-k1000"]
+    rounds = fleet[2]
+    want = base["fleet-k1000"]
+    meshes = {"host (data 1, model 1)": make_host_mesh(device),
+              "data 1": make_mesh((1,), ("data",), device)}
+    try:
+        # warm-up: NCCL builds its communicator at the first collective
+        mesh_run(fleet[0], fleet[1], 4, fleet[3], meshes["data 1"], device)
+        for label, mesh in meshes.items():
+            got = mesh_digest(*mesh_run(*fleet, mesh, device))
+            mesh_compare(f"fleet-k1000 {label}", got, want, bitwise=True)
+            check(got["counts"]["ring_agg"] == want["counts"]["ring_agg"]
+                  == expected_chains(fleet[1], rounds),
+                  f"mesh: fleet-k1000 {label}: ring_agg "
+                  f"{got['counts']['ring_agg']}")
+            k1 += got["counts"]["ring_agg"]
+            log(f"mesh: fleet-k1000 world 1 ({dist.get_backend()}) mesh "
+                f"{label}: bitwise the unsharded run, "
+                f"{got['seconds'] / rounds * 1e3:.3f} ms/round against "
+                f"{want['seconds'] / rounds * 1e3:.3f} unsharded, ring_agg "
+                f"launches {got['counts']['ring_agg']}")
+    finally:
+        dist.destroy_process_group()
+    # world size 2: two ranks over gloo, each a process on this card
+    store = Path(tempfile.mkdtemp()) / "store"
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(MESH_WORLD, str(store), device),
+             nprocs=MESH_WORLD, join=True)
+    log(f"mesh: {MESH_WORLD} ranks over gloo on one card: "
+        f"{time.perf_counter() - t0:.1f} s from spawn to join")
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(f"{store}.rank{r}", "rb") as f:
+            ranks.append(pickle.load(f))
+    for rank, out in enumerate(ranks):
+        sums, bcast, where = out["collectives"]
+        check(sums == [3.0] * 4 and bcast == [7.0] * 4,
+              f"mesh: rank {rank}: gloo all_reduce {sums}, broadcast "
+              f"{bcast} on {where}")
+        for tag, (engine, name, rounds, opts) in MESH_RUNS.items():
+            got, want_run = out[tag], base[tag]
+            err = mesh_compare(f"{tag} rank {rank}", got, want_run,
+                               bitwise=False)
+            exp = mesh_expected(tag, rank)
+            counts = {k: got["counts"][k] for k in exp}
+            check(counts == exp, f"mesh: {tag} rank {rank}: launches "
+                  f"{counts}, the plan's {exp}")
+            k1 += counts["ring_agg"]
+            k2 += counts["weighted_agg"]
+            share = got["all_reduce_seconds"] / got["seconds"]
+            log(f"mesh: {tag} {MESH_AXIS[engine]} {MESH_WORLD} rank {rank}: "
+                f"{got['seconds'] / rounds * 1e3:.3f} ms/round against "
+                f"{want_run['seconds'] / rounds * 1e3:.3f} unsharded; "
+                f"all_reduce {got['all_reduce_calls']} calls, "
+                f"{got['all_reduce_seconds']:.3f} s ({share:.4f} of the run);"
+                f" params within {err:.3e}, launches {counts}; accuracy "
+                f"{got['acc'][-1][1]:.5f} (unsharded "
+                f"{want_run['acc'][-1][1]:.5f})")
+    cohorts = mesh_cohorts(device)
+    mean = reconcile_models(cohorts)
+    for tau in (1.0, 0.5):
+        for rank, out in enumerate(ranks):
+            got, counts = out["pod", tau]
+            want_pod = (mean if tau == 1.0
+                        else ema_toward(cohorts[rank], mean, tau))
+            err = max(float(np.abs(got[k] - v.cpu().numpy()).max())
+                      for k, v in want_pod.items())
+            check(err <= MESH_POD_ATOL,
+                  f"mesh: cross_pod_reconcile tau {tau} rank {rank}: {err}")
+            check(counts["weighted_agg"] == (tau != 1.0),
+                  f"mesh: cross_pod_reconcile tau {tau}: weighted_agg "
+                  f"{counts['weighted_agg']}")
+            k2 += counts["weighted_agg"]
+        log(f"mesh: cross_pod_reconcile over a (2,) 'pod' mesh, tau {tau}, "
+            f"use_kernel: within {MESH_POD_ATOL} of the plain f32 "
+            f"reconcile on both ranks")
+    return k1, k2
 
 
 def in_turns(runs, reps=6, iters=100, warmup=10):
@@ -5017,6 +5320,8 @@ def main() -> int:
     mark("pytree")
     phase_pytree_vs_cpu()
     mark("pytree card against CPU")
+    mesh_k1, mesh_k2 = phase_mesh(dev)
+    mark("mesh")
     phase_serve_vs_cpu(dev)
     phase_train_vs_cpu(dev)
     mark("card against CPU (serve, train)")
@@ -5033,12 +5338,15 @@ def main() -> int:
     # fault injection (kept merges only), training's, telemetry's (none:
     # its corridor worlds reconcile by FedAvg) and the pytree programs'
     # (one a pop under use_kernel, plus the EMA reconciles)
-    k1["launches"] += telemetry_chains + sweep_chains
+    k1["launches"] += telemetry_chains + sweep_chains + mesh_k1
     k1["launches_by_path"]["telemetry"] = telemetry_chains
     k1["launches_by_path"]["sweep"] = sweep_chains
+    # the mesh phase: world 1 in this process, world 2 summed over its
+    # ranks (each runs the plan's chains and merges its own cohorts' pops)
+    k1["launches_by_path"]["mesh"] = mesh_k1
     k2["launches"] = (host_merges + corridor_merges + selection_merges
                       + fault_merges + train_merges + telemetry_merges
-                      + pytree_merges)
+                      + pytree_merges + mesh_k2)
     k2["launches_by_path"] = {"host engines": host_merges,
                               "corridor": corridor_merges,
                               "selection": selection_merges,
@@ -5046,7 +5354,8 @@ def main() -> int:
                               "training": train_merges,
                               "telemetry": telemetry_merges,
                               "sweep": 0,
-                              "pytree": pytree_merges}
+                              "pytree": pytree_merges,
+                              "mesh": mesh_k2}
     # K2's two forms: scalars as kernel parameters (the host engines, the
     # reconciles, training) and read on the card (the pytree programs'
     # merges, each pop's weight a device value)

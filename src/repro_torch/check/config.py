@@ -43,7 +43,12 @@ DEVICE_LOOP_FUNCTIONS = {
         "_CorridorQueue.pop", "_CorridorQueue.upload_delay",
         "_CorridorQueue.readmit", "_CorridorQueue.wrap",
         "_CorridorQueue.serving", "_pop_segment", "_chain_segment",
-        "_reconcile", "_run_program", "_run_pytree"),
+        "_stack_mean", "_reconcile", "_share_ring", "_run_program",
+        "_run_pytree"),
+    "repro_torch/launch/mesh.py": ("psum_", "_flat", "_split", "pmean_tree",
+                                   "share_rows"),
+    "repro_torch/core/hierarchical.py": ("pod_local_mafl",
+                                         "cross_pod_reconcile"),
     "repro_torch/telemetry/device.py": (
         "stale_bin", "_fold", "fleet_pop", "corridor_pop", "RingStats.count",
         "RingStats.wrap"),

@@ -17,7 +17,11 @@ the round loop of ``repro.core.jit_engine``'s packed flat program and, with
 - **Wave-hoisted training.**  Every pending upload whose payload round has
   completed trains together, between event-loop segments: through a
   broadcast of one params dict when the wave shares its payload (every
-  initial-download wave), else through a vmap of stacked params.
+  initial-download wave), else through a vmap of stacked params.  Under a
+  mesh with a ``"data"`` axis (``launch/mesh.py``, ``repro``'s
+  ``shard_map`` over ``"data"``) each rank trains its share of a wave and
+  the uploads are summed into every rank's buffer; the rest of the loop
+  runs alike on every rank.
 - **Fused aggregation.**  A segment's pops give per-upload ``(c, d)``
   pairs on the device (``aggregation.chain_coeffs``); the global model then
   streams once per checkpoint interval through the ``ring_agg`` kernel.
@@ -71,12 +75,14 @@ from repro_torch.core.aggregation import arrival_mix, chain_coeffs
 from repro_torch.core.client import Vehicle, VehicleData
 from repro_torch.core.flat import ParamLayout
 from repro_torch.core.mafl import (SimResult, _Timeline, evaluate,
-                                   fault_report, reward_channel, unported)
+                                   fault_report, reward_channel)
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.device import resolve_device
 from repro_torch.faults import (arrival_step, fold_admission, fold_readmits,
                                 initial_vehicles, make_fault_state)
 from repro_torch.kernels.weighted_agg import ops as agg_ops
+from repro_torch.launch.mesh import (Axis, check_mesh_device, mesh_axis,
+                                     share_rows)
 from repro_torch.models.cnn import init_cnn
 from repro_torch.selection import make_selection_state
 from repro_torch.telemetry import PhaseTimers, RunReport, memory_stats
@@ -469,7 +475,8 @@ def _event_segment(queue: _SlotQueue, g, locals_buf, snaps, s: int, e: int,
 
 
 def _train_wave(rows: dict, pay_rounds: np.ndarray, T_dev, imgs, labs,
-                lr: float, epochs=None, unpack=None) -> dict:
+                lr: float, epochs=None, unpack=None,
+                data: Optional[Axis] = None) -> dict:
     """Train the wave of rounds ``T_dev`` (a device index tensor) from
     their payload rows ``rows[pay_rounds]`` and return the uploads as one
     batched param dict (leaves ``[len(T), ...]``): through a broadcast of
@@ -478,8 +485,22 @@ def _train_wave(rows: dict, pay_rounds: np.ndarray, T_dev, imgs, labs,
     is a param dict (the pytree programs) or a packed ``[P]`` buffer that
     ``unpack`` (``ParamLayout.unpack``) turns into one, after stacking.
     ``epochs`` (the fault plan's ``i32[M]`` epoch column on the device,
-    under partial computation) switches to the masked partial scan."""
+    under partial computation) switches to the masked partial scan.
+
+    ``data`` (the mesh's ``"data"`` axis, ``launch.mesh.mesh_axis``) splits
+    a wave whose length its size divides: rank i trains its contiguous
+    1/n of the events (the payload broadcast if the whole wave shares it,
+    else its own rows), and every rank then holds the whole wave's uploads
+    (``launch.mesh.share_rows``: each rank's rows in a buffer of ``-0.0``,
+    summed over the axis).  A ragged wave trains whole on every rank, as ``repro``'s
+    replicates it."""
     shared = bool((pay_rounds == pay_rounds[0]).all())
+    n = len(pay_rounds)
+    split = data is not None and n % data.size == 0
+    if split:
+        m = n // data.size
+        lo = data.index * m
+        pay_rounds, T_dev = pay_rounds[lo:lo + m], T_dev[lo:lo + m]
     if shared:
         pay = rows[int(pay_rounds[0])]
     else:
@@ -498,6 +519,9 @@ def _train_wave(rows: dict, pay_rounds: np.ndarray, T_dev, imgs, labs,
                  else client_mod._local_scan_partial_vmap)
         args += (epochs.index_select(0, T_dev),)
     loc, _ = train(*args)
+    if split:
+        loc = share_rows({lo: loc}, n, {k: x[0] for k, x in loc.items()},
+                         data)
     return loc
 
 
@@ -558,11 +582,12 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
                  w0, imgs, labs, lr: float, *, scheme: str,
                  interpretation: str, beta: float, fedasync_mix: float,
                  ring_dtype: str, eval_rounds: tuple, metrics=None,
-                 l_iters: int = 1):
-    """The flat program: waves and event segments in plan order.  Returns
-    the final master ``[P]``, the stored rows, the trace columns and, with
-    ``metrics`` (a resolved ``MetricsSpec``), the device channels (else
-    None)."""
+                 l_iters: int = 1, data: Optional[Axis] = None):
+    """The flat program: waves and event segments in plan order, each wave
+    split over the mesh axis ``data`` where it divides (:func:`_train_wave`;
+    the chains run whole on every rank).  Returns the final master ``[P]``,
+    the stored rows, the trace columns and, with ``metrics`` (a resolved
+    ``MetricsSpec``), the device channels (else None)."""
     M = len(plan.veh)
     d = plan.dl_round
     device = imgs.device
@@ -594,7 +619,7 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
         T = np.asarray(T, np.int64)
         if len(T):
             loc = _train_wave(snaps, d[T] + 1, T_dev, imgs, labs, lr,
-                              queue.epochs, unpack=layout.unpack)
+                              queue.epochs, unpack=layout.unpack, data=data)
             # in place: rows T are written once, before any chain reads
             # them
             locals_buf.index_copy_(0, T_dev, layout.pack(loc,
@@ -617,7 +642,7 @@ def _run_program(plan: FleetPlan, queue: _SlotQueue, layout: ParamLayout,
 def _run_pytree(plan: FleetPlan, queue: _SlotQueue, w0, imgs, labs,
                 lr: float, *, scheme: str, interpretation: str, beta: float,
                 fedasync_mix: float, use_kernel: bool, metrics=None,
-                l_iters: int = 1):
+                l_iters: int = 1, data: Optional[Axis] = None):
     """The pytree program (``flat=False``, ``repro``'s benchmark baseline):
     the model is the param dict, every pop mixes its upload into ``g`` on
     its own (:func:`aggregation.arrival_mix`: per-leaf f32 ops, or one K2
@@ -626,9 +651,9 @@ def _run_pytree(plan: FleetPlan, queue: _SlotQueue, w0, imgs, labs,
     init), by reference: every mix returns new tensors and nothing writes
     ``g`` or a ring entry in place.  A cap-discarded pop keeps ``g``
     exactly (``where`` on the keep column).  The slot queue, waves,
-    re-admissions, bandit accumulators and telemetry are the flat
-    program's.  Returns the final params, the ring, the trace columns and
-    the device channels (or None)."""
+    re-admissions, bandit accumulators, telemetry and the waves' split over
+    ``data`` are the flat program's.  Returns the final params, the ring,
+    the trace columns and the device channels (or None)."""
     d = plan.dl_round
     device = imgs.device
     mst = fault_tab = None
@@ -661,7 +686,7 @@ def _run_pytree(plan: FleetPlan, queue: _SlotQueue, w0, imgs, labs,
     for (T, s, e), T_dev in zip(plan.waves, wave_idx):
         if len(T):
             loc = _train_wave(ring, d[np.asarray(T, np.int64)] + 1, T_dev,
-                              imgs, labs, lr, queue.epochs)
+                              imgs, labs, lr, queue.epochs, data=data)
             for k, B in uploads.items():
                 B.index_copy_(0, T_dev, loc[k])
         traces.append(_pop_segment(
@@ -695,7 +720,7 @@ def check_bandit(queue: _SlotQueue, plan, engine: str) -> None:
             "host selection replay")
 
 
-def _check_jit_args(scheme, ring_dtype, flat, mesh):
+def _check_jit_args(scheme, ring_dtype, flat):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
             f"engine='jit' supports schemes {_SUPPORTED_SCHEMES}, not "
@@ -708,9 +733,6 @@ def _check_jit_args(scheme, ring_dtype, flat, mesh):
         raise ValueError("ring_dtype='bf16' requires the flat fast path "
                          "(flat=True): only the packed ring stores bf16 "
                          "snapshots around f32 master weights")
-    if mesh is not None:
-        raise unported("mesh sharding of the wave training",
-                       "distribution (item 13)")
 
 
 def _stage_run(vehicles_data, *, rounds, l_iters, lr, params, seed,
@@ -833,9 +855,16 @@ def run_simulation_jit(
     carries a ``RunReport`` (phases ``plan``, ``stage``, ``run``, ``eval``,
     memory, waves).
 
-    Not ported yet, and raising: ``mesh``."""
-    _check_jit_args(scheme, ring_dtype, flat, mesh)
+    ``mesh`` (``launch/mesh.py``, on ``device``'s type; every rank of it
+    calls this function alike) shards each wave's training over its
+    ``"data"`` axis where the wave's length divides by the axis size: each
+    rank trains its share, and the uploads reach every rank before the
+    event segment, so every rank runs the same pops and ``ring_agg``
+    chains and returns the same result.  A mesh without a ``"data"`` axis
+    changes nothing."""
+    _check_jit_args(scheme, ring_dtype, flat)
     device = resolve_device(device)
+    check_mesh_device(mesh, device)
     timers = PhaseTimers()
     p, plan, met, queue, w0, imgs, labs = _stage_run(
         vehicles_data, rounds=rounds, l_iters=l_iters, lr=lr, params=params,
@@ -850,7 +879,8 @@ def run_simulation_jit(
                 plan, queue, layout, w0, imgs, labs, lr, scheme=scheme,
                 interpretation=interpretation, beta=p.beta,
                 fedasync_mix=DEFAULT_FEDASYNC_MIX, ring_dtype=ring_dtype,
-                eval_rounds=eval_rounds, metrics=met, l_iters=l_iters)
+                eval_rounds=eval_rounds, metrics=met, l_iters=l_iters,
+                data=mesh_axis(mesh, "data"))
             final, model_at = layout.unpack(g), (
                 lambda rr: layout.unpack(snaps[rr]))
         else:
@@ -858,7 +888,7 @@ def run_simulation_jit(
                 plan, queue, w0, imgs, labs, lr, scheme=scheme,
                 interpretation=interpretation, beta=p.beta,
                 fedasync_mix=DEFAULT_FEDASYNC_MIX, use_kernel=use_kernel,
-                metrics=met, l_iters=l_iters)
+                metrics=met, l_iters=l_iters, data=mesh_axis(mesh, "data"))
             model_at = ring.__getitem__
         # reading the trace waits for the card: the run ends here
         t_veh, t_time, t_cu, t_cl, _t_dlt, t_w = (x.cpu().numpy()

@@ -108,12 +108,6 @@ def evaluate(params, images, labels, batch: int = 1000, device=None):
     return correct / n, loss_sum / n
 
 
-def unported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it arrives with the port's {slice_name} "
-        "slice (ROADMAP.md, queue 1)")
-
-
 def run_simulation(
     vehicles_data: Sequence[VehicleData],
     test_images: np.ndarray,

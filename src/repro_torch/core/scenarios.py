@@ -29,8 +29,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.channel import ChannelParams
-from repro_torch.core.mafl import (ENGINES, SimResult, run_simulation,
-                                   unported)
+from repro_torch.core.mafl import ENGINES, SimResult, run_simulation
 from repro_torch.device import resolve_device
 from repro_torch.faults import scenario_faults
 from repro_torch.selection import scenario_spec
@@ -318,8 +317,12 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
     multi-RSU worlds; for single-RSU ones ``"jit"`` when the world's ring is
     not f32 (the bf16 ring exists only on the device engines' flat path),
     else ``"batched"``.  An engine that cannot run the world's topology
-    raises.  ``record_cohorts`` reaches the corridor engine only; ``flat``
-    reaches the device engines (``None`` = their default, flat on).  The
+    raises.  ``mesh`` (``launch/mesh.py``) and ``record_cohorts`` reach
+    the corridor engine only: a multi-RSU world on ``engine="serial"``
+    refuses them, as ``repro`` does, and a single-RSU world refuses a mesh
+    (``repro`` drops it there; its wave sharding is
+    ``run_simulation_jit(mesh=...)``).  ``flat`` reaches the device
+    engines (``None`` = their default, flat on).  The
     world's fault profile (``faults`` with ``faults_overrides``) is
     resolved once and handed to every engine.  ``metrics`` reaches every
     engine; the result's ``report`` carries the scenario's name.
@@ -374,17 +377,21 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
         return _stamp(run_simulation_vmap(
             [(sc, seed)], eval_every=eval_every, metrics=metrics,
             progress=cb, device=device)[0], sc)
-    if mesh is not None:
-        raise unported("mesh sharding", "distribution (item 13)")
+    if mesh is not None and sc.n_rsus == 1:
+        raise ValueError(
+            "mesh reaches the corridor engine only (multi-RSU worlds); "
+            "shard a single-RSU world's wave training with "
+            "core.jit_engine.run_simulation_jit(mesh=...)")
     veh, te_i, te_l, p = build_world(sc, seed=seed)
     if sc.n_rsus > 1:
         from repro_torch.corridor import (run_corridor_simulation,
                                           run_handover_simulation)
         if eng == "serial":
-            if record_cohorts:
+            if mesh is not None or record_cohorts:
                 raise ValueError(
-                    "record_cohorts requires engine='corridor'; the serial "
-                    "reference keeps no cohort snapshots")
+                    "mesh/record_cohorts require engine='corridor'; the "
+                    "serial reference runs unsharded and keeps no cohort "
+                    "snapshots")
             return _stamp(run_handover_simulation(
                 sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
                 use_kernel=use_kernel, progress=progress,
@@ -392,7 +399,7 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                 faults=flt, device=device), sc)
         return _stamp(run_corridor_simulation(
             sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
-            use_kernel=use_kernel, record_cohorts=record_cohorts,
+            use_kernel=use_kernel, mesh=mesh, record_cohorts=record_cohorts,
             progress=progress, selection=sc.selection_spec(), flat=flat,
             metrics=metrics, faults=flt, device=device), sc)
     kw = {} if flat is None else {"flat": flat}

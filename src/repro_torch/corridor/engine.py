@@ -43,7 +43,12 @@ queue, plan, segments and folds with the cohort stack a dict of ``[R,
 ...]`` leaves, each pop's upload mixed into its RSU's row on its own (the
 fleet engine's ``aggregation.arrival_mix``: per leaf, or K2 with its
 scalars on the card under ``use_kernel``) and a ring of every post-round
-model.
+model.  Under a mesh with an ``"rsu"`` axis (``launch/mesh.py``,
+``repro``'s ``shard_map`` over ``"rsu"``) it runs sharded: each rank holds
+``R / n`` cohort rows and merges the pops that land on them, the queue
+runs alike on every rank, and the ranks meet once a segment (the ring rows
+a later wave reads) and at each reconcile and eval (a pmean of the rows'
+means).
 
 Wave-hoisted training is the fleet engine's (``core/jit_engine.py``).
 Times on the device are f32; the f64 host plan (``corridor/plan.py``)
@@ -67,19 +72,37 @@ from repro_torch.core.jit_engine import (_SlotQueue, _stage_arrays,
                                          keep_coeffs, metrics_channels,
                                          metrics_setup, readmit_points,
                                          upload_indices)
-from repro_torch.core.mafl import SimResult, evaluate, unported
+from repro_torch.core.mafl import SimResult, evaluate
 from repro_torch.core.server import DEFAULT_FEDASYNC_MIX, RoundRecord
 from repro_torch.corridor.plan import (CorridorPlan, plan_corridor,
                                        rsu_chain_groups)
 from repro_torch.device import resolve_device
 from repro_torch.faults import check_faults_reconcile
 from repro_torch.kernels.weighted_agg import ops as agg_ops
+from repro_torch.launch.mesh import (Axis, check_mesh_device, mesh_axis,
+                                     pmean_tree, share_rows)
 from repro_torch.selection import check_reconcile_mode, scenario_spec
 from repro_torch.telemetry import PhaseTimers
 from repro_torch.telemetry import device as tel_dev
 from repro_torch.telemetry.spec import resolve_metrics
 
 _SUPPORTED_SCHEMES = ("mafl", "afl", "fedasync")
+_RSU_AXIS = "rsu"
+
+
+def _rsu_axis(mesh, n_rsus: int):
+    """The mesh's ``"rsu"`` axis when it shards the cohort stack, else None
+    (no mesh, no such axis, or one of size 1: the unsharded program).  An
+    axis that cannot tile the corridor raises: the caller asked for RSU
+    sharding, and running replicated instead would misstate its cost."""
+    rsu = mesh_axis(mesh, _RSU_AXIS)
+    if rsu is None or rsu.size == 1:
+        return None
+    if n_rsus % rsu.size:
+        raise ValueError(
+            f"mesh '{_RSU_AXIS}' axis of size {rsu.size} cannot shard "
+            f"{n_rsus} RSU cohorts (n_rsus must be divisible)")
+    return rsu
 
 
 def needed_rounds(plan: CorridorPlan) -> set:
@@ -296,15 +319,24 @@ def _chain_segment(queue: _CorridorQueue, G, locals_buf, ring: dict,
     return cols
 
 
-def _reconcile(G: dict, tau: float, use_kernel: bool) -> dict:
+def _stack_mean(G: dict, rsu: Optional[Axis] = None) -> dict:
+    """The consensus of a cohort stack (a dict of ``[R, ...]`` leaves): the
+    mean of its rows per leaf; under an ``"rsu"`` axis the mean of this
+    rank's rows, then the pmean over the axis (``repro``'s order)."""
+    cons = {k: x.mean(dim=0) for k, x in G.items()}
+    return cons if rsu is None else pmean_tree(cons, rsu)
+
+
+def _reconcile(G: dict, tau: float, use_kernel: bool,
+               rsu: Optional[Axis] = None) -> dict:
     """The cloud tier on a cohort stack, a dict of ``[R, ...]`` leaves
     (the flat program's one ``[R, P]`` leaf, the pytree program's param
-    dict): every row moves ``tau`` toward the stack mean, leaf by leaf
-    (``tau = 1``, FedAvg: adopts it).  EMA under ``use_kernel`` is one
-    ``weighted_agg`` merge of the whole stack against the materialised
-    broadcast of the mean (the kernel takes contiguous leaves only).
-    Returns a new stack."""
-    cons = {k: x.mean(dim=0) for k, x in G.items()}
+    dict, or this rank's rows of it under ``rsu``): every row moves ``tau``
+    toward :func:`_stack_mean`, leaf by leaf (``tau = 1``, FedAvg: adopts
+    it).  EMA under ``use_kernel`` is one ``weighted_agg`` merge of the
+    whole stack against the materialised broadcast of the mean (the kernel
+    takes contiguous leaves only).  Returns a new stack."""
+    cons = _stack_mean(G, rsu)
     if tau == 1.0:
         return {k: c.expand_as(G[k]).contiguous() for k, c in cons.items()}
     # repro's f32 scalars: tau rounded to f32, 1 - tau in f32
@@ -322,12 +354,14 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
                  scheme: str, interpretation: str, beta: float,
                  fedasync_mix: float, ring_dtype: str, eval_rounds: tuple,
                  reconcile_every: int, tau: float, use_kernel: bool,
-                 record_cohorts: bool, metrics=None, l_iters: int = 1):
-    """The flat program: waves, segments and reconciles in plan order.
-    Returns the final ``[R, P]`` stack, the consensus rows of the eval
-    rounds, the stack copies of the eval rounds (``record_cohorts``), the
-    trace columns and, with ``metrics`` (a resolved ``MetricsSpec``), the
-    device channels (else None)."""
+                 record_cohorts: bool, metrics=None, l_iters: int = 1,
+                 data: Optional[Axis] = None):
+    """The flat program: waves, segments and reconciles in plan order, each
+    wave split over the mesh axis ``data`` where it divides
+    (``jit_engine._train_wave``).  Returns the final ``[R, P]`` stack, the
+    consensus rows of the eval rounds, the stack copies of the eval rounds
+    (``record_cohorts``), the trace columns and, with ``metrics`` (a
+    resolved ``MetricsSpec``), the device channels (else None)."""
     M = len(plan.veh)
     R = plan.n_rsus
     d = plan.dl_round
@@ -359,7 +393,7 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
         if len(T):
             loc = _train_wave(ring, d[np.asarray(T, np.int64)] + 1, T_dev,
                               imgs, labs, lr, queue.epochs,
-                              unpack=layout.unpack)
+                              unpack=layout.unpack, data=data)
             locals_buf.index_copy_(0, T_dev,
                                    layout.pack(loc, dtype=store_dtype))
         for a, b, groups in segs:
@@ -395,11 +429,27 @@ def _run_program(plan: CorridorPlan, queue: _CorridorQueue,
     return G, cons, cohorts, trace, channels
 
 
+def _share_ring(ring: dict, rounds: list, up_rsu: np.ndarray, off: int,
+                Rl: int, rsu: Axis, like: dict) -> None:
+    """Ring rows ``rounds`` (post-round models, keyed by round) to every
+    rank of ``rsu``, each from the rank holding the cohort its pop landed
+    on (``up_rsu[round - 1]`` in ``[off, off + Rl)``), in one collective.
+    ``like`` gives the leaves' shapes and dtypes."""
+    if not rounds:
+        return
+    mine = {p: {k: v[None] for k, v in ring[x].items()}
+            for p, x in enumerate(rounds) if 0 <= up_rsu[x - 1] - off < Rl}
+    rows = share_rows(mine, len(rounds), like, rsu)
+    for p, x in enumerate(rounds):
+        ring[x] = {k: v[p] for k, v in rows.items()}
+
+
 def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
                 lr: float, *, scheme: str, interpretation: str, beta: float,
                 fedasync_mix: float, eval_rounds: tuple,
                 reconcile_every: int, tau: float, use_kernel: bool,
-                record_cohorts: bool, metrics=None, l_iters: int = 1):
+                record_cohorts: bool, metrics=None, l_iters: int = 1,
+                rsu: Optional[Axis] = None, data: Optional[Axis] = None):
     """The pytree program (``flat=False``): the cohort stack is a dict of
     ``[R, ...]`` leaves.  Each pop reads the row of the RSU it landed on
     (``index_select`` on the device index), mixes its upload into it
@@ -410,14 +460,28 @@ def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
     is pop ``r``'s new row, a new tensor that no later write touches, and
     at a reconcile round ``b`` a copy of the reconciled row of
     ``up_rsu[b-1]``.  Segments split at the eval, reconcile and
-    re-admission rounds, as the flat program's.  Returns the final stack,
-    the consensus models of the eval rounds, the stack copies of the eval
-    rounds (``record_cohorts``), the trace columns and the device channels
-    (or None)."""
+    re-admission rounds, as the flat program's; waves split over the mesh
+    axis ``data`` where it divides (``jit_engine._train_wave``).
+
+    Under an ``"rsu"`` axis ``rsu`` (``repro``'s ``shard_map`` over it,
+    ``_rsu_axis``) this rank holds rows ``[off, off + R/n)`` of the stack.
+    Every rank runs the same pops; the rank holding a pop's RSU (the
+    plan's ``up_rsu``, which the trace is checked against after the run)
+    merges it.  The ring rows a later wave reads reach every rank once a
+    segment (:func:`_share_ring`, after the segment's reconcile); the
+    reconcile and the consensus are the mean of the local rows then a
+    pmean over the axis; the returned stack and the ``record_cohorts``
+    copies are gathered whole.
+
+    Returns the final stack, the consensus models of the eval rounds, the
+    stack copies of the eval rounds (``record_cohorts``), the trace columns
+    and the device channels (or None)."""
     M = len(plan.veh)
     R = plan.n_rsus
     d = plan.dl_round
     device = imgs.device
+    n = 1 if rsu is None else rsu.size
+    Rl, off = R // n, (0 if rsu is None else rsu.index * (R // n))
     mst = fault_tab = None
     if metrics is not None:
         mst, fault_tab, _, _ = metrics_setup(
@@ -425,23 +489,31 @@ def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
             tel_dev.corridor_state)
         queue.occupancy = True
     reconciles = reconcile_rounds(M, reconcile_every)
+    needed = needed_rounds(plan)
     # the flat program's segments; their chain groups go unused here
     schedule = corridor_schedule(plan, eval_rounds, reconcile_every)
     readmit_at = readmit_points(plan)
     idx = upload_indices([T for T, _ in schedule]
-                         + [readmit_at[b] for b in sorted(readmit_at)],
-                         device)
+                         + [readmit_at[b] for b in sorted(readmit_at)]
+                         + [range(Rl)], device)
     wave_idx = idx[:len(schedule)]
-    readmits = dict(zip(sorted(readmit_at), idx[len(schedule):]))
+    readmits = dict(zip(sorted(readmit_at), idx[len(schedule):-1]))
+    local_rows = idx[-1]
 
-    G = {k: x.expand((R,) + tuple(x.shape)).contiguous()
+    G = {k: x.expand((Rl,) + tuple(x.shape)).contiguous()
          for k, x in w0.items()}
     uploads = {k: torch.zeros((M,) + tuple(x.shape), dtype=x.dtype,
                               device=device) for k, x in w0.items()}
     ring = {0: dict(w0)}
 
-    def merge(r, pop):
-        j = pop[1]
+    def merge(r: int, pop):
+        if rsu is None:
+            j = pop[1]
+        else:
+            jl = int(plan.up_rsu[r]) - off
+            if not 0 <= jl < Rl:
+                return                      # another rank's cohort
+            j = local_rows[jl:jl + 1]
         row = {k: x.index_select(0, j) for k, x in G.items()}
         new = arrival_mix(
             row, {k: B[r:r + 1] for k, B in uploads.items()}, pop[6],
@@ -457,7 +529,7 @@ def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
     for (T, segs), T_dev in zip(schedule, wave_idx):
         if len(T):
             loc = _train_wave(ring, d[np.asarray(T, np.int64)] + 1, T_dev,
-                              imgs, labs, lr, queue.epochs)
+                              imgs, labs, lr, queue.epochs, data=data)
             for k, B in uploads.items():
                 B.index_copy_(0, T_dev, loc[k])
         for a, b, _ in segs:
@@ -465,18 +537,25 @@ def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
                 queue, a, b, mafl=scheme == "mafl", mst=mst,
                 fault_tab=fault_tab, on_pop=merge))
             if b in reconciles:
-                G = _reconcile(G, tau, use_kernel)
+                G = _reconcile(G, tau, use_kernel, rsu)
                 # the boundary's re-download follows the reconcile: a copy
                 # of the reconciled row its upload landed on (G is written
-                # in place later)
-                j = int(plan.up_rsu[b - 1])
-                ring[b] = {k: x[j].clone() for k, x in G.items()}
+                # in place later), on the rank that holds it
+                j = int(plan.up_rsu[b - 1]) - off
+                if 0 <= j < Rl:
+                    ring[b] = {k: x[j].clone() for k, x in G.items()}
+            if rsu is not None:
+                _share_ring(ring, [x for x in range(a + 1, b + 1)
+                                   if x in needed], plan.up_rsu, off, Rl,
+                            rsu, w0)
             if b in readmit_at:
                 queue.readmit(readmits[b], traces[-1][2][-1:])
             if b in eval_rounds:
-                cons.append({k: x.mean(dim=0) for k, x in G.items()})
+                cons.append(_stack_mean(G, rsu))
                 if record_cohorts:
-                    cohorts.append({k: x.clone() for k, x in G.items()})
+                    cohorts.append({k: x.clone() for k, x in G.items()}
+                                   if rsu is None
+                                   else share_rows({off: G}, R, w0, rsu))
     trace = tuple(torch.cat([tr[k] for tr in traces])
                   for k in range(len(traces[0])))
     channels = None
@@ -484,10 +563,12 @@ def _run_pytree(plan: CorridorPlan, queue: _CorridorQueue, w0, imgs, labs,
         trace, (occ, handover, gap) = trace[:7], trace[7:]
         channels = metrics_channels(mst, None, occ, gap)
         channels["handover"] = handover
+    if rsu is not None:
+        G = share_rows({off: G}, R, w0, rsu)
     return G, cons, cohorts, trace, channels
 
 
-def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh):
+def _check_corridor_args(scheme, mode, ring_dtype, flat):
     if scheme not in _SUPPORTED_SCHEMES:
         raise ValueError(
             f"engine='corridor' supports schemes {_SUPPORTED_SCHEMES}, not "
@@ -499,13 +580,26 @@ def _check_corridor_args(scheme, mode, ring_dtype, flat, mesh):
     if ring_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown ring_dtype {ring_dtype!r}; "
                          "expected 'f32' or 'bf16'")
-    if mesh is not None:
-        raise unported("the 'rsu'-sharded corridor (mesh)",
-                       "distribution (item 13)")
     if ring_dtype == "bf16" and flat is False:
-        raise ValueError("ring_dtype='bf16' requires the flat fast path "
-                         "(unsharded corridor): only the packed ring "
-                         "stores bf16 snapshots around the f32 stack")
+        raise ValueError(_BF16_FLAT)
+
+
+_BF16_FLAT = ("ring_dtype='bf16' requires the flat fast path (unsharded "
+              "corridor): only the packed ring stores bf16 snapshots around "
+              "the f32 stack")
+
+
+def _check_sharded_args(ring_dtype, flat) -> None:
+    """The refusals of an ``"rsu"``-sharded run, ``repro``'s: the sharded
+    stack keeps the pytree layout, so neither the flat program nor the
+    bf16 ring runs under it."""
+    if flat:
+        raise ValueError(
+            "flat fast path does not run under an 'rsu'-sharded mesh — the "
+            "sharded cohort stack keeps the pytree layout (pass flat=False "
+            "or drop the mesh)")
+    if ring_dtype == "bf16":
+        raise ValueError(_BF16_FLAT)
 
 
 def run_corridor_simulation(
@@ -534,8 +628,9 @@ def run_corridor_simulation(
     ``SimResult`` the serial handover loop produces (same record fields,
     same eval cadence, per-RSU round numbers, ``rec.rsu`` set).
 
-    ``flat=None`` or ``True`` runs the packed flat program: aggregation is
-    always the fused ``ring_agg`` chain (its plain version on the CPU).
+    ``flat=None`` (unsharded) or ``True`` runs the packed flat program:
+    aggregation is always the fused ``ring_agg`` chain (its plain version
+    on the CPU).
     ``flat=False`` runs the pytree program: each arrival is merged into its
     cohort row on its own, by per-leaf f32 ops or, under ``use_kernel``,
     by one ``weighted_agg`` launch with its scalars on the card.  On both,
@@ -562,15 +657,25 @@ def run_corridor_simulation(
     ``result.report`` (engine ``"corridor"``) holds them.  Any falsy value
     runs the loop without telemetry, op for op.
 
-    Not ported yet, and raising: ``mesh``."""
+    ``mesh`` (``launch/mesh.py``, on ``device``'s type; every rank of it
+    calls this function alike) shards the cohort stack over its ``"rsu"``
+    axis, whose size must divide ``n_rsus``, on the pytree program
+    (``flat=None`` selects it; ``flat=True`` and the bf16 ring raise
+    ``ValueError``), and each wave's training over its ``"data"`` axis
+    where the wave's length divides.  An ``"rsu"`` axis of size 1 runs the
+    unsharded program.  Every rank returns the same result."""
     scheme = sc.scheme
     mode = getattr(sc, "reconcile_mode", "fedavg")
     spec = selection if selection is not None else scenario_spec(sc)
     check_reconcile_mode(spec, mode)
     check_faults_reconcile(faults, mode)
     ring_dtype = getattr(sc, "ring_dtype", "f32")
-    _check_corridor_args(scheme, mode, ring_dtype, flat, mesh)
+    _check_corridor_args(scheme, mode, ring_dtype, flat)
     device = resolve_device(device)
+    check_mesh_device(mesh, device)
+    rsu = _rsu_axis(mesh, sc.n_rsus)
+    if rsu is not None:
+        _check_sharded_args(ring_dtype, flat)
     timers = PhaseTimers()
     p = p if p is not None else sc.channel()
     if len(vehicles_data) != p.K:
@@ -602,11 +707,12 @@ def run_corridor_simulation(
                   fedasync_mix=DEFAULT_FEDASYNC_MIX, eval_rounds=eval_rounds,
                   reconcile_every=sc.reconcile_every, tau=tau,
                   use_kernel=use_kernel, record_cohorts=record_cohorts,
-                  metrics=met, l_iters=sc.l_iters)
+                  metrics=met, l_iters=sc.l_iters,
+                  data=mesh_axis(mesh, "data"))
     with timers.phase("run"):
-        if flat is False:
+        if flat is False or rsu is not None:
             G, cons, cohorts, trace, met_dev = _run_pytree(
-                plan, queue, w0, imgs, labs, sc.lr, **common)
+                plan, queue, w0, imgs, labs, sc.lr, rsu=rsu, **common)
             unpack = dict                # already param dicts: a new dict
         else:
             layout = ParamLayout.from_tree(w0)

@@ -1915,3 +1915,38 @@ def test_ssm_train_step_on_card_matches_cpu(cuda_device):
     for k in pc:
         assert pg[k].dtype == pc[k].dtype, k
         assert torch.allclose(pg[k].cpu(), pc[k], **MOE_CPU_TOL), k
+
+
+@pytest.mark.cuda
+def test_host_mesh_on_card_runs_the_fleet_bitwise(cuda_device):
+    """World size 1 over NCCL: quick-k5 on the fleet engine with the host
+    mesh (a ``"data"`` axis of 1, so each wave's uploads pass through one
+    rank's ``all_reduce``) is bitwise the unsharded run on the card, with
+    the same ``ring_agg`` launches; a mesh on the card refuses a CPU
+    run."""
+    import torch.distributed as dist
+    from repro_torch.core.jit_engine import run_simulation_jit
+    from repro_torch.core.scenarios import build_world, get_scenario
+    from repro_torch.launch.mesh import make_host_mesh
+    sc = get_scenario("quick-k5")
+    veh, ti, tl, p = build_world(sc)
+    kw = dict(scheme=sc.scheme, rounds=8, l_iters=sc.l_iters, lr=sc.lr,
+              params=p, eval_every=4)
+    kernels.reset_launches()
+    want = run_simulation_jit(veh, ti, tl, device=cuda_device, **kw)
+    chains = kernels.launch_counts()["ring_agg"]
+    mesh = make_host_mesh(cuda_device)
+    try:
+        kernels.reset_launches()
+        got = run_simulation_jit(veh, ti, tl, device=cuda_device, mesh=mesh,
+                                 **kw)
+        assert kernels.launch_counts()["ring_agg"] == chains > 0
+        assert ([(r.round, r.vehicle, r.time) for r in got.rounds]
+                == [(r.round, r.vehicle, r.time) for r in want.rounds])
+        for k, v in want.final_params.items():
+            assert torch.equal(got.final_params[k], v), k
+        with pytest.raises(ValueError, match="the mesh's devices are "
+                           "'cuda'"):
+            run_simulation_jit(veh, ti, tl, device="cpu", mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()

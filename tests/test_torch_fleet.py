@@ -136,7 +136,7 @@ def test_run_scenario_selects_jit_for_a_bf16_world(monkeypatch):
     (dict(scheme="fedbuff"), ValueError, "fedbuff"),
     (dict(ring_dtype="f16"), ValueError, "ring_dtype"),
     (dict(flat=False, ring_dtype="bf16"), ValueError, "flat fast path"),
-    (dict(mesh=object()), NotImplementedError, "distribution"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
     (dict(metrics="sometimes"), ValueError, "unknown metrics setting"),
     (dict(faults="no-such-profile"), KeyError, "unknown fault profile"),
 ])

@@ -82,7 +82,7 @@ def test_pytree_corridor_rows_stay_as_stored(monkeypatch):
 
 @pytest.mark.parametrize("kw, err, match", [
     (dict(ring_dtype="bf16"), ValueError, "flat fast path"),
-    (dict(mesh=object()), NotImplementedError, "item 13"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
 ])
 def test_pytree_corridor_rejects(kw, err, match):
     fields = {k: kw.pop(k) for k in ("ring_dtype",) if k in kw}

@@ -78,7 +78,7 @@ def test_pytree_mix_keeps_g_where_the_cap_discards():
 
 @pytest.mark.parametrize("kw, err, match", [
     (dict(ring_dtype="bf16"), ValueError, "flat fast path"),
-    (dict(mesh=object()), NotImplementedError, "item 13"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
 ])
 def test_pytree_jit_rejects(kw, err, match):
     sc = tsc.get_scenario("quick-k5")
