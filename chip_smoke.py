@@ -142,7 +142,7 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    ``cross_pod_reconcile`` over a (2,) ``"pod"`` mesh at tau 1 and 0.5
    under ``use_kernel`` within 1e-6 of the plain f32 reconcile (K2 once
    at tau 0.5 on each rank).
-7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8},
+7. attention kernels: ``decode_attention`` (K4) at G in {1, 3, 4, 5, 8, 16},
    hd in {64, 128} (f32 and bf16), pos = 0, 63, 64, 65 (the kv tile's
    edges), S - 1 and a mixed per-row vector, and
    ``swa_attention`` (K5) at window = S, windows under S, a window that is
@@ -178,8 +178,7 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    a ``[chunk 64, global]`` variant (80-token prompts, 16 teacher-forced
    steps, within phase 9's band); and K5 at mistral's prefill (B 2, S
    8192, bf16) at window 4096 and window S, K4 over its ring (B 2, W
-   4096), each beside its plain version and SDPA.  llama3-405b is not run
-   (812 GB of bf16 weights; G 16 > K4's 8).
+   4096), each beside its plain version and SDPA.
 8b. MoE + MLA and the training side (``phase_moe``), each model freed
    before the next: deepseek-v2-lite-16b at full size in bf16 (31.5 GB)
    through ``generate`` (B 2, prompts of 1,024, 64 new) with naive and
@@ -220,6 +219,15 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    within ``SSM_LOGIT_TOL``, every state leaf, one train step's params).
    One decode tick of each model and two rwkv6 prefills are profiled
    with the other profiler readings: launches per tick and per token.
+8d. llama3-405b (``phase_llama3``, after ``phase_ssm``): at full width
+   over 4 of its 126 layers in bf16 (34 GB; 128 query heads over 8 kv
+   heads, G 16): each layer's K5 and K4 on its own q, k, v of the prompt
+   against the plain versions in f32 under ``ARCH_BF16_TOL`` (planted:
+   half the window, half the position), then ``generate`` at B 2 x 1,024
+   prompt tokens, 32 new (K5 once a layer, K4 once a layer a tick): ms
+   per prefill and per tick against the tick's weight-read bound, tokens/s
+   and peak memory; K4 timed at its decode shape (B 2, 1,056 slots) beside
+   its plain version and SDPA with ``enable_gqa``.
 9. serve, card against host: the same config cut to 4 layers, one CPU
    init, two of the prompts: prefill and 16 teacher-forced decode steps on
    both, logits within atol 1e-3 / rtol 1e-3.
@@ -239,6 +247,12 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     share (against the timed run's wall per round).
 12. train step: ``make_train_step`` at full width, B 8, S 512 (4096 rows
     into K3): one warm-up and 5 timed steps.
+12b. sharded train step (``phase_shard_train``): reduced
+    deepseek-v2-lite-16b on a one-rank NCCL ``("data", "model")`` mesh of
+    DTensor parameters (``shard_activations``, ``grad_specs``, FSDP
+    forced on, 2 microbatches, 2 steps): params within 1e-6 of the
+    unsharded step's, every parameter on its spec's placements, K3 once a
+    microbatch on the rank's rows.
 13. training, card against host: the same config cut to 4 layers, one CPU
     init, 2 rounds of 2 local steps on both: the same vehicles, losses
     within rtol 1e-4, final params within atol 1e-4 / rtol 1e-3.
@@ -2275,8 +2289,9 @@ def phase_pytree_vs_cpu(rounds=8):
 
 
 ATTN_TOL = {"f32": 2e-5, "bf16": 3e-2}
-# K4's query heads per kv head held to the plain version (MAX_GROUP is 8)
-DECODE_GROUPS = (1, 3, 4, 5, 8)
+# K4's query heads per kv head held to the plain version (the kernel takes
+# 1..8 and 16, llama3-405b's 128 over 8)
+DECODE_GROUPS = (1, 3, 4, 5, 8, 16)
 BF16_FLOP_PER_S = 989e12
 # the serve path: smollm-360m behind 8 slots of 2048 positions, 16
 # requests of 64-1024 prompt tokens and 64 new tokens each
@@ -3534,10 +3549,9 @@ def phase_archs(dev):
     """The dense archs on the card (mistral-nemo-12b's sliding-window
     variant in bf16, qwen1.5-4b, internvl2-2b and musicgen-large in f32,
     each at full width), then K4/K5 at their new shapes, card against CPU
-    on the reduced configs, and the timings.  llama3-405b is not run: 812
-    GB of bf16 weights, and its 16 query heads per kv head exceed K4's
-    G <= 8.  Returns ({path: K4 launches}, {path: K5 launches}, K5 rows,
-    K4 rows)."""
+    on the reduced configs, and the timings (llama3-405b runs in
+    ``phase_llama3``).  Returns ({path: K4 launches}, {path: K5 launches},
+    K5 rows, K4 rows)."""
     from repro_torch.configs import get_config
     from repro_torch.models.frontends import AudioFrontendStub
     import torch
@@ -4570,6 +4584,258 @@ def phase_ssm(dev):
             {p: k5 for p, (_, k5) in paths.items()}, k3)
 
 
+# llama3-405b (128 query heads over 8 kv heads: K4 and K5 at G 16) at full
+# width over 4 of its 126 layers in bf16 (~34 GB): generate at B 2 x 1,024
+# prompt tokens, 32 new (K5 once a layer in the prefill, K4 once a layer a
+# tick); each layer's attention held first, on its own projections of the
+# prompt, against the plain versions in f32 under ARCH_BF16_TOL, with a
+# planted error read against the same bar
+LLAMA3_LAYERS, LLAMA3_B, LLAMA3_P, LLAMA3_NEW = 4, 2, 1024, 32
+# K4's llama3-405b decode shape: B 2, a cache of P + NEW slots, bf16
+LLAMA3_K4_POSITIONS = (1023, 1040, 1055)
+# the sharded train step on a one-rank NCCL ("data", "model") mesh:
+# reduced deepseek-v2-lite-16b (MoE and MLA exercise the most rules) with
+# shard_activations, grad_specs, FSDP forced on and 2 microbatches, in f32;
+# its params within 1e-6 of the unsharded step's (one rank: the same
+# products, DTensor adds only no-op redistributions)
+SHARD_B, SHARD_S, SHARD_STEPS, SHARD_TOL = 4, 64, 2, 1e-6
+
+
+def llama3_layer_checks(dev, cfg, model):
+    """Each layer's K5 (its prompt, window S) and K4 (a cache of P + NEW
+    slots at ``LLAMA3_K4_POSITIONS``), on that layer's own q, k, v of the
+    RMS-normed prompt embeddings, against the plain versions in f32 under
+    ``ARCH_BF16_TOL``; planted: K5 at half the window, K4 at half the
+    position (the layers' scores are small, their weights near uniform:
+    one key of a thousand moves an output row by about the bar).  Returns
+    the readings."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.models import attention as A
+    from repro_torch.models.modules import apply_rope, embed_lookup
+    bf16 = torch.bfloat16
+    B, P, W = LLAMA3_B, LLAMA3_P, LLAMA3_P + LLAMA3_NEW
+    gen = torch.Generator(device=dev).manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab_size, (B, W), generator=gen,
+                           device=dev)
+    pos = torch.arange(W, dtype=torch.int32, device=dev)
+    idx = torch.arange(W, device=dev)
+    err = {"k5": 0.0, "k4": 0.0, "planted_k5": [], "planted_k4": []}
+    kernels.reset_launches()
+    k4_calls = 0
+    with torch.no_grad():
+        h = embed_lookup(model.embed.table, prompt)
+        for i, period in enumerate(model.stack):
+            layer = period.sub0
+            q, k, v = A._qkv(layer.mixer, layer.ln1(h))
+            q = apply_rope(q, pos, layer.mixer.rope_freqs)
+            k = apply_rope(k, pos, layer.mixer.rope_freqs)
+            where = f"layer {i} B {B} S {P} G {cfg.n_heads // cfg.n_kv_heads}"
+            qp, kp, vp = (t[:, :P].contiguous() for t in (q, k, v))
+            want = plain_prefill(qp, kp, vp, "full", 0)
+            err["k5"] = max(err["k5"], bf16_check(
+                "swa_attention (llama3-405b)",
+                A._prefill_attention(qp, kp, vp, "full", 0), want, where))
+            err["planted_k5"].append(scaled_err(
+                sops.swa_attention(qp, kp, vp, window=P // 2), want))
+            kc, vc = k.contiguous(), v.contiguous()
+            for p in LLAMA3_K4_POSITIONS:
+                live = torch.tensor(p, dtype=torch.int32, device=dev)
+                out = dops.decode_attention(q[:, p].contiguous(), kc, vc,
+                                            live)
+                qf, kf, vf = (t.float() for t in (q[:, p], kc, vc))
+                want = dref.decode_attention(qf, kf, vf, live).to(bf16)
+                bias = torch.where(idx <= p, 0.0, -1e30).reshape(1, 1, 1, W)
+                at = f"{where} pos {p} of {W}"
+                err["k4"] = max(
+                    err["k4"],
+                    bf16_check("decode_attention (llama3-405b)", out, want,
+                               at),
+                    bf16_check("decode_attention (llama3-405b bias)", out,
+                               A._sdpa(qf[:, None], kf, vf, bias)[:, 0]
+                               .to(bf16), at))
+                err["planted_k4"].append(scaled_err(dops.decode_attention(
+                    q[:, p].contiguous(), kc, vc, live // 2), want))
+                k4_calls += 2
+            del q, k, v, qp, kp, vp, kc, vc, qf, kf, vf, want
+    counts = kernels.launch_counts()
+    check(counts["swa_attention"] == 2 * cfg.n_layers
+          and counts["decode_attention"] == k4_calls,
+          f"llama3: layer checks launched {counts}")
+    check(min(err["planted_k5"] + err["planted_k4"]) > 1.0,
+          f"llama3: planted errors read {err['planted_k5']} (K5) and "
+          f"{err['planted_k4']} (K4) of the bf16 bar, which does not see "
+          "them")
+    log(f"llama3: layer checks, each of {cfg.n_layers} layers on its own "
+        f"q, k, v (B {B}, H {cfg.n_heads}, Kv {cfg.n_kv_heads}, hd "
+        f"{cfg.resolved_head_dim}, G 16, bf16) against the plain versions "
+        f"in f32, max |diff| / bar ({ARCH_BF16_TOL}): swa_attention over "
+        f"the {P}-token prompt {err['k5']}; decode_attention over {W} slots "
+        f"at pos {LLAMA3_K4_POSITIONS}, against the plain version and the "
+        f"bias mask, {err['k4']}; planted: half the window "
+        f"{[round(e, 3) for e in err['planted_k5']]}, half the position "
+        f"{[round(e, 3) for e in err['planted_k4']]}")
+    return err
+
+
+def llama3_k4_timing(dev, cfg):
+    """K4 at llama3-405b's decode shape (B 2, P + NEW slots, pos S - 1,
+    bf16) beside its plain version and SDPA with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    B, S = LLAMA3_B, LLAMA3_P + LLAMA3_NEW
+    Kv, hd, H = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pos = S - 1
+    bytes_moved = (2 * B * Kv * (pos + 1) * hd + 2 * B * H * hd) * 2
+    flops = 4 * B * H * (pos + 1) * hd
+    n_sets = max(1, int(np.ceil(2 * L2_BYTES / bytes_moved)))
+    sets = [attn_inputs((B, H, hd), (B, S, Kv, hd), torch.bfloat16, gen,
+                        dev) for _ in range(n_sets)]
+    posv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev) <= pos).expand(B, 1, 1, S)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+    runs = {"kernel": rotating(lambda q, k, v: ops.decode_attention(
+                q, k, v, posv), sets),
+            "plain": rotating(lambda q, k, v: ref.decode_attention(
+                q, k, v, pos), sets),
+            "library": rotating(sdpa, sets)}
+    n_chunks = ops.split(B, S, Kv)
+    return attn_timings(
+        f"decode_attention llama3-405b B={B} S={S} G=16 hd={hd} bf16 "
+        f"pos=S-1", runs, f"{n_sets} input sets; {B * Kv * n_chunks} blocks, "
+        f"{n_chunks} chunks a row", bytes_moved, flops, BF16_FLOP_PER_S,
+        6, 100, 10)
+
+
+def phase_llama3(dev):
+    """llama3-405b over 4 layers at full width in bf16.  Returns
+    ({path: K4 launches}, {path: K5 launches}, {label: K4 timing row})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    full = get_config("llama3-405b")
+    cfg = full.variant(n_layers=LLAMA3_LAYERS)
+    log(f"llama3: {full.name}: the whole model, {full.n_layers} layers, is "
+        f"{T.param_count(full)} parameters "
+        f"({T.param_count(full) * 2 / 1e9:.1f} GB of bf16): run over "
+        f"{LLAMA3_LAYERS} layers at full width")
+    free_card()
+    model, base = moe_model(
+        cfg, dev, torch.bfloat16, f"{cfg.name} variant(n_layers="
+        f"{LLAMA3_LAYERS})", phase="llama3",
+        desc=f"{cfg.n_layers} layers d_model {cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} (G 16) hd "
+        f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}")
+    llama3_layer_checks(dev, cfg, model)
+    free_card()
+    prompts = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (LLAMA3_B, LLAMA3_P)).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    from repro_torch.launch.serve import generate
+    generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
+    log(f"llama3:   warm-up (128 tokens, 3 steps) "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = LLAMA3_NEW - 1
+    _, counts, tick_ms = moe_generate(
+        cfg, model, prompts, LLAMA3_NEW,
+        f"{cfg.name} {LLAMA3_LAYERS} layers generate (G 16)",
+        cfg.n_layers, cfg.n_layers * steps, phase="llama3")
+    # a tick reads every weight once but the embedding table's B rows
+    read = sum(p.numel() * p.element_size() for n, p in
+               model.named_parameters() if n != "embed.table")
+    log(f"llama3:   tick {tick_ms:.3f} ms against its weight-read bound "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms ({read / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); card {card_line()}")
+    peak_log(dev, "llama3", f"{cfg.name} {LLAMA3_LAYERS} layers", base)
+    del model, prompts
+    free_card()
+    row = llama3_k4_timing(dev, cfg)
+    path = f"{full.name} {LLAMA3_LAYERS} layers"
+    return ({path: counts["decode_attention"]},
+            {path: counts["swa_attention"]},
+            {"llama3-405b decode B=2 S=1056 G=16 bf16": row})
+
+
+def phase_shard_train(dev):
+    """The sharded train step on a one-rank NCCL ("data", "model") mesh
+    against the unsharded step on the card.  Returns its K3 launches."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import dtensor as dt
+    from repro_torch.sharding.specs import (batch_spec, param_specs,
+                                            placements)
+    cfg = get_config("deepseek-v2-lite-16b").reduced().variant(
+        microbatches=2)
+    scfg = cfg.variant(shard_activations=True)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                          device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (SHARD_B, SHARD_S + 1)).astype(np.int32)).to(dev)
+    step = make_train_step(cfg, lr=0.1)
+    params = T.param_dict(model)
+    kernels.reset_launches()
+    for _ in range(SHARD_STEPS):
+        params, _ = step(model, params, {"tokens": tokens})
+    plain_k3 = kernels.launch_counts()["cross_entropy"]
+    mesh = make_host_mesh(dev)
+    try:
+        specs = param_specs(scfg, mesh, fsdp=True)
+        smodel = dt.shard_module(copy.deepcopy(model), mesh, specs)
+        # the deep copy holds the init: the unsharded run replaced params
+        batch = {"tokens": dt.shard(mesh, tokens, placements(
+            mesh, batch_spec(mesh, SHARD_B) + (None,)))}
+        sstep = make_train_step(scfg, lr=0.1, grad_specs=specs)
+        sparams = T.param_dict(smodel)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_STEPS):
+            sparams, metrics = sstep(smodel, sparams, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SHARD_STEPS * 1e3
+        counts = kernels.launch_counts()
+        worst = max((sparams[k].full_tensor() - v).abs().max().item()
+                    for k, v in params.items())
+        kept = all(list(sparams[k].placements) == list(placements(
+            mesh, specs[k])) for k in sparams)
+    finally:
+        dist.destroy_process_group()
+    want = SHARD_STEPS * cfg.microbatches
+    check(counts["cross_entropy"] == want == plain_k3,
+          f"shard: cross_entropy launched {counts['cross_entropy']} (the "
+          f"unsharded step {plain_k3}) for {want}")
+    check(worst <= SHARD_TOL, f"shard: params {worst} from the unsharded "
+          f"step's (tol {SHARD_TOL})")
+    check(kept, "shard: a parameter left its spec's placements")
+    log(f"shard: {cfg.name} reduced on a one-rank NCCL (data 1, model 1) "
+        f"mesh, shard_activations, grad_specs, FSDP forced, "
+        f"{cfg.microbatches} microbatches, B {SHARD_B} S {SHARD_S}, "
+        f"{SHARD_STEPS} steps: params max |diff| {worst} from the unsharded "
+        f"step (tol {SHARD_TOL}), placements kept; {ms:.3f} ms per step; "
+        f"cross_entropy {counts['cross_entropy']} launches; card "
+        f"{card_line()}")
+    del model, smodel
+    free_card()
+    return counts["cross_entropy"]
+
+
 # K3 cross_entropy: (nll, lse) within 1e-4 of the plain version in f32
 # (repro's bar for its kernel, tests/test_kernels.py) and 3e-2 in bf16; rows
 # of +-1e4 logits within 1e-3 (repro's bar for them: lse ~ 1e4, where one
@@ -5240,6 +5506,8 @@ def main() -> int:
                       for s, p in libs.items())
     log(f"build: {built} in {time.perf_counter() - t0:.3f} s")
     log(card_line())
+    from repro_torch.core.codegen import codegen_fingerprint
+    log(f"codegen: fingerprint of this card {codegen_fingerprint(dev)}")
 
     k2 = phase_kernels(dev)
     k1 = phase_ring_kernel(dev)
@@ -5281,6 +5549,13 @@ def main() -> int:
     # K3 once a training step
     ssm_k4, ssm_k5, ssm_k3 = phase_ssm(dev)
     mark("ssm")
+    # llama3-405b over 4 layers: K5 once a layer, K4 once a layer a tick,
+    # both at G 16
+    llama3_k4, llama3_k5, llama3_rows = phase_llama3(dev)
+    mark("llama3")
+    arch_k4.update(llama3_k4)
+    arch_k5.update(llama3_k5)
+    k4_rows.update(llama3_rows)
     arch_k4.update(moe_k4)
     arch_k5.update(moe_k5)
     arch_k4.update(ssm_k4)
@@ -5304,6 +5579,13 @@ def main() -> int:
           f"racy_sum launched {f1_main} times on the main paths")
     phase_train_step(dev)
     mark("train step")
+    # the sharded step on a one-rank mesh: K3 once a microbatch, on the
+    # rank's local rows
+    shard_k3 = phase_shard_train(dev)
+    mark("shard train")
+    k3["launches"] += shard_k3
+    k3["launches_by_path"]["shard train deepseek-v2-lite-16b reduced"] = \
+        shard_k3
     phase_host("serial")
     phase_host("jit")
     phase_corridor_vs_cpu()

@@ -58,6 +58,9 @@ META_METHODS = {"size", "dim", "numel", "nelement", "data_ptr",
                 "get_device", "is_floating_point"}
 # builtins whose result is a host value computed without reading the device
 HOST_BUILTINS = {"len", "isinstance"}
+# the port's type tests of a tensor (``sharding.dtensor.is_dtensor``): host
+# values, as isinstance, by name or as an attribute
+HOST_PREDICATES = {"is_dtensor"}
 SCALAR_PULLS = {"float", "int", "bool", "complex"}
 SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 F64_ATTRS = {"float64", "double"}
@@ -439,9 +442,11 @@ class _TaintLint:
                              f"{func.id}() on a device tensor forces a host "
                              "sync")
                 return False
-            if func.id in HOST_BUILTINS:
+            if func.id in HOST_BUILTINS | HOST_PREDICATES:
                 return False
         if isinstance(func, ast.Attribute):
+            if func.attr in HOST_PREDICATES:
+                return False
             if func.attr in SYNC_METHODS:
                 if self.taint(func.value, tainted):
                     self.hit("BND003", e,

@@ -233,7 +233,9 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
     4,096 as rows of a B * ceil(S / C) batch); and llama4-scout-17b-a16e's
     10,240-token generate (G 5, bf16): K4 over its chunk ring of 8,192 and
     its global layer's full cache of 10,272, K5 through the chunk reshape (2
-    chunks of 8,192) and over the global layer's whole prompt."""
+    chunks of 8,192) and over the global layer's whole prompt; and
+    llama3-405b's generate (G 16, bf16): K4 over B 2 x 1,056 slots, K5 over
+    its 1,024-token prompts."""
     return {
         "weighted_agg.weighted_agg": [
             ("paper CNN f32", (CNN_SIZES, torch.float32)),
@@ -264,7 +266,8 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("llama4-scout-17b-a16e chunk ring B 1 C 8192 G 5",
              (1, 8192, 40, 8, 128)),
             ("llama4-scout-17b-a16e global cache B 1 S 10272 G 5",
-             (1, 10272, 40, 8, 128))],
+             (1, 10272, 40, 8, 128)),
+            ("llama3-405b B 2 S 1056 G 16", (2, 1056, 128, 8, 128))],
         "swa_attention.swa_attention": [
             ("prefill S 512 f32", (1, 512, 15, 5, 64, torch.float32)),
             ("prefill S 1024 f32", (1, 1024, 15, 5, 64, torch.float32)),
@@ -282,7 +285,9 @@ def main_path_shapes() -> dict[str, list[tuple[str, tuple]]]:
             ("llama4-scout-17b-a16e chunk reshape 2 chunks of 8192 bf16",
              (2, 8192, 40, 8, 128, torch.bfloat16)),
             ("llama4-scout-17b-a16e global prefill S 10240 bf16",
-             (1, 10240, 40, 8, 128, torch.bfloat16))],
+             (1, 10240, 40, 8, 128, torch.bfloat16)),
+            ("llama3-405b prefill B 2 S 1024 G 16 bf16",
+             (2, 1024, 128, 8, 128, torch.bfloat16))],
     }
 
 

@@ -2,7 +2,9 @@
 
 ``KERNELS`` lists every kernel the port can launch; ``reset_launches``
 zeroes their counts, so a run can show which kernels its path went
-through."""
+through.  Importing it registers the kernels' ``meta`` custom ops
+(``kernels/meta.py``), which the wrappers call on ``meta`` tensors."""
+from repro_torch.kernels import meta  # noqa: F401
 from repro_torch.kernels.cross_entropy.ops import KERNEL as CROSS_ENTROPY
 from repro_torch.kernels.decode_attention.ops import KERNEL as DECODE_ATTENTION
 from repro_torch.kernels.swa_attention.ops import KERNEL as SWA_ATTENTION

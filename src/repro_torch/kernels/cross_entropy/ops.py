@@ -110,6 +110,8 @@ class CrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def forward(logits, labels):
+        if logits.device.type == "meta":    # shapes only (kernels/meta.py)
+            return torch.ops.repro_torch.cross_entropy(logits, labels)
         return nll_and_lse(logits, labels)
 
     @staticmethod
@@ -134,7 +136,24 @@ def lm_loss(logits, targets, *, use_kernel=True):
     """Mean next-token NLL for [B, S, V] logits vs [B, S] targets.
     ``use_kernel=False`` takes ``ref.cross_entropy`` (plain autograd).
     ``repro``'s ``interpret`` argument has no counterpart: the wrapper
-    follows the logits' device."""
+    follows the logits' device.  DTensor logits take the kernel on each
+    rank's rows: batch rows over the batch axes, the vocab gathered; the
+    mean of the rows' NLL is then DTensor's."""
+    # imported here: the sharding package imports the models, which import
+    # this module
+    from repro_torch.sharding import dtensor as dt
+    if dt.is_dtensor(logits):
+        rows = dt.layout(logits.device_mesh, logits.shape,
+                         {0: dt.BATCH_AXES})
+        nll = dt.on_shards(
+            lambda lg, tg: _rows_nll(lg, tg, use_kernel),
+            (logits, dt.like(logits, targets)), (rows, rows), rows)
+        return dt.replicate(nll.mean())
+    return _rows_nll(logits, targets, use_kernel).mean()
+
+
+def _rows_nll(logits, targets, use_kernel):
+    """[B, S] next-token NLL of [B, S, V] logits."""
     B, S, V = logits.shape
     flat_l = logits.reshape(B * S, V)
     flat_t = targets.reshape(B * S)
@@ -142,4 +161,4 @@ def lm_loss(logits, targets, *, use_kernel=True):
         nll = cross_entropy(flat_l, flat_t)
     else:
         nll = ref.cross_entropy(flat_l, flat_t)
-    return nll.mean()
+    return nll.reshape(B, S)

@@ -50,10 +50,12 @@
 //     online state per query head, with one max and one rescale per tile;
 //     the 4 states are merged in shared memory at the end.
 //   - bf16: tensor cores through mma.sync m16n8k16 (bf16 in, f32
-//     accumulate), chosen over wgmma because decode has G <= 8 query rows,
+//     accumulate), chosen over wgmma because decode has G <= 16 query rows,
 //     not a warpgroup's 64.  The A operand holds the G query heads, padded
 //     to 16 rows with zeros, in registers for the whole walk; K feeds B by
-//     ldmatrix, V by ldmatrix.trans.  The scores' f32 fragments take
+//     ldmatrix, V by ldmatrix.trans.  A thread keeps the online state of
+//     fragment row gq and, at G 16 (llama3-405b's 128 heads over 8), of
+//     row gq + 8 as well: both halves of the A operand are then heads.  The scores' f32 fragments take
 //     log2(e) / sqrt(hd) and exp2; P is rounded to bf16 in registers and
 //     becomes P @ V's A operand (the plain version rounds its weights to
 //     bf16 too).  The helpers below are copies of swa_attention.cu's, kept
@@ -65,6 +67,12 @@
 //     softmax costs one exp2 per (position, head) and a 4-level shuffle
 //     max per head per tile; the weights pass through shared memory to
 //     the P @ V product, where each lane owns hd / 32 output columns.
+//     A warp keeps G heads' states: at G 16 and hd 128 that is 64 output
+//     registers a lane, so P @ V walks 4 V rows at a time and every head
+//     under them (never G heads' weights at once).
+//   - The combine kernel gives each head a warp for its chunk weights:
+//     max(256, 32 G) threads (512 at G 16), and each thread sums every
+//     kSplit-th chunk of 4 output columns.
 
 #include <atomic>
 #include <cstdint>
@@ -81,8 +89,13 @@ constexpr int kTile = 64;                  // positions per kv tile and share
 constexpr int kWarpRows = kTile / kWarps;  // a warp's positions per tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kCombineThreads = 256;
 constexpr int kMaxChunks = 256;            // chunks a combine block takes
+
+// threads of a combine block: a warp per head, at least 256
+template <int G>
+__host__ __device__ constexpr int combine_threads() {
+  return 32 * G > 256 ? 32 * G : 256;
+}
 
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -231,11 +244,12 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
     cp_async_commit();                      // Q rides in the first group
   }
 
-  // per-warp online state.  bf16: row gq's head (lanes gq < G), its m and
-  // l and the C fragments of O (rows gq + 8 are padding and stay 0).  f32:
+  // per-warp online state.  bf16: the heads of fragment rows gq + 8 r, r <
+  // kHeads (rows past G are padding: Q's zeros, never stored), their m and
+  // l and the C fragments of O (c0, c1 row gq; c2, c3 row gq + 8).  f32:
   // every head, m the same in every lane, l over the lane's positions, and
   // the lane's kCols columns of O.
-  constexpr int kHeads = kBf16<T> ? 1 : G;
+  constexpr int kHeads = kBf16<T> ? (G > 8 ? 2 : 1) : G;
   constexpr int kCols = HD / 32;
   float m[kHeads], l[kHeads];
 #pragma unroll
@@ -278,39 +292,49 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
             mma_bf16(s[nt], qf[kk + 1], kf[2], kf[3]);
           }
         }
-        // row gq: positions w0 + 8 nt + 2 tq + e; rows gq + 8 are padding
-        float x[2][2];
-        float mx = -CUDART_INF_F;
+        // row gq + 8 r: positions w0 + 8 nt + 2 tq + e in s[nt][2 r + e]
+        float x[kHeads][2][2];
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int r = 0; r < kHeads; ++r) {
+          float mx = -CUDART_INF_F;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool vis = w0 + 8 * nt + 2 * tq + e < end;
-            x[nt][e] = vis ? s[nt][e] * scale_log2 : -CUDART_INF_F;
-            mx = fmaxf(mx, x[nt][e]);
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const bool vis = w0 + 8 * nt + 2 * tq + e < end;
+              x[r][nt][e] = vis ? s[nt][2 * r + e] * scale_log2
+                                : -CUDART_INF_F;
+              mx = fmaxf(mx, x[r][nt][e]);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[r], mx);
+          const float alpha = exp2f(m[r] - m_new);
+          m[r] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              x[r][nt][e] = exp2f(x[r][nt][e] - m_new);  // masked: exactly 0
+              sum += x[r][nt][e];
+            }
+          l[r] = l[r] * alpha + sum;
+#pragma unroll
+          for (int dt = 0; dt < HD / 8; ++dt) {
+            ob[dt][2 * r] *= alpha;            // with one state, rows gq + 8
+            ob[dt][2 * r + 1] *= alpha;        // are padding and stay 0
           }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[0], mx);
-        const float alpha = exp2f(m[0] - m_new);
-        m[0] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            x[nt][e] = exp2f(x[nt][e] - m_new);   // masked: exactly 0
-            sum += x[nt][e];
-          }
-        l[0] = l[0] * alpha + sum;
-#pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-          ob[dt][0] *= alpha;
-          ob[dt][1] *= alpha;                  // rows gq + 8 stay 0
         }
-        // O += P V: P's bf16 A fragment straight from the scores
-        const uint32_t pa[4] = {pack_bf16(x[0][0], x[0][1]), 0u,
-                                pack_bf16(x[1][0], x[1][1]), 0u};
+        // O += P V: P's bf16 A fragment straight from the scores (a1, a3
+        // are rows gq + 8: zero unless they are heads)
+        const uint32_t pa[4] = {
+            pack_bf16(x[0][0][0], x[0][0][1]),
+            kHeads > 1 ? pack_bf16(x[kHeads - 1][0][0], x[kHeads - 1][0][1])
+                       : 0u,
+            pack_bf16(x[0][1][0], x[0][1][1]),
+            kHeads > 1 ? pack_bf16(x[kHeads - 1][1][0], x[kHeads - 1][1][1])
+                       : 0u};
 #pragma unroll
         for (int dt = 0; dt < HD / 8; dt += 2) {
           uint32_t vf[4];                    // column tiles dt, dt + 1
@@ -341,7 +365,6 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
           }
         }
         const bool vis = w0 + p < end;
-        float alpha[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], 16);
@@ -351,10 +374,12 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
           for (int off = 1; off < 16; off *= 2)
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
           const float m_new = fmaxf(m[g], mx);
-          alpha[g] = exp2f(m[g] - m_new);
+          const float alpha = exp2f(m[g] - m_new);
           m[g] = m_new;
           sc[g] = exp2f(x - m_new);             // masked: exactly 0
-          l[g] = l[g] * alpha[g] + sc[g];       // this lane's positions
+          l[g] = l[g] * alpha + sc[g];          // this lane's positions
+#pragma unroll
+          for (int e = 0; e < kCols; ++e) of[g][e] *= alpha;
         }
         __syncwarp();                           // last tile's reads done
         if (half == 0) {
@@ -362,36 +387,36 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
           for (int g = 0; g < G; ++g) Pw[g * kWarpRows + p] = sc[g];
         }
         __syncwarp();
-        // O += P V over the warp's 16 positions; lane owns kCols columns
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int e = 0; e < kCols; ++e) of[g][e] *= alpha[g];
+        // O += P V over the warp's 16 positions; lane owns kCols columns.
+        // 4 V rows at a time, then every head's 4 weights under them:
+        // each head sums its rows in order
         const float* vr = Vt + lane * kCols;
 #pragma unroll
         for (int r = 0; r < kWarpRows; r += 4) {
-          float4 pw[G];
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            pw[g] = *reinterpret_cast<const float4*>(Pw + g * kWarpRows + r);
+          float vx[4][kCols];
 #pragma unroll
           for (int rr = 0; rr < 4; ++rr) {
-            float vx[kCols];
             if constexpr (kCols == 2) {
               const float2 a = *reinterpret_cast<const float2*>(
                   vr + (r + rr) * P);
-              vx[0] = a.x; vx[1] = a.y;
+              vx[rr][0] = a.x; vx[rr][1] = a.y;
             } else {
               const float4 a = *reinterpret_cast<const float4*>(
                   vr + (r + rr) * P);
-              vx[0] = a.x; vx[1] = a.y; vx[2] = a.z; vx[3] = a.w;
+              vx[rr][0] = a.x; vx[rr][1] = a.y; vx[rr][2] = a.z;
+              vx[rr][3] = a.w;
             }
+          }
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              const float w = rr == 0 ? pw[g].x : rr == 1 ? pw[g].y
-                              : rr == 2 ? pw[g].z : pw[g].w;
+          for (int g = 0; g < G; ++g) {
+            const float4 pw =
+                *reinterpret_cast<const float4*>(Pw + g * kWarpRows + r);
 #pragma unroll
-              for (int e = 0; e < kCols; ++e) of[g][e] += w * vx[e];
+            for (int e = 0; e < kCols; ++e) {
+              of[g][e] += pw.x * vx[0][e];
+              of[g][e] += pw.y * vx[1][e];
+              of[g][e] += pw.z * vx[2][e];
+              of[g][e] += pw.w * vx[3][e];
             }
           }
         }
@@ -406,18 +431,22 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
   float* Ls = Ms + kWarps * G;
   float* Os = Ls + kWarps * G;
   if constexpr (kBf16<T>) {
-    l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
-    l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
-    if (gq < G) {
-      if (tq == 0) {
-        Ms[warp * G + gq] = m[0];
-        Ls[warp * G + gq] = l[0];
-      }
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        float* dst = Os + (warp * G + gq) * HD + 8 * dt + 2 * tq;
-        dst[0] = ob[dt][0];
-        dst[1] = ob[dt][1];
+    for (int r = 0; r < kHeads; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = gq + 8 * r;
+      if (row < G) {
+        if (tq == 0) {
+          Ms[warp * G + row] = m[r];
+          Ls[warp * G + row] = l[r];
+        }
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt) {
+          float* dst = Os + (warp * G + row) * HD + 8 * dt + 2 * tq;
+          dst[0] = ob[dt][2 * r];
+          dst[1] = ob[dt][2 * r + 1];
+        }
       }
     }
   } else {
@@ -471,9 +500,10 @@ decode_chunk_kernel(T* __restrict__ out, float* __restrict__ part,
 // the chunks' weights; then kSplit threads per 4 output columns each sum
 // every kSplit-th chunk, so the loads of all chunks are in flight together.
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kCombineThreads)
+__global__ void __launch_bounds__(combine_threads<G>())
 decode_combine_kernel(T* __restrict__ out, const float* __restrict__ part,
                       int Kv, int n_chunks) {
+  constexpr int kCombineThreads = combine_threads<G>();
   constexpr int kState = HD + 4;            // m, l, pad, pad, acc[HD]
   constexpr int kCols = G * HD / 4;         // float4 columns of the heads
   constexpr int kSplit = kCombineThreads / kCols;
@@ -581,8 +611,8 @@ cudaError_t launch_g(int device, void* out, void* part, const void* q,
       static_cast<const T*>(v), pos, S, Kv, n_chunks, scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return err;
-  decode_combine_kernel<T, HD, G><<<combine_grid(B, Kv), kCombineThreads,
-                                    0, stream>>>(
+  decode_combine_kernel<T, HD, G><<<combine_grid(B, Kv),
+                                    combine_threads<G>(), 0, stream>>>(
       static_cast<T*>(out), static_cast<const float*>(part), Kv, n_chunks);
   return cudaGetLastError();
 }
@@ -599,6 +629,7 @@ cudaError_t launch_hd(int G, int device, void* out, void* part,
   switch (G) {
     DECODE_G(1) DECODE_G(2) DECODE_G(3) DECODE_G(4)
     DECODE_G(5) DECODE_G(6) DECODE_G(7) DECODE_G(8)
+    DECODE_G(16)
     default:
       return cudaErrorInvalidValue;
   }
@@ -638,8 +669,8 @@ extern "C" {
 
 // Each returns the CUDA error of its launches (0 = launched).  The caller
 // guarantees contiguous q/out [B, H, hd] and k/v [B, S, Kv, hd], 16-byte
-// aligned, hd in {64, 128}, H / Kv in 1..8, pos an i32[B] device array with
-// pos[b] >= 0, n_chunks in 1..256 and, when n_chunks > 1, an f32 scratch
+// aligned, hd in {64, 128}, H / Kv in 1..8 or 16, pos an i32[B] device
+// array with pos[b] >= 0, n_chunks in 1..256 and, when n_chunks > 1, an f32 scratch
 // part of B * Kv * n_chunks * (H / Kv) * (hd + 4) elements.
 int decode_attention_f32(int device, void* out, void* part, const void* q,
                          const void* k, const void* v, const void* pos, int B,

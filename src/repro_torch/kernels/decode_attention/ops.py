@@ -19,7 +19,8 @@ from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 
 HEAD_DIMS = (64, 128)          # the kernel's instantiations
-MAX_GROUP = 8                  # query heads per kv head, 1..8
+MAX_GROUP = 16                 # query heads per kv head: 1..8 and 16
+GROUPS = (*range(1, 9), MAX_GROUP)   # 16: llama3-405b's 128 over 8
 # the sequence split (csrc/decode_attention.cu:share_of): the live prefix
 # of a row is cut into shares of whole KV_TILE-position tiles, one per
 # (b, kv head, chunk) block; n_chunks makes the grid WAVE_BLOCKS blocks or
@@ -39,7 +40,13 @@ _EXPORTS = {torch.float32: "decode_attention_f32",
             torch.bfloat16: "decode_attention_bf16"}
 
 THREADS = 128
-COMBINE_THREADS = 256
+
+
+def combine_threads(G: int) -> int:
+    """Threads of a combine block (``combine_threads<G>``): a warp per
+    head, at least 256."""
+    return max(256, 32 * G)
+
 
 KERNEL = CudaKernel("decode_attention", "decode_attention.cu",
                     {**{fn: _ARGS for fn in _EXPORTS.values()},
@@ -107,7 +114,7 @@ def geometry(B: int, S: int, H: int, Kv: int, hd: int
                            {"part": Output(part_size(B, H, hd, n_chunks),
                                            states)}),
             LaunchGeometry("decode_combine_kernel", (B * Kv,),
-                           COMBINE_THREADS, {"out": out})]
+                           combine_threads(G), {"out": out})]
 
 
 def cu_grids(B: int, S: int, H: int, Kv: int, hd: int) -> list[tuple]:
@@ -161,6 +168,8 @@ def decode_attention(q, k_cache, v_cache, pos):
     _check(q, k_cache, v_cache, pos)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, pos)
+    if q.device.type == "meta":             # shapes only (kernels/meta.py)
+        return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, hd = q.shape
@@ -168,9 +177,9 @@ def decode_attention(q, k_cache, v_cache, pos):
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {hd} not in "
                          f"{HEAD_DIMS}")
-    if H // Kv > MAX_GROUP:
+    if H // Kv not in GROUPS:
         raise ValueError(f"decode_attention: {H // Kv} query heads per kv "
-                         f"head; the kernel takes 1..{MAX_GROUP}")
+                         f"head; the kernel takes 1..8 and {MAX_GROUP}")
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("decode_attention: q and the caches must be "

@@ -114,6 +114,8 @@ def swa_attention(q, k, v, window: int):
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return ref.swa_attention(q, k, v, window)
+    if q.device.type == "meta":             # shapes only (kernels/meta.py)
+        return torch.ops.repro_torch.swa_attention(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"swa_attention: unsupported device {q.device}")
     B, S, H, hd = q.shape

@@ -20,6 +20,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.cross_entropy.ops import lm_loss
 from repro_torch.models import transformer as T
+from repro_torch.sharding import dtensor as dt
+from repro_torch.sharding.specs import placements
 
 _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -36,12 +38,14 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-2, grad_specs=None):
     ``cfg.microbatches > 1`` accumulates the gradients of ``M`` equal
     batch splits in ``cfg.grad_accum_dtype``.  ``cfg.loss_chunk > 0``
     computes the loss by ``_chunked_nll`` (the LM head fused with the
-    vocab sweep) instead of materialising the logits.  ``grad_specs``
-    (FSDP sharding constraints) raises: ROADMAP queue 1, item 13."""
-    if grad_specs is not None:
-        raise NotImplementedError(
-            "grad_specs (sharding constraints on the gradients) are not "
-            "ported yet (ROADMAP queue 1, item 13)")
+    vocab sweep) instead of materialising the logits.
+
+    On DTensor parameters the step runs sharded.  ``grad_specs`` (a
+    ``{name: spec}`` dict, ``sharding.param_specs``'s) redistributes each
+    microbatch's gradients to those specs' placements before they are
+    accumulated, into an accumulator that starts so sharded: a
+    reduce-scatter into the FSDP shards rather than an all-reduce of the
+    whole gradient per microbatch (``repro``'s ``constrain``)."""
     P = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
     chunk = cfg.loss_chunk
     acc_dt = _ACCUM_DTYPES[cfg.grad_accum_dtype]
@@ -57,6 +61,13 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-2, grad_specs=None):
         nll = _chunked_nll(cfg, p, h[:, P:], mb["targets"], chunk)
         return torch.mean(nll) + aux
 
+    def constrain(g):
+        if grad_specs is None:
+            return g
+        return {k: x.redistribute(
+            placements=placements(x.device_mesh, grad_specs[k]))
+            for k, x in g.items()}
+
     def train_step(model, params, batch):
         tokens = batch["tokens"]
         mb = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
@@ -68,12 +79,13 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-2, grad_specs=None):
             loss, grads = vg(params, mb)
         else:
             B = tokens.shape[0]
-            acc = {k: torch.zeros(w.shape, dtype=acc_dt, device=w.device)
-                   for k, w in params.items()}
+            acc = constrain({k: torch.zeros_like(w, dtype=acc_dt)
+                             for k, w in params.items()})
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            splits = {k: _microbatches(v, M) for k, v in mb.items()}
             for i in range(M):
-                rows = slice(i * (B // M), (i + 1) * (B // M))
-                loss_i, g_i = vg(params, {k: v[rows] for k, v in mb.items()})
+                loss_i, g_i = vg(params, {k: v[i] for k, v in splits.items()})
+                g_i = constrain(g_i)
                 acc = {k: a + g_i[k].to(acc_dt) for k, a in acc.items()}
                 loss = loss + loss_i
             grads = {k: g / M for k, g in acc.items()}
@@ -83,6 +95,22 @@ def make_train_step(cfg: ArchConfig, lr: float = 1e-2, grad_specs=None):
         return new_params, {"loss": loss}
 
     return train_step
+
+
+def _microbatches(x, M: int) -> list:
+    """The ``M`` equal row blocks of ``x``, in order.  A DTensor batch is
+    gathered first (token ids: a few MB) and each block laid out over the
+    batch axes, so every microbatch is split over every device, as
+    ``repro``'s scan over the reshaped batch is; slicing the sharded batch
+    as it lies would leave each block on a few devices and replicate it
+    on the rest."""
+    B = x.shape[0]
+    if not dt.is_dtensor(x):
+        return [x[i * (B // M):(i + 1) * (B // M)] for i in range(M)]
+    parts = dt.replicate(x).reshape(M, B // M, *x.shape[1:])
+    parts = parts.redistribute(placements=dt.layout(
+        x.device_mesh, parts.shape, {1: dt.BATCH_AXES}))
+    return [parts[i] for i in range(M)]
 
 
 def make_prefill_step(cfg: ArchConfig):
@@ -99,6 +127,10 @@ def make_serve_step(cfg: ArchConfig):
 
     def serve_step(model, token, cache, pos):
         logits, cache = T.decode_step(cfg, model, token, cache, pos)
+        if dt.is_dtensor(logits):
+            # each rank's rows, the vocab gathered for the argmax
+            logits = logits.redistribute(placements=dt.layout(
+                logits.device_mesh, logits.shape, {0: dt.BATCH_AXES}))
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, cache
 

@@ -48,6 +48,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.swa_attention.ops import swa_attention
 from repro_torch.models.modules import (RMSNorm, apply_rope, dense_init,
                                         rope_freqs)
+from repro_torch.sharding import dtensor as dt
 
 NEG_INF = -1e30
 BLOCKED_SDPA_THRESHOLD = 1024   # S above which the q-blocked path is used
@@ -123,9 +124,15 @@ def init_attention(cfg, generator, dtype=torch.float32, device=None):
 
 
 def _proj(x, w):
-    """x: [B, S, d] @ w: [d, N, hd] -> [B, S, N, hd]."""
+    """x: [B, S, d] @ w: [d, N, hd] -> [B, S, N, hd].  A DTensor product
+    whose flat ``N * hd`` columns came out sharded over an axis that does
+    not divide N (the heads' spec degraded) is gathered there before the
+    split into heads."""
     d, n, hd = w.shape
-    return (x @ w.reshape(d, n * hd)).reshape(*x.shape[:-1], n, hd)
+    y = x @ w.reshape(d, n * hd)
+    if dt.is_dtensor(y):
+        y = dt.unshard_uneven(y, y.dim() - 1, n)
+    return y.reshape(*x.shape[:-1], n, hd)
 
 
 def _qkv(p, x):
@@ -149,7 +156,7 @@ def _sdpa(q, k, v, bias):
     G = H // Kv
     qg = q.reshape(B, Sq, Kv, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
-    scores = scores / math.sqrt(hd) + bias[:, :, None]
+    scores = scores / math.sqrt(hd) + dt.like(scores, bias[:, :, None])
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", w, v)
     return out.reshape(B, Sq, H, hd)
@@ -220,10 +227,35 @@ def attention_fwd(cfg, p, x, positions, mask_kind="full", width=0,
     q = apply_rope(q, positions, p.rope_freqs)
     k = apply_rope(k, positions, p.rope_freqs)
     if train:
-        return _out(p, _sdpa_any(q, k, v, positions, mask_kind, width)), None
-    out = _prefill_attention(q, k, v, mask_kind, width)
+        return _out(p, _on_heads(
+            lambda ql, kl, vl: _sdpa_any(ql, kl, vl, positions, mask_kind,
+                                         width), q, k, v)[0]), None
+    # prefill through K5; on DTensors the cache keeps k/v in the layout K4
+    # reads them in
+    out, k, v = _on_heads(
+        lambda ql, kl, vl: _prefill_attention(ql, kl, vl, mask_kind, width),
+        q, k, v)
     return _out(p, out), {"k": to_decode_layout(k, mask_kind, width),
                           "v": to_decode_layout(v, mask_kind, width)}
+
+
+def _on_heads(fn, q, k, v):
+    """``fn(q, k, v)`` -> ``(out, k, v)``.  On DTensors ``fn`` runs on each
+    rank's batch rows and query heads, with the kv heads they read
+    (``dt.attention_layouts``), and k and v come back in that layout: the
+    attention is local to a rank, whatever layout DTensor's rules would
+    pick for the products (contracting over a sharded head dim would
+    all-reduce every score)."""
+    if not dt.is_dtensor(q):
+        return fn(q, k, v), k, v
+    q_pl, kv_pl, heads = dt.attention_layouts(q.device_mesh, q.shape[0],
+                                              q.shape[2], k.shape[2])
+    k, v = k.redistribute(placements=kv_pl), v.redistribute(
+        placements=kv_pl)
+    cut = heads or (lambda t: t)
+    out = dt.on_shards(lambda ql, kl, vl: fn(ql, cut(kl), cut(vl)),
+                       (q, k, v), (q_pl, None, None), q_pl)
+    return out, k, v
 
 
 def to_decode_layout(kv, mask_kind, width):
@@ -249,7 +281,22 @@ def to_decode_layout(kv, mask_kind, width):
 
 def _write(cache, new, pos, per_seq):
     """cache[b, pos or pos[b]] = new[b, 0], in place and without a host
-    sync.  The values of ``repro``'s one-hot blend at finite entries."""
+    sync.  The values of ``repro``'s one-hot blend at finite entries.  A
+    DTensor cache is written on each rank's batch rows, its sequence
+    gathered for the write where it is sharded."""
+    if dt.is_dtensor(cache):
+        mesh = cache.device_mesh
+        rows = dt.layout(mesh, cache.shape, {0: dt.BATCH_AXES})
+        full = cache.redistribute(placements=rows)
+        new = dt.like(cache, new).redistribute(placements=rows)
+        pos = dt.like(cache, pos)
+        pos = pos.redistribute(placements=(
+            dt.layout(mesh, pos.shape, {0: dt.BATCH_AXES}) if per_seq
+            else pos.placements))
+        _write(full.to_local(), new.to_local(), pos.to_local(), per_seq)
+        if list(full.placements) != list(cache.placements):
+            cache.copy_(full.redistribute(placements=cache.placements))
+        return
     if per_seq:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache.index_put_((rows, pos.long()), new[:, 0])
@@ -297,10 +344,49 @@ def attention_decode(cfg, p, x, cache, pos, mask_kind: str = "full",
     k_new = apply_rope(k_new, posv, p.rope_freqs)
     slot, live = (ring_slots(pos, mask_kind, cache["k"].shape[1])
                   if slots is None else slots)
-    _write(cache["k"], k_new, slot, per_seq)
-    _write(cache["v"], v_new, slot, per_seq)
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], live)
+    if dt.is_dtensor(cache["k"]):
+        out = _decode_on_shards(q, k_new, v_new, cache, slot, live, per_seq)
+    else:
+        _write(cache["k"], k_new, slot, per_seq)
+        _write(cache["v"], v_new, slot, per_seq)
+        out = decode_attention(q[:, 0], cache["k"], cache["v"], live)
     return _out(p, out.reshape(B, 1, *out.shape[1:])), cache
+
+
+def _decode_on_shards(q, k_new, v_new, cache, slot, live, per_seq):
+    """The cache write and K4 on each rank's shards of a DTensor cache:
+    batch rows over the batch axes, kv heads over ``model`` where they
+    divide (``dt.attention_layouts``).  A cache in another layout (the
+    sequence over ``model``, as ``cache_specs`` lays it out) is gathered to
+    that one for the step and written back."""
+    mesh = q.device_mesh
+    B, _, H, _ = q.shape
+    q_pl, kv_pl, heads = dt.attention_layouts(mesh, B, H,
+                                              cache["k"].shape[2])
+    cut = heads or (lambda t: t)
+    kc, vc = cache["k"], cache["v"]
+    moved = list(kc.placements) != list(kv_pl)
+    if moved:
+        kc, vc = kc.redistribute(placements=kv_pl), vc.redistribute(
+            placements=kv_pl)
+    # per-row positions go with their rows: a replicated [B] vector cut
+    # like the batch
+    rows = dt.layout(mesh, (B,), {0: dt.BATCH_AXES}) if per_seq else None
+    slot, live = (dt.like(q, slot), dt.like(q, live))
+
+    def step(ql, kn, vn, kl, vl, sl, ll):
+        _write(kl, kn, sl, per_seq)
+        _write(vl, vn, sl, per_seq)
+        return decode_attention(ql[:, 0], cut(kl), cut(vl), ll)
+    from torch.distributed.tensor import Shard
+    out = dt.on_shards(                     # out [B, H, hd]: heads on dim 1
+        step, (q, k_new, v_new, kc, vc, slot, live),
+        (q_pl, kv_pl, kv_pl, None, None, rows, rows),
+        [Shard(1) if pl == Shard(2) else pl for pl in q_pl])
+    if moved:
+        cache["k"].copy_(kc.redistribute(placements=cache["k"].placements))
+        cache["v"].copy_(vc.redistribute(placements=cache["v"].placements))
+    return out
 
 
 def init_attn_cache(cfg, batch, max_seq, mask_kind, width, dtype, device):
@@ -318,7 +404,7 @@ def init_attn_cache(cfg, batch, max_seq, mask_kind, width, dtype, device):
 # MLA runs plain torch products on every path, as ``repro``'s is plain jnp:
 # its q/k head is nope + rope = 192 wide against v's 128, which K5 does not
 # take, and the absorbed decode is one 576-wide key shared by every query
-# head (G = n_heads = 16), past K4's G <= 8.
+# head (G = n_heads = 16) at a head dim of 576, which K4 does not take.
 class MLA(nn.Module):
     """``wq [d, H, nope + rope]``, ``w_dkv [d, lora]``, ``w_krope [d,
     rope]``, ``kv_norm`` (RMSNorm over the latent), ``w_uk [lora, H,
@@ -387,7 +473,8 @@ def _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v, qpos, kpos):
     scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope) +
               torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
     bias = _causal_bias(qpos, kpos, "full", 0)
-    w = torch.softmax(scores * _mla_scale(cfg) + bias, dim=-1).to(v.dtype)
+    w = torch.softmax(scores * _mla_scale(cfg) + dt.like(scores, bias),
+                      dim=-1).to(v.dtype)
     return torch.einsum("bhst,bthv->bshv", w, v)
 
 
@@ -406,17 +493,31 @@ def mla_fwd(cfg: ArchConfig, p, x, positions):
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     k_nope = _proj(c_kv, p.w_uk)
     v = _proj(c_kv, p.w_uv)
-    S = x.shape[1]
-    if S <= BLOCKED_SDPA_THRESHOLD or S % SDPA_BLOCK_Q:
-        out = _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v, positions,
-                          positions)
+    args = (q_nope, q_rope, k_nope, k_rope, v)
+    if dt.is_dtensor(x):
+        # each rank's batch rows and heads (k_rope is shared by the heads)
+        mesh, (B, S, H) = x.device_mesh, q_nope.shape[:3]
+        heads = dt.layout(mesh, (B, S, H),
+                          {0: dt.BATCH_AXES, 2: ("model",)})
+        rows = dt.layout(mesh, (B,), {0: dt.BATCH_AXES})
+        out = dt.on_shards(lambda *a: _mla_core(cfg, *a, positions), args,
+                           (heads, heads, heads, rows, heads), heads)
     else:
-        out = torch.cat([checkpoint(_mla_block, cfg, q_nope, q_rope, k_nope,
-                                    k_rope, v, positions, start,
-                                    use_reentrant=False,
-                                    preserve_rng_state=False)
-                         for start in range(0, S, SDPA_BLOCK_Q)], dim=1)
+        out = _mla_core(cfg, *args, positions)
     return _out(p, out), {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def _mla_core(cfg, q_nope, q_rope, k_nope, k_rope, v, positions):
+    """Causal MLA attention over the whole sequence."""
+    S = q_nope.shape[1]
+    if S <= BLOCKED_SDPA_THRESHOLD or S % SDPA_BLOCK_Q:
+        return _mla_attend(cfg, q_nope, q_rope, k_nope, k_rope, v, positions,
+                           positions)
+    return torch.cat([checkpoint(_mla_block, cfg, q_nope, q_rope, k_nope,
+                                 k_rope, v, positions, start,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+                      for start in range(0, S, SDPA_BLOCK_Q)], dim=1)
 
 
 def mla_decode(cfg: ArchConfig, p, x, cache, pos):
@@ -444,7 +545,7 @@ def mla_decode(cfg: ArchConfig, p, x, cache, pos):
         q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p.w_uk)
         scores = (torch.einsum("bshl,btl->bhst", q_lat, c_kv) +
                   torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
-        w = torch.softmax(scores * _mla_scale(cfg) + bias,
+        w = torch.softmax(scores * _mla_scale(cfg) + dt.like(scores, bias),
                           dim=-1).to(x.dtype)
         ctx = torch.einsum("bhst,btl->bshl", w, c_kv)
         out = torch.einsum("bshl,lhv->bshv", ctx, p.w_uv)
@@ -453,7 +554,7 @@ def mla_decode(cfg: ArchConfig, p, x, cache, pos):
         v = _proj(c_kv, p.w_uv)
         scores = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope) +
                   torch.einsum("bshr,btr->bhst", q_rope, k_rope)).float()
-        w = torch.softmax(scores * _mla_scale(cfg) + bias,
+        w = torch.softmax(scores * _mla_scale(cfg) + dt.like(scores, bias),
                           dim=-1).to(x.dtype)
         out = torch.einsum("bhst,bthv->bshv", w, v)
     return _out(p, out), cache

@@ -15,6 +15,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.dtensor import (BATCH_AXES, is_dtensor, layout,
+                                          like, on_shards)
+
 
 def dense_init(generator, in_dim, out_shape, dtype, scale=None,
                device=None):
@@ -80,6 +83,16 @@ class LayerNorm(nn.Module):
 
 
 def embed_lookup(table, tokens):
+    """``table[tokens]``.  A DTensor table is gathered and each rank looks
+    up its own batch rows (FSDP's gather on use; DTensor's rules for an
+    indexed table differ between torch releases)."""
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+        tokens = like(table, tokens)
+        mesh = table.device_mesh
+        rows = layout(mesh, tokens.shape, {0: BATCH_AXES})
+        return on_shards(lambda t, tok: t[tok], (table, tokens),
+                         ([Replicate()] * mesh.ndim, rows), rows)
     return table[tokens]
 
 
@@ -98,8 +111,8 @@ def apply_rope(x, positions, freqs):
     card).  Split-halves layout: the first hd/2 lanes rotate with the
     second."""
     angles = positions[..., None].float() * freqs      # [..., S, hd/2]
-    cos = torch.cos(angles)[..., None, :]              # [..., S, 1, hd/2]
-    sin = torch.sin(angles)[..., None, :]
+    cos = like(x, torch.cos(angles)[..., None, :])     # [..., S, 1, hd/2]
+    sin = like(x, torch.sin(angles)[..., None, :])
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -111,7 +124,17 @@ def apply_rope(x, positions, freqs):
 def _scan(body, carry, xs):
     """``lax.scan``: ``body(carry, x_t) -> (carry, y_t)`` over the leading
     axis of every tensor of the tuple ``xs``; returns (carry, the y_t
-    stacked)."""
+    stacked).  On ``meta`` tensors (the dry run: shapes, no values) two
+    steps give every shape and reach every input (a decay acts on the
+    outputs from the second step): the scans' steps are elementwise, with
+    no product for the dry run to count, and stepping a long sequence
+    through ``meta`` kernels would take hours."""
+    length = xs[0].shape[0]
+    if xs[0].device.type == "meta" and length > 2:
+        carry, y0 = body(carry, tuple(a[0] for a in xs))
+        carry, y1 = body(carry, tuple(a[1] for a in xs))
+        rest = y1.unsqueeze(0).expand(length - 2, *y1.shape)
+        return carry, torch.cat([y0[None], y1[None], rest])
     ys = []
     for t in range(xs[0].shape[0]):
         carry, y = body(carry, tuple(a[t] for a in xs))
@@ -131,7 +154,7 @@ def chunked_scan(body, carry, xs, chunk: int):
     parameters, so every tensor it needs is bound into it (or in ``xs``)
     beforehand."""
     length = xs[0].shape[0]
-    if length % chunk != 0 or length <= chunk:
+    if length % chunk != 0 or length <= chunk or xs[0].device.type == "meta":
         return _scan(body, carry, xs)
     ys = []
     for start in range(0, length, chunk):

@@ -65,6 +65,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba, moe, rwkv
 from repro_torch.models.modules import (LayerNorm, RMSNorm, SwiGLU,
                                         dense_init, embed_init, embed_lookup)
+from repro_torch.sharding import dtensor as dt
 
 # mixers whose cache is a state with no sequence axis
 SSM_MIXERS = (MIXER_MAMBA, MIXER_RWKV)
@@ -215,30 +216,49 @@ def _apply_sublayer(cfg, p, sub: SubLayer, h, positions, train=False):
     cache): ``aux`` the MoE loss (None for another MLP), the cache
     ``{"mixer": ...}`` and, after a channel-mix, ``{"mlp": ...}`` (the
     training cache ``{"mixer": None}``)."""
-    x = p.ln1(h)
-    if sub.mixer == MIXER_MLA:
-        y, c = attn.mla_fwd(cfg, p.mixer, x, positions)
-    elif sub.mixer == MIXER_MAMBA:
-        y, c = mamba.mamba_fwd(cfg, p.mixer, x)
-    elif sub.mixer == MIXER_RWKV:
-        y, c = rwkv.time_mix_fwd(cfg, p.mixer, x)
-    else:
-        kind, width = attn.mask_spec_for(cfg, sub.mixer)
-        y, c = attn.attention_fwd(cfg, p.mixer, x, positions, kind, width,
-                                  train=train)
-    cache = {"mixer": None if train else c}
-    h = h + y
-    x = p.ln2(h)
-    aux = None
-    if sub.mlp == MLP_MOE:
-        y, aux = moe.moe_fwd(cfg, p.mlp, x)
-    elif sub.mlp == MLP_RWKV:
-        y, cm = rwkv.channel_mix_fwd(cfg, p.mlp, x)
-        if not train:
-            cache["mlp"] = cm
-    else:
-        y = p.mlp(x)
-    return h + y, aux, cache
+    with dt.gathered(p, h):
+        x = p.ln1(h)
+        if sub.mixer == MIXER_MLA:
+            y, c = attn.mla_fwd(cfg, p.mixer, x, positions)
+        elif sub.mixer == MIXER_MAMBA:
+            y, c = _rows(mamba.mamba_fwd, cfg, p.mixer, x)
+        elif sub.mixer == MIXER_RWKV:
+            y, c = _rows(rwkv.time_mix_fwd, cfg, p.mixer, x)
+        else:
+            kind, width = attn.mask_spec_for(cfg, sub.mixer)
+            y, c = attn.attention_fwd(cfg, p.mixer, x, positions, kind, width,
+                                      train=train)
+        cache = {"mixer": None if train else c}
+        h = dt.settle(h + y)
+        x = p.ln2(h)
+        aux = None
+        if sub.mlp == MLP_MOE:
+            y, aux = _moe(moe.moe_fwd, cfg, p.mlp, x)
+        elif sub.mlp == MLP_RWKV:
+            y, cm = _rows(rwkv.channel_mix_fwd, cfg, p.mlp, x)
+            if not train:
+                cache["mlp"] = cm
+        else:
+            y = p.mlp(x)
+        return dt.settle(h + y), aux, cache
+
+
+def _moe(fn, cfg, p, x):
+    """``fn(cfg, p, x)``; on DTensors, on full copies on every rank: the
+    stable sort, the capacity dispatch and ``index_add`` have no DTensor
+    rule (``sharding/dtensor.py``)."""
+    if dt.is_dtensor(x):
+        return dt.on_rows(lambda m, xl: fn(cfg, m, xl), p, x, split=False)
+    return fn(cfg, p, x)
+
+
+def _rows(fn, cfg, p, *args):
+    """``fn(cfg, p, *args)``; on DTensors, on each rank's batch rows (the
+    SSM layers: their scans' per-step ops have no DTensor rule, and rows
+    never meet in them)."""
+    if dt.is_dtensor(args[0]):
+        return dt.on_rows(lambda m, *a: fn(cfg, m, *a), p, *args)
+    return fn(cfg, p, *args)
 
 
 def _functional(block, params, *args):
@@ -257,28 +277,30 @@ def _set_state(leaves, new):
 
 def _apply_sublayer_decode(cfg, p, sub: SubLayer, h, cache, pos, slots):
     """One-token path; writes ``cache`` in place.  Returns h."""
-    x = p.ln1(h)
-    if sub.mixer == MIXER_MLA:
-        y, _ = attn.mla_decode(cfg, p.mixer, x, cache["mixer"], pos)
-    elif sub.mixer in SSM_MIXERS:
-        fn = (mamba.mamba_decode if sub.mixer == MIXER_MAMBA
-              else rwkv.time_mix_decode)
-        y, new = fn(cfg, p.mixer, x, cache["mixer"])
-        _set_state(cache["mixer"], new)
-    else:
-        kind, width = attn.mask_spec_for(cfg, sub.mixer)
-        y, _ = attn.attention_decode(cfg, p.mixer, x, cache["mixer"], pos,
-                                     kind, width, slots)
-    h = h + y
-    x = p.ln2(h)
-    if sub.mlp == MLP_MOE:
-        y = moe.moe_decode(cfg, p.mlp, x)[0]
-    elif sub.mlp == MLP_RWKV:
-        y, new = rwkv.channel_mix_decode(cfg, p.mlp, x, cache["mlp"])
-        _set_state(cache["mlp"], new)
-    else:
-        y = p.mlp(x)
-    return h + y
+    with dt.gathered(p, h):
+        x = p.ln1(h)
+        if sub.mixer == MIXER_MLA:
+            y, _ = attn.mla_decode(cfg, p.mixer, x, cache["mixer"], pos)
+        elif sub.mixer in SSM_MIXERS:
+            fn = (mamba.mamba_decode if sub.mixer == MIXER_MAMBA
+                  else rwkv.time_mix_decode)
+            y, new = _rows(fn, cfg, p.mixer, x, cache["mixer"])
+            _set_state(cache["mixer"], new)
+        else:
+            kind, width = attn.mask_spec_for(cfg, sub.mixer)
+            y, _ = attn.attention_decode(cfg, p.mixer, x, cache["mixer"], pos,
+                                         kind, width, slots)
+        h = dt.settle(h + y)
+        x = p.ln2(h)
+        if sub.mlp == MLP_MOE:
+            y = _moe(moe.moe_decode, cfg, p.mlp, x)[0]
+        elif sub.mlp == MLP_RWKV:
+            y, new = _rows(rwkv.channel_mix_decode, cfg, p.mlp, x,
+                           cache["mlp"])
+            _set_state(cache["mlp"], new)
+        else:
+            y = p.mlp(x)
+        return dt.settle(h + y)
 
 
 def _embed_inputs(cfg, model, tokens, frontend_embeds):
@@ -294,8 +316,8 @@ def _embed_inputs(cfg, model, tokens, frontend_embeds):
 
 def _lm_head(cfg, model, h):
     if cfg.tie_embeddings:
-        return h @ model.embed.table.t()
-    return h @ model.lm_head.w
+        return h @ dt.fsdp_gather(model.embed.table).t()
+    return h @ dt.fsdp_gather(model.lm_head.w)
 
 
 # ---------------------------------------------------------------------------
@@ -323,13 +345,32 @@ def _context_fn(cfg):
     return partial(create_selective_checkpoint_contexts, saved)
 
 
+def _shard_h(cfg: ArchConfig, h):
+    """``repro``'s ``_maybe_shard_h``: with ``shard_activations``, ``h``
+    redistributed to batch over ``"data"`` and d_model over ``"model"``
+    (the sequence-parallel analog; anchoring the batch keeps the products
+    from contracting over ``"data"``).  Without a mesh it raises, as
+    ``repro``'s ``with_sharding_constraint`` does outside one."""
+    if not cfg.shard_activations:
+        return h
+    if not dt.is_dtensor(h):
+        raise RuntimeError(
+            "shard_activations needs a mesh: the activations are plain "
+            "tensors (give the model DTensor parameters, "
+            "sharding.spec_tree_to_shardings)")
+    from torch.distributed.tensor import Replicate, Shard
+    names = h.device_mesh.mesh_dim_names
+    want = [Shard(0) if n == "data" else Shard(2) if n == "model"
+            else Replicate() for n in names]
+    return h.redistribute(placements=want)
+
+
 def _run_stack(cfg: ArchConfig, model: Transformer, h, aux, positions):
     """The period blocks in order, each under one checkpoint with
     ``cfg.remat_policy``'s context unless ``cfg.no_remat`` (``repro``'s
-    ``_make_period_fn``).  Returns (h, aux)."""
-    if cfg.shard_activations:
-        raise NotImplementedError("shard_activations is not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
+    ``_make_period_fn``), ``h`` resharded after the prefix and after every
+    period under ``shard_activations``.  Returns (h, aux)."""
+    h = _shard_h(cfg, h)
     for block in model.stack:
         if cfg.no_remat:
             h, aux = block(cfg, h, aux, positions)
@@ -341,6 +382,7 @@ def _run_stack(cfg: ArchConfig, model: Transformer, h, aux, positions):
                                 positions, use_reentrant=False,
                                 preserve_rng_state=False,
                                 context_fn=_context_fn(cfg))
+        h = _shard_h(cfg, h)
     return h, aux
 
 
@@ -350,7 +392,7 @@ def forward_hidden(cfg: ArchConfig, model: Transformer, tokens,
     logits: the vocab-chunked loss applies the LM head itself."""
     h = _embed_inputs(cfg, model, tokens, frontend_embeds)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = dt.like(h, torch.zeros((), dtype=torch.float32, device=h.device))
     for block in _prefix(model):
         h, a = block(cfg, cfg.prefix_sublayer(), h, positions)
         if a is not None:
@@ -518,8 +560,10 @@ def init_cache(cfg: ArchConfig, batch, max_seq, dtype=torch.float32,
     ``[n_periods, batch, ...]``, each prefix leaf ``[batch, ...]``; a
     sequence axis of ``max_seq`` for full attention and MLA, ``min(width,
     max_seq)`` for a ring, none for an SSM state (float32 ``wkv`` and
-    ``ssm``, the rest in ``dtype``)."""
-    device = resolve_device(device)
+    ``ssm``, the rest in ``dtype``).  ``device="meta"`` gives the shapes
+    alone (the sharding specs and the dry run read them)."""
+    if str(device) != "meta":
+        device = resolve_device(device)
     stack = {}
     for j, sub in enumerate(cfg.sublayers()):
         c = _sublayer_cache(cfg, sub, batch, max_seq, dtype, device)
@@ -557,9 +601,10 @@ def _grow(leaves, lead, batch, seq, grows, dtype, where):
         if not grows:
             out[k] = c.to(dtype)
             continue
-        g = torch.zeros(target, dtype=dtype, device=c.device)
-        g[(slice(None),) * (n + 1) + (slice(0, c.shape[n + 1]),)] = c
-        out[k] = g
+        # zeros at the tail of the sequence axis (a pad, which DTensor
+        # caches take too)
+        tail = (0, 0) * (c.dim() - n - 2) + (0, seq - c.shape[n + 1])
+        out[k] = torch.nn.functional.pad(c.to(dtype), tail)
     return out
 
 

@@ -593,12 +593,14 @@ def _attn_max_err(out, want):
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 5, 8, 16])
 def test_decode_attention_matches_plain_version_on_card(cuda_device, tdt,
                                                         hd, G):
     """K4 at pos = 0, the kv tile's edges 63, 64, 65, S - 1 and a mixed
     per-row vector, with the live prefix split over many chunks (small
-    batch), a few (the serve shape) and one (large batch)."""
+    batch), a few (the serve shape) and one (large batch); G 16 is
+    llama3-405b's grouping (both mma row halves heads, a 512-thread
+    combine)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention import ref as dref
     gen = torch.Generator(device=cuda_device).manual_seed(G * hd)
@@ -621,16 +623,32 @@ def test_decode_attention_matches_plain_version_on_card(cuda_device, tdt,
 
 
 @pytest.mark.cuda
+def test_decode_attention_refuses_groups_9_to_15_on_card(cuda_device):
+    """The kernel is built for 1..8 and 16 query heads per kv head; any
+    other grouping raises before anything launches."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    k = torch.zeros(1, 64, 1, 64, device=cuda_device)
+    kernels.reset_launches()
+    for G in range(9, 16):
+        with pytest.raises(ValueError, match="1..8 and 16"):
+            dops.decode_attention(torch.zeros(1, G, 64, device=cuda_device),
+                                  k, k, 0)
+    assert kernels.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [3, 16])
 def test_decode_attention_writes_its_declared_ranges_on_card(cuda_device,
-                                                             tdt):
+                                                             tdt, G):
     """K4's chunk and combine launches into NaN-filled outputs write
     exactly what ``ops.geometry`` declares, whatever ``pos`` is: a block
     whose share is empty writes the neutral state."""
     import math
     from repro_torch.kernels.decode_attention import ops as dops
-    B, S, H, Kv, hd = 3, 640, 6, 2, 64
+    B, S, Kv, hd = 3, 640, 2, 64
+    H = G * Kv
     n = dops.split(B, S, Kv)
     chunk_geo, combine_geo = dops.geometry(B, S, H, Kv, hd)
     gen = torch.Generator(device=cuda_device).manual_seed(7)

@@ -19,6 +19,7 @@ import torch
 from repro_torch.channel import ChannelParams
 from repro_torch.configs import get_config
 from repro_torch.core.client import Vehicle, VehicleData
+from repro_torch.core.codegen import codegen_fingerprint
 from repro_torch.core.mafl import evaluate, run_simulation
 from repro_torch.core.scenarios import (SweepSpec, get_scenario,
                                         run_scenario, run_sweep)
@@ -107,7 +108,11 @@ IMPORT_ALONE = [
     "repro_torch.corridor.plan", "repro_torch.core.hierarchical",
     "repro_torch.core.sweep", "repro_torch.models.frontends",
     "repro_torch.configs.mistral_nemo_12b", "repro_torch.models.mamba",
-    "repro_torch.models.rwkv", "repro_torch.launch.mesh"]
+    "repro_torch.models.rwkv", "repro_torch.launch.mesh",
+    "repro_torch.sharding", "repro_torch.sharding.dtensor",
+    "repro_torch.roofline", "repro_torch.roofline.dispatch_count",
+    "repro_torch.launch.dryrun", "repro_torch.core.codegen",
+    "repro_torch.kernels.meta"]
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +149,8 @@ def test_fleet_modules_import_alone_without_jax(module, imported_alone):
     "resolve_device", "run_scenario", "run_simulation", "evaluate",
     "Vehicle", "RSUServer", "run_simulation_jit", "init_params",
     "init_cache", "serve", "train", "run_corridor_simulation",
-    "run_handover_simulation", "run_sweep", "run_simulation_vmap"])
+    "run_handover_simulation", "run_sweep", "run_simulation_vmap",
+    "codegen_fingerprint"])
 def test_entry_points_default_to_the_card(entry):
     """``device=None`` means the card: without one the call raises instead
     of running on the host."""
@@ -179,6 +185,7 @@ def test_entry_points_default_to_the_card(entry):
         "run_sweep": lambda: run_sweep(SweepSpec(scenario="quick-k5")),
         "run_simulation_vmap": lambda: run_simulation_vmap(
             [(get_scenario("quick-k5"), 0)]),
+        "codegen_fingerprint": lambda: codegen_fingerprint(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
