@@ -156,8 +156,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
    init) behind a ``BatchedServer`` of 8 slots and max_seq 2048 serves 16
    requests (numpy prompts of 64-1024 tokens, 64 new tokens each);
    ``decode_attention`` launches 32 per tick and ``swa_attention`` 32 per
-   admitted request; a second run under torch.profiler gives the device
-   busy share.
+   admitted request; a second run under torch.profiler gives the
+   kernels' device times.
 8b. dense archs (after phase 8): mistral-nemo-12b's
    ``sliding_window_variant()`` (window 4096) at full width (40 layers,
    d_model 5120, 32/8 heads, vocab 131,072) with bf16 weights and caches
@@ -243,8 +243,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     defaults (batch 8, seq-len 64, 4 local steps, lr 0.05) for 10 rounds;
     ``cross_entropy`` launches once per local step and held-out eval,
     ``weighted_agg`` 3 times per merge (290 leaves, 112 a launch); every
-    printed loss finite; a 3-round run under torch.profiler gives the busy
-    share (against the timed run's wall per round).
+    printed loss finite; a 3-round run under torch.profiler gives the
+    kernels' device times.
 12. train step: ``make_train_step`` at full width, B 8, S 512 (4096 rows
     into K3): one warm-up and 5 timed steps.
 12b. sharded train step (``phase_shard_train``): reduced
@@ -271,8 +271,8 @@ Phases, each of which fails the run (non-zero exit) on any failed check:
     printed, not asserted; timed against its plain version and
     ``x.sum(0)``; launched 0 times on the main paths.
 
-Every torch.profiler reading (kernels' device times, the main paths'
-busy shares) is taken last, after all host-clock and CUDA-event timings:
+Every torch.profiler reading (kernels' device times on the main paths) is
+taken last, after all host-clock and CUDA-event timings:
 a finished profiler trace slows every later launch (``PROFILED``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -407,21 +407,17 @@ def device_ms_per_call(fn, kernel_names, iters=50):
     return (us / iters / 1e3 if us > 0 else None), sum(e.count for e in rows)
 
 
-def profile_call(label, fn, wall_ms):
+def profile_call(label, fn):
     """``fn()`` under torch.profiler: the kernels that take the most device
-    time, and their sum over the wall time of the profiled call and of an
-    unprofiled one (``wall_ms``; the profiler slows the host, so the first
-    share is a lower bound).  Returns (the device ms, the kernel launches
-    recorded), (None, 0) if the profiler recorded no device activity."""
+    time.  Returns (the device ms, the kernel launches recorded), (None, 0)
+    if the profiler recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    prof_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_time_total > 0
@@ -430,25 +426,21 @@ def profile_call(label, fn, wall_ms):
     dev_ms = sum(r[0] for r in rows)
     launched = sum(r[1] for r in rows)
     if not rows:
-        log(f"profile: {label}: no device activity recorded "
-            f"(device busy share not measured)")
+        log(f"profile: {label}: no device activity recorded")
         return None, 0
     log(f"profile: {label}: device kernels {dev_ms:.3f} ms in {launched} "
-        f"launches; wall {prof_ms:.3f} ms profiled (busy share "
-        f"{dev_ms / prof_ms:.4f}), {wall_ms:.3f} ms unprofiled (busy share "
-        f"{dev_ms / wall_ms:.4f}); top kernels by device time:")
+        f"launches; top kernels by device time:")
     for t, n, key in rows[:10]:
         log(f"profile:   {t:10.3f} ms {n:7d} x  {key[:90]}")
     return dev_ms, launched
 
 
-def profile_run(name, engine, rounds, wall_ms):
+def profile_run(name, engine, rounds):
     """One main-path run of the simulator under torch.profiler (queued)."""
     from repro_torch.core.scenarios import run_scenario
     profile_later(f"{name}/{engine} {rounds} rounds",
                   lambda: run_scenario(name, engine=engine, use_kernel=True,
-                                       device=DEVICE, rounds=rounds),
-                  wall_ms)
+                                       device=DEVICE, rounds=rounds))
 
 
 # A finished torch.profiler trace leaves the card's launch path slower for
@@ -487,8 +479,8 @@ def launch_us(dev, n=20000):
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def profile_later(label, fn, wall_ms):
-    PROFILED.append(lambda: profile_call(label, fn, wall_ms))
+def profile_later(label, fn):
+    PROFILED.append(lambda: profile_call(label, fn))
 
 
 def device_time_later(label, row, fn, kernel_names, iters=50,
@@ -960,7 +952,7 @@ def phase_main():
     run_scenario("fleet-k100", engine="batched", use_kernel=True,
                  device=DEVICE, rounds=20)
     log(f"main: warm-up {time.perf_counter() - t0:.3f} s")
-    serial, serial_ms, n1 = run_main("paper-k10", "serial", PAPER_ROUNDS)
+    serial, _, n1 = run_main("paper-k10", "serial", PAPER_ROUNDS)
     batched, _, n2 = run_main("paper-k10", "batched", PAPER_ROUNDS)
     trace = [(r.round, r.vehicle, r.time) for r in serial.rounds]
     check(trace == [(r.round, r.vehicle, r.time) for r in batched.rounds],
@@ -969,11 +961,9 @@ def phase_main():
                .abs().max().item() for k in serial.final_params)
     log(f"main: paper-k10 serial and batched traces identical; final "
         f"params max |serial - batched| = {diff}")
-    _, fleet_ms, n3 = run_main("fleet-k100", "batched", FLEET_ROUNDS)
-    profile_run("paper-k10", "serial", PAPER_ROUNDS,
-                serial_ms * PAPER_ROUNDS)
-    profile_run("fleet-k100", "batched", FLEET_ROUNDS,
-                fleet_ms * FLEET_ROUNDS)
+    _, _, n3 = run_main("fleet-k100", "batched", FLEET_ROUNDS)
+    profile_run("paper-k10", "serial", PAPER_ROUNDS)
+    profile_run("fleet-k100", "batched", FLEET_ROUNDS)
     return n1 + n2 + n3
 
 
@@ -1047,15 +1037,15 @@ def run_fleet(name, rounds):
 
 def phase_fleet():
     from repro_torch.core.scenarios import run_scenario
-    total, ms = 0, {}
+    total = 0
     for name, rounds in JIT_RUNS:
         t0 = time.perf_counter()                 # warm-up, untimed
         run_scenario(name, engine="jit", use_kernel=True, device=DEVICE,
                      rounds=rounds, eval_every=EVAL_EVERY)
         log(f"fleet: {name} warm-up {time.perf_counter() - t0:.3f} s")
-        _, ms[name], n = run_fleet(name, rounds)
+        _, _, n = run_fleet(name, rounds)
         total += n
-    profile_run("fleet-k10000", "jit", 60, ms["fleet-k10000"] * 60)
+    profile_run("fleet-k10000", "jit", 60)
     return total
 
 
@@ -1402,10 +1392,10 @@ def phase_selection(dev):
         run_scenario(name, engine="jit", use_kernel=True, device=DEVICE,
                      rounds=rounds, eval_every=EVAL_EVERY)
         log(f"selection: {name} warm-up {time.perf_counter() - t0:.3f} s")
-        res, ms, n = run_fleet(name, rounds)
+        res, _, n = run_fleet(name, rounds)
         k1 += n
         if name == SELECTION_FLEET[0][0]:
-            profile_run(name, "jit", rounds, ms * rounds)
+            profile_run(name, "jit", rounds)
         sc = get_scenario(name)
         plan = jit_engine.plan_fleet(sc.channel(), 0, rounds,
                                      selection=sc.selection_spec())
@@ -1546,10 +1536,10 @@ def phase_faults(dev):
         run_scenario(name, engine="jit", use_kernel=True, device=DEVICE,
                      rounds=rounds, eval_every=EVAL_EVERY)
         log(f"faults: {name} warm-up {time.perf_counter() - t0:.3f} s")
-        res, ms, n = run_fleet(name, rounds)
+        res, _, n = run_fleet(name, rounds)
         k1 += n
         if name == FAULT_FLEET[0][0]:
-            profile_run(name, "jit", rounds, ms * rounds)
+            profile_run(name, "jit", rounds)
         check_faults(f"{name}/jit", res, fault_replay(name, rounds),
                      get_scenario(name).l_iters)
 
@@ -2939,7 +2929,7 @@ def phase_serve(dev):
         f"{np.sum(stats['prefill_ms']):.3f} ms, sum ticks "
         f"{np.sum(stats['tick_ms']):.3f} ms of {wall * 1e3:.3f} ms")
     profile_later(f"serve {cfg.name} {SERVE_REQUESTS} requests",
-                  lambda: serve_run(cfg, model, prompts), wall * 1e3)
+                  lambda: serve_run(cfg, model, prompts))
     return counts["decode_attention"], counts["swa_attention"]
 
 
@@ -4270,12 +4260,11 @@ def ssm_layout(cfg):
             f"{cfg.d_model} vocab {cfg.vocab_size}")
 
 
-def ssm_profile_later(cfg, dtype, tag, tick_ms, prompts=()):
+def ssm_profile_later(cfg, dtype, tag, prompts=()):
     """Queue the profiler readings of ``cfg`` at full width (built anew
     from the same seed, then freed): each prefill of ``prompts`` tokens
-    (beside its unprofiled wall, taken here) and one decode tick after a
-    128-token prompt (beside ``tick_ms``, the counted run's tick).  The
-    prefill pair gives the recurrence's launches per token."""
+    (after one warm-up) and one decode tick after a 128-token prompt.
+    The prefill pair gives the recurrence's launches per token."""
     import torch
     from repro_torch.models import transformer as T
 
@@ -4291,12 +4280,8 @@ def ssm_profile_later(cfg, dtype, tag, tick_ms, prompts=()):
                 return T.prefill(cfg, model, toks[:, :P])
             fn()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
             _, launched[P] = profile_call(
-                f"ssm: {tag} prefill B {SSM_GEN_B} x {P}", fn, wall)
+                f"ssm: {tag} prefill B {SSM_GEN_B} x {P}", fn)
         if len(launched) == 2:
             (p0, n0), (p1, n1) = sorted(launched.items())
             per = (n1 - n0) / (p1 - p0)
@@ -4309,7 +4294,7 @@ def ssm_profile_later(cfg, dtype, tag, tick_ms, prompts=()):
         T.decode_step(cfg, model, token, cache, 128)
         _, n = profile_call(f"ssm: {tag} one decode tick (B {SSM_GEN_B})",
                             lambda: T.decode_step(cfg, model, token, cache,
-                                                  129), tick_ms)
+                                                  129))
         log(f"ssm: {tag}: {n} launches per decode tick "
             f"({n / cfg.n_layers:.1f} a layer) as recorded by the profiler")
         del model, cache
@@ -4333,8 +4318,8 @@ def ssm_rwkv(dev):
     generate(cfg, model, prompts[:, :128], 4)    # warm-up, not counted
     log(f"ssm:   warm-up (B {SSM_GEN_B}, 128 tokens, 3 steps) "
         f"{time.perf_counter() - t0:.3f} s")
-    _, _, tick_ms = moe_generate(cfg, model, prompts, RWKV_GEN_NEW,
-                                 f"{cfg.name} generate", 0, 0, "ssm")
+    moe_generate(cfg, model, prompts, RWKV_GEN_NEW, f"{cfg.name} generate",
+                 0, 0, "ssm")
     peak_log(dev, "ssm", f"{cfg.name} generate", base)
     torch.cuda.reset_peak_memory_stats(dev)
     prompts_s = serve_prompts(cfg.vocab_size)[:RWKV_SERVE_REQUESTS]
@@ -4359,8 +4344,7 @@ def ssm_rwkv(dev):
         f"decode ms per tick mean {np.mean(stats['tick_ms']):.3f} (median "
         f"{np.median(stats['tick_ms']):.3f}); launches K4 0, K5 0")
     peak_log(dev, "ssm", f"{cfg.name} BatchedServer", base)
-    ssm_profile_later(cfg, torch.bfloat16, cfg.name, tick_ms,
-                      SSM_PROFILE_PROMPTS)
+    ssm_profile_later(cfg, torch.bfloat16, cfg.name, SSM_PROFILE_PROMPTS)
     del model, reqs, prompts
     free_card()
     return {f"{cfg.name} generate": (0, 0),
@@ -4448,15 +4432,15 @@ def ssm_jamba(dev):
         f"{time.perf_counter() - t0:.3f} s")
     attn = sum(s.mixer == "attn" for s in cfg.sublayers()) * cfg.n_periods
     steps = JAMBA_GEN_NEW - 1
-    _, counts, tick_ms = moe_generate(
+    _, counts, _ = moe_generate(
         cfg, model, prompts, JAMBA_GEN_NEW,
         f"{cfg.name} {JAMBA_LAYERS} layers generate ({attn} attention "
         f"layer, G {cfg.n_heads // cfg.n_kv_heads})", attn, attn * steps,
         "ssm")
     peak_log(dev, "ssm", f"{cfg.name} {JAMBA_LAYERS} layers generate",
              base)
-    ssm_profile_later(cfg, torch.bfloat16, f"{cfg.name} {JAMBA_LAYERS} "
-                      f"layers", tick_ms)
+    ssm_profile_later(cfg, torch.bfloat16,
+                      f"{cfg.name} {JAMBA_LAYERS} layers")
     del model, prompts
     free_card()
     return {f"{full.name} {JAMBA_LAYERS} layers": (
@@ -5094,12 +5078,10 @@ def phase_train(dev):
         f"{tokens_per_step / step_ms * 1e3:.1f} tokens/s; launches {counts} "
         f"(cross_entropy = {steps} steps + {evals} evals, weighted_agg = "
         f"{per_merge} launches for {leaves} leaves x {args.rounds} merges)")
-    # set against the timed run's wall per round, as the fleet worlds are
     prof_args = train_args("--rounds", str(TRAIN_PROFILE_ROUNDS))
     profile_later(f"train {cfg.name} {TRAIN_PROFILE_ROUNDS} rounds",
                   lambda: train.run_training(cfg, model, prof_args,
-                                             log=lambda *a: None),
-                  wall / args.rounds * TRAIN_PROFILE_ROUNDS * 1e3)
+                                             log=lambda *a: None))
     return counts["cross_entropy"], counts["weighted_agg"]
 
 
@@ -5520,7 +5502,7 @@ def main() -> int:
     mark("host engines")
     fleet_chains = phase_fleet()
     mark("fleet engine")
-    corridor_chains, corridor_merges, corridor_ms = phase_corridor(dev)
+    corridor_chains, corridor_merges, _ = phase_corridor(dev)
     mark("corridor")
     selection_chains, selection_merges = phase_selection(dev)
     mark("selection")
@@ -5643,7 +5625,7 @@ def main() -> int:
     # merges, each pop's weight a device value)
     k2["forms"] = {"device scalars": k2_device_form}
     k1["launches_by_path"]["pytree"] = 0
-    profile_run("corridor-r8-k4000", "corridor", 40, corridor_ms * 40)
+    profile_run("corridor-r8-k4000", "corridor", 40)
     before = launch_us(dev)
     for measure in PROFILED:            # every profiler reading, last
         measure()

@@ -193,15 +193,16 @@ def run_simulation(
         init_params = init_cnn(torch.Generator().manual_seed(seed),
                                device=device)
 
-    server = RSUServer(init_params, p, scheme=scheme, use_kernel=use_kernel,
-                       interpretation=interpretation, device=device)
-    fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
-    clients = [Vehicle(d, lr=lr, batch_size=fleet_batch, seed=seed,
-                       device=device) for d in vehicles_data]
-    test_images = torch.as_tensor(test_images, device=device)
-    test_labels = torch.as_tensor(test_labels, device=device)
-
     timers = PhaseTimers()
+    with timers.phase("stage"):
+        server = RSUServer(init_params, p, scheme=scheme,
+                           use_kernel=use_kernel,
+                           interpretation=interpretation, device=device)
+        fleet_batch = min(batch_size, min(d.size for d in vehicles_data))
+        clients = [Vehicle(d, lr=lr, batch_size=fleet_batch, seed=seed,
+                           device=device) for d in vehicles_data]
+        test_images = torch.as_tensor(test_images, device=device)
+        test_labels = torch.as_tensor(test_labels, device=device)
     # the host engines record the channels in f64 beside the event loop:
     # it sees every value the device accumulators fold
     ch_stale: list = []
@@ -295,20 +296,21 @@ def run_simulation(
                 # will be consumed and whose result is missing.  Payload
                 # snapshots are frozen at schedule time, so these trainings
                 # are mutually independent and none is wasted.
-                untrained = sorted(
-                    (ev for ev in queue.pending()
-                     if ev.local_params is None
-                     and (ev.vehicle, ev.cycle) in consumed),
-                    key=lambda ev: (ev.time, ev.seq))
-                batches = [clients[ev.vehicle].sample_batches(l_iters)
-                           for ev in untrained]
-                n_eps = ([flt.epoch_of(ev.vehicle) for ev in untrained]
-                         if partial else None)
-                outs, losses = local_update_many(
-                    [ev.payload for ev in untrained], batches, lr,
-                    chunk=wave_chunk, n_eps=n_eps)
-                for ev, out, lo in zip(untrained, outs, losses):
-                    ev.local_params, ev.local_loss = out, lo
+                with timers.phase("wave"):
+                    untrained = sorted(
+                        (ev for ev in queue.pending()
+                         if ev.local_params is None
+                         and (ev.vehicle, ev.cycle) in consumed),
+                        key=lambda ev: (ev.time, ev.seq))
+                    batches = [clients[ev.vehicle].sample_batches(l_iters)
+                               for ev in untrained]
+                    n_eps = ([flt.epoch_of(ev.vehicle) for ev in untrained]
+                             if partial else None)
+                    outs, losses = local_update_many(
+                        [ev.payload for ev in untrained], batches, lr,
+                        chunk=wave_chunk, n_eps=n_eps)
+                    for ev, out, lo in zip(untrained, outs, losses):
+                        ev.local_params, ev.local_loss = out, lo
                 # Drain in time order until an event without a precomputed
                 # result (freshly re-scheduled) reaches the front —
                 # identical arrival semantics to the serial engine.

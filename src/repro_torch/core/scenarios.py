@@ -33,6 +33,7 @@ from repro_torch.core.mafl import ENGINES, SimResult, run_simulation
 from repro_torch.device import resolve_device
 from repro_torch.faults import scenario_faults
 from repro_torch.selection import scenario_spec
+from repro_torch.telemetry import PhaseTimers
 
 # engines that run multi-RSU corridor worlds: the device corridor engine
 # and the serial handover loop
@@ -382,7 +383,9 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
             "mesh reaches the corridor engine only (multi-RSU worlds); "
             "shard a single-RSU world's wave training with "
             "core.jit_engine.run_simulation_jit(mesh=...)")
-    veh, te_i, te_l, p = build_world(sc, seed=seed)
+    timers = PhaseTimers()
+    with timers.phase("world"):
+        veh, te_i, te_l, p = build_world(sc, seed=seed)
     if sc.n_rsus > 1:
         from repro_torch.corridor import (run_corridor_simulation,
                                           run_handover_simulation)
@@ -396,12 +399,12 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
                 sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
                 use_kernel=use_kernel, progress=progress,
                 selection=sc.selection_spec(), metrics=metrics,
-                faults=flt, device=device), sc)
+                faults=flt, device=device), sc, timers)
         return _stamp(run_corridor_simulation(
             sc, veh, te_i, te_l, p, seed=seed, eval_every=eval_every,
             use_kernel=use_kernel, mesh=mesh, record_cohorts=record_cohorts,
             progress=progress, selection=sc.selection_spec(), flat=flat,
-            metrics=metrics, faults=flt, device=device), sc)
+            metrics=metrics, faults=flt, device=device), sc, timers)
     kw = {} if flat is None else {"flat": flat}
     return _stamp(run_simulation(
         veh, te_i, te_l, scheme=sc.scheme,
@@ -409,12 +412,16 @@ def run_scenario(scenario: str | Scenario, *, seed: int = 0,
         params=p, seed=seed, eval_every=eval_every,
         use_kernel=use_kernel, engine=eng, progress=progress,
         selection=sc.selection_spec(), ring_dtype=sc.ring_dtype,
-        metrics=metrics, faults=flt, device=device, **kw), sc)
+        metrics=metrics, faults=flt, device=device, **kw), sc, timers)
 
 
-def _stamp(result: SimResult, sc: Scenario) -> SimResult:
-    """Stamp the scenario name onto the run's telemetry report."""
+def _stamp(result: SimResult, sc: Scenario,
+           timers: Optional[PhaseTimers] = None) -> SimResult:
+    """Stamp the scenario name, and the phases ``run_scenario`` timed
+    around the engine (``world``), onto the run's telemetry report."""
     result.report.scenario = sc.name
+    if timers is not None:
+        result.report.phases.update(timers.snapshot())
     return result
 
 

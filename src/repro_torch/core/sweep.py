@@ -546,7 +546,8 @@ def run_simulation_vmap(worlds, *, eval_every: int = 10,
 
     timers = PhaseTimers()
     _t0 = time.perf_counter()
-    built = [build_world(sc, seed=seed) for sc, seed in worlds]
+    with timers.phase("world"):
+        built = [build_world(sc, seed=seed) for sc, seed in worlds]
     with timers.phase("plan"):
         plans = [plan_fleet(p, seed, M, sc.selection_spec(),
                             l_iters=sc.l_iters)

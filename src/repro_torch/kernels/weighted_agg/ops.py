@@ -27,6 +27,7 @@ import torch
 from repro_torch.kernels.build import CudaKernel, current_stream
 from repro_torch.kernels.geometry import GRIDS_ARG, LaunchGeometry, Output
 from repro_torch.kernels.weighted_agg import ref
+from repro_torch.telemetry.timers import span
 
 LANE = 128      # ring_agg's buffers are ParamLayout buffers: P % LANE == 0
 # launch constants of csrc/weighted_agg.cu and csrc/ring_agg.cu
@@ -263,44 +264,48 @@ def weighted_agg_tree(global_params, local_params, beta, weight):
     on the leaves' device, either or both (the device form: the kernel
     reads ``[beta, weight]`` on the card and forms ``(1 - beta) * weight``
     in the same f32 order, so equal values give equal bits)."""
-    sig, device = _check_tree(global_params, local_params)
-    scal = None
-    if _device_form(beta, weight, device):
-        if device.type == "cuda":
-            scal = _scalar_pair(beta, weight, device)
-    else:
-        b, coef = ref.agg_scalars(beta, weight)
-    gs = list(global_params.values())
-    ls = list(local_params.values())
-    outs = [None] * len(gs)
-    for dtype, leaves, sizes, offsets, total, templates, at in _plan(sig):
-        flat = torch.empty(total, dtype=dtype, device=device)
-        # every leaf's view in one call (the paddings are pieces too)
-        parts = torch._C._nn.unflatten_dense_tensors(flat, templates)
-        for i, off, j in zip(leaves, offsets, at):
-            outs[i] = (parts[j] if j is not None
-                       else flat.narrow(0, off, 0).view(sig[i][0]))
-        if device.type == "cpu":
-            for i in leaves:
-                outs[i].copy_(ref.weighted_agg(gs[i], ls[i], beta, weight))
-            continue
-        base, size = flat.data_ptr(), dtype.itemsize
-        live = [(i, n, off) for i, n, off in zip(leaves, sizes, offsets)
-                if n]
-        stream = current_stream(device)
-        for c in range(0, len(live), MAX_LEAVES):
-            chunk = live[c:c + MAX_LEAVES]
-            ptrs = (ctypes.c_int64 * (3 * len(chunk)))(*(
-                p for i, _, off in chunk for p in (
-                    gs[i].data_ptr(), ls[i].data_ptr(), base + off * size)))
-            ns = (ctypes.c_int64 * len(chunk))(*(n for _, n, _ in chunk))
-            if scal is None:
-                KERNEL.launch(_EXPORTS[dtype], device, ptrs, ns, len(chunk),
-                              b, coef, stream)
-            else:
-                KERNEL.launch(_DEV_EXPORTS[dtype], device, ptrs, ns,
-                              len(chunk), scal.data_ptr(), stream)
-    return dict(zip(global_params, outs))
+    with span("k2"):
+        sig, device = _check_tree(global_params, local_params)
+        scal = None
+        if _device_form(beta, weight, device):
+            if device.type == "cuda":
+                scal = _scalar_pair(beta, weight, device)
+        else:
+            b, coef = ref.agg_scalars(beta, weight)
+        gs = list(global_params.values())
+        ls = list(local_params.values())
+        outs = [None] * len(gs)
+        for (dtype, leaves, sizes, offsets, total, templates,
+             at) in _plan(sig):
+            flat = torch.empty(total, dtype=dtype, device=device)
+            # every leaf's view in one call (the paddings are pieces too)
+            parts = torch._C._nn.unflatten_dense_tensors(flat, templates)
+            for i, off, j in zip(leaves, offsets, at):
+                outs[i] = (parts[j] if j is not None
+                           else flat.narrow(0, off, 0).view(sig[i][0]))
+            if device.type == "cpu":
+                for i in leaves:
+                    outs[i].copy_(ref.weighted_agg(gs[i], ls[i], beta,
+                                                   weight))
+                continue
+            base, size = flat.data_ptr(), dtype.itemsize
+            live = [(i, n, off)
+                    for i, n, off in zip(leaves, sizes, offsets) if n]
+            stream = current_stream(device)
+            for c in range(0, len(live), MAX_LEAVES):
+                chunk = live[c:c + MAX_LEAVES]
+                ptrs = (ctypes.c_int64 * (3 * len(chunk)))(*(
+                    p for i, _, off in chunk for p in (
+                        gs[i].data_ptr(), ls[i].data_ptr(),
+                        base + off * size)))
+                ns = (ctypes.c_int64 * len(chunk))(*(n for _, n, _ in chunk))
+                if scal is None:
+                    KERNEL.launch(_EXPORTS[dtype], device, ptrs, ns,
+                                  len(chunk), b, coef, stream)
+                else:
+                    KERNEL.launch(_DEV_EXPORTS[dtype], device, ptrs, ns,
+                                  len(chunk), scal.data_ptr(), stream)
+        return dict(zip(global_params, outs))
 
 
 def _check_ring_inputs(g, locs, coeffs) -> tuple:

@@ -36,6 +36,7 @@ from repro_torch.data import synth_tokens
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cross_entropy.ops import lm_loss
 from repro_torch.models import transformer as T
+from repro_torch.telemetry.timers import span
 
 
 def lm_loss_fn(cfg, model):
@@ -104,11 +105,12 @@ def run_training(cfg, model, args, log=print) -> TrainRun:
     loss_fn = lm_loss_fn(cfg, model)
 
     # private token shards, sized per the paper's D_i profile
-    shards = [synth_tokens(max(8, p.data_count(i + 1) // 500),
-                           args.seq_len + 1, cfg.vocab_size, seed=i)
-              for i in range(p.K)]
-    held_out = torch.from_numpy(synth_tokens(
-        32, args.seq_len + 1, cfg.vocab_size, seed=999)).to(device)
+    with span("data"):
+        shards = [synth_tokens(max(8, p.data_count(i + 1) // 500),
+                               args.seq_len + 1, cfg.vocab_size, seed=i)
+                  for i in range(p.K)]
+        held_out = torch.from_numpy(synth_tokens(
+            32, args.seq_len + 1, cfg.vocab_size, seed=999)).to(device)
 
     mobility, fading = Mobility(p), RayleighAR1(p, seed=args.seed)
     queue = EventQueue()
@@ -139,7 +141,8 @@ def run_training(cfg, model, args, log=print) -> TrainRun:
         for _ in range(args.l_iters):
             rows = rng.integers(0, len(shard), args.batch)
             loss, grads = vg(local, _upload(shard[rows], device))
-            local = {k: w - args.lr * grads[k] for k, w in local.items()}
+            with span("step.update"):
+                local = {k: w - args.lr * grads[k] for k, w in local.items()}
         if args.scheme == "mafl":
             w = combined_weight(p, ev.upload_delay, ev.train_delay)
             global_params = mafl_update(global_params, local, p.beta, w,
@@ -151,7 +154,7 @@ def run_training(cfg, model, args, log=print) -> TrainRun:
         run.vehicles.append(ev.vehicle)
         run.local_losses.append(loss)
         if r % 5 == 0 or r == args.rounds:
-            with torch.no_grad():
+            with span("eval"), torch.no_grad():
                 val = float(loss_fn(global_params, held_out))
             run.heldout.append((r, val))
             log(f"round {r:3d} vehicle {ev.vehicle} local_loss "
